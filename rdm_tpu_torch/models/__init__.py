@@ -1,0 +1,2 @@
+from .ncsnpp import NCSNpp  # noqa: F401  (registers "ncsnpp")
+from .registry import create_model, get_model  # noqa: F401
