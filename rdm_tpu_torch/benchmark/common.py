@@ -2,22 +2,28 @@
 scaffolding the GTO halo benchmarks share."""
 from __future__ import annotations
 
+import json
 import os
+import tempfile
 import time
+from collections import defaultdict
 from typing import List, Tuple
 
 import numpy as np
 import torch
 
 from ..config import load_hydra_config_from_run
+from ..data import load_arrays
 from ..device import resolve_device
 from ..models import create_model
 from ..models.registry import get_cf_score_fn
 from ..sampling import get_sampling_fn
 from ..sde import get_sde
 from ..training import checkpoints
+from ..training.state import init_train_state
 
 SAMPLING_EPS = 1e-5
+REPO_ROOT = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 
 def find_checkpoint(model_path: str):
@@ -52,6 +58,23 @@ class LoadedModel:
         self.model.to(self.device).eval().requires_grad_(False)
         self.checkpoint_file = checkpoint_file
         self.step = ckpt.step
+
+
+def load_training_run(model_path: str, device=None):
+    """A run directory set up to train on: its config, a ``TrainState`` with
+    the weights, EMA and optimizer state of its latest checkpoint, and its
+    training set resident on ``device`` as (images, labels).  A relative
+    ``data.pkl_path`` that does not exist from the working directory is
+    taken from the repository's root."""
+    device = resolve_device(device)
+    cfg = load_hydra_config_from_run(model_path)
+    if not os.path.isabs(cfg.data.pkl_path) and not os.path.exists(cfg.data.pkl_path):
+        cfg.data.pkl_path = os.path.join(REPO_ROOT, cfg.data.pkl_path)
+    ckpt = checkpoints.restore_checkpoint(find_checkpoint(model_path))
+    state = init_train_state(create_model(cfg).to(device), cfg)
+    checkpoints.load_into_state(state, ckpt)
+    images, labels = load_arrays(cfg)
+    return cfg, state, torch.from_numpy(images).to(device), torch.from_numpy(labels).to(device)
 
 
 def sample_shape(cfg, batch_size: int) -> tuple:
@@ -100,4 +123,35 @@ def sampling_efficiency_metrics(sampling_times: List[float]) -> dict:
         "samples_per_second": float(len(sampling_times) / sum(sampling_times)),
         "min_sampling_time": float(min(sampling_times)),
         "max_sampling_time": float(max(sampling_times)),
+    }
+
+
+def trace_kernels(fn, steps: int, top: int = 12) -> dict:
+    """Run ``fn()`` (``steps`` steps of work) under ``torch.profiler`` and
+    sum the device kernels of the trace: device ms per step (one stream, so
+    the kernels do not overlap), kernel launches per step, and the ``top``
+    kernels by device time, grouped by name."""
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        fn()
+        torch.cuda.synchronize()
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "trace.json")
+        prof.export_chrome_trace(path)
+        with open(path) as f:
+            trace = json.load(f)
+    kernels = [e for e in trace.get("traceEvents", [])
+               if e.get("cat") == "kernel" and e.get("ph") == "X"]
+    by_name = defaultdict(lambda: [0.0, 0])
+    for e in kernels:
+        by_name[e["name"]][0] += float(e["dur"])
+        by_name[e["name"]][1] += 1
+    device_us = sum(v[0] for v in by_name.values())
+    ranked = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:top]
+    return {
+        "device_ms_per_step": device_us / 1e3 / steps,
+        "kernel_launches_per_step": len(kernels) / steps,
+        "top_kernels": [{"name": n[:90], "ms_per_step": v[0] / 1e3 / steps,
+                         "share_of_device": v[0] / device_us if device_us else 0.0,
+                         "launches_per_step": v[1] / steps} for n, v in ranked],
     }

@@ -14,16 +14,14 @@ from __future__ import annotations
 
 import json
 import os
-import tempfile
 import time
-from collections import defaultdict
 
 import torch
 
 from ..models.registry import get_cf_score_fn
 from ..sampling import get_pc_sampler
 from ..sde import RVESDE
-from .common import LoadedModel, sample_shape
+from .common import LoadedModel, sample_shape, trace_kernels
 
 FLAGSHIP = os.path.join(os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__)))), "Training Runs", "2026.08.17_184657")
@@ -46,33 +44,13 @@ def main():
     torch.cuda.synchronize()
     wall_ms = (time.perf_counter() - t0) * 1e3 / STEPS
 
-    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
-        sampler(score_fn, gen)
-        torch.cuda.synchronize()
-    with tempfile.TemporaryDirectory() as tmp:
-        path = os.path.join(tmp, "trace.json")
-        prof.export_chrome_trace(path)
-        with open(path) as f:
-            trace = json.load(f)
-    kernels = [e for e in trace.get("traceEvents", [])
-               if e.get("cat") == "kernel" and e.get("ph") == "X"]
-    by_name = defaultdict(lambda: [0.0, 0])
-    for e in kernels:
-        by_name[e["name"]][0] += float(e["dur"])
-        by_name[e["name"]][1] += 1
-    device_us = sum(v[0] for v in by_name.values())
-    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:12]
+    prof = trace_kernels(lambda: sampler(score_fn, gen), STEPS)
     out = {
         "batch": BATCH, "steps": STEPS,
         "device_name": torch.cuda.get_device_name(lm.device),
         "wall_ms_per_step": wall_ms,
-        "device_ms_per_step": device_us / 1e3 / STEPS,
-        "idle_share": 1.0 - device_us / 1e3 / STEPS / wall_ms,
-        "kernel_launches_per_step": len(kernels) / STEPS,
-        "top_kernels": [{"name": n[:90], "ms_per_step": v[0] / 1e3 / STEPS,
-                         "share_of_device": v[0] / device_us,
-                         "launches_per_step": v[1] / STEPS} for n, v in top],
+        "idle_share": 1.0 - prof["device_ms_per_step"] / wall_ms,
+        **prof,
     }
     print(json.dumps(out))
 

@@ -352,6 +352,72 @@ def load_config(name: str = "train", overrides: Iterable[str] = (),
     return ConfigDict.wrap(cfg)
 
 
+def _dump_scalar(v) -> str:
+    """One scalar as YAML that both this reader and PyYAML type back to
+    ``v``."""
+    if v is None:
+        return "null"
+    if isinstance(v, bool):
+        return "true" if v else "false"
+    if isinstance(v, int):
+        return str(v)
+    if isinstance(v, float):
+        if v != v:
+            return ".nan"
+        if v in (float("inf"), float("-inf")):
+            return ".inf" if v > 0 else "-.inf"
+        text = repr(v)
+        mantissa, e, exp = text.partition("e")
+        if "." not in mantissa:
+            mantissa += ".0"
+        return mantissa + (e + (exp if exp[0] in "+-" else "+" + exp) if e else "")
+    if isinstance(v, str):
+        plain = (v and v == v.strip() and parse_scalar(v) == v
+                 and not any(c in v for c in ":#'\"\n[]{},&*!|>%@`"))
+        return v if plain else "'" + v.replace("'", "''") + "'"
+    raise ValueError(f"cannot write {type(v).__name__} {v!r} to the config snapshot")
+
+
+def dumps(obj, indent: int = 0) -> str:
+    """A mapping of scalars, lists and mappings as block YAML of the subset
+    ``loads`` reads (lists at their key's indentation, as PyYAML writes
+    them)."""
+    lines = []
+    pad = " " * indent
+    for key, value in obj.items():
+        k = _dump_scalar(key)
+        if isinstance(value, dict):
+            if not value:
+                raise ValueError(f"cannot write the empty mapping at {key!r}")
+            lines.append(f"{pad}{k}:")
+            lines.append(dumps(value, indent + 2))
+        elif isinstance(value, (list, tuple)):
+            if not value:
+                lines.append(f"{pad}{k}: []")
+                continue
+            lines.append(f"{pad}{k}:")
+            for item in value:
+                if isinstance(item, (dict, list, tuple)):
+                    raise ValueError(f"cannot write a nested collection in list {key!r}")
+                lines.append(f"{pad}- {_dump_scalar(item)}")
+        else:
+            lines.append(f"{pad}{k}: {_dump_scalar(value)}")
+    return "\n".join(lines)
+
+
+def save_config_snapshot(cfg, work_dir: str) -> str:
+    """Write the composed config as ``<work_dir>/.hydra/config.yaml``, the
+    run manifest that sampling and benchmarking read back (with this module
+    or with PyYAML)."""
+    hydra_dir = os.path.join(work_dir, ".hydra")
+    os.makedirs(hydra_dir, exist_ok=True)
+    path = os.path.join(hydra_dir, "config.yaml")
+    plain = cfg.to_plain() if isinstance(cfg, ConfigDict) else cfg
+    with open(path, "w") as f:
+        f.write(dumps(plain) + "\n")
+    return path
+
+
 def load_hydra_config_from_run(load_dir: str) -> ConfigDict:
     """Read a run's ``.hydra/config.yaml`` manifest."""
     return ConfigDict.wrap(_load_yaml(os.path.join(load_dir, ".hydra", "config.yaml")))

@@ -7,6 +7,10 @@
 * ``ema_state_dict`` places an EMA ``shadow_params`` list, which follows
   ``parameters()`` order without the frozen Fourier ``time_embed.W``, onto
   the names of a model state dict.
+* ``adam_state_from_jax`` turns the JAX package's Adam state (``count`` and
+  the ``mu``/``nu`` trees, which have the layout of ``params``) and its
+  schedule count into the port's optimizer state, without
+  ``time_embed.W``, which does not train.
 """
 from __future__ import annotations
 
@@ -115,3 +119,14 @@ def ema_state_dict(model_sd: dict, shadow_list) -> dict:
             raise ValueError(f"EMA entry for {key} has shape {tuple(tensor.shape)}")
         out[key] = tensor
     return out
+
+
+def adam_state_from_jax(count, mu: dict, nu: dict, schedule_count) -> dict:
+    """The JAX package's optax Adam state (numpy trees) as the state dict of
+    the port's optimizer (``training.losses.ClipAdamWarmup``)."""
+    def moments(tree):
+        sd = state_dict_from_jax(tree)
+        return {k: v for k, v in sd.items() if k != "time_embed.W"}
+
+    return {"count": int(count), "schedule_count": int(schedule_count),
+            "mu": moments(mu), "nu": moments(nu)}

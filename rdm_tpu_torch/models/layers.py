@@ -15,7 +15,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..ops.attention import fused_attn_block, fused_attn_block_reference, round_to
+from ..ops.attention import FusedAttnBlockFn, round_to
 from ..ops.resize import upsample2x_nearest
 
 
@@ -45,6 +45,21 @@ def default_init_(weight: torch.Tensor, scale: float, fan_in: int, fan_out: int,
     bound = math.sqrt(3.0 * scale / ((fan_in + fan_out) / 2.0))
     with torch.no_grad():
         weight.uniform_(-bound, bound, generator=generator)
+
+
+def dropout_mask(shape, rate: float, generator: torch.Generator, device=None):
+    """Keep mask of ``shape``: True with probability ``1 - rate``, drawn
+    from ``generator``."""
+    return torch.rand(shape, generator=generator, device=device) < 1.0 - rate
+
+
+def apply_dropout(h, mask, rate: float):
+    """Flax's dropout on a given mask: ``where(mask, h / keep, 0)``, where the
+    keep probability enters the division in ``h``'s type, as a weakly typed
+    scalar does in the JAX package (in bfloat16, 0.8 becomes 0.80078125).
+    ``F.dropout`` multiplies by the float reciprocal instead, which rounds
+    differently."""
+    return torch.where(mask, h / round_to(1.0 - rate, h.dtype), torch.zeros_like(h))
 
 
 class Dense(nn.Linear):
@@ -130,10 +145,10 @@ class GaussianFourierProjection(nn.Module):
 
 class AttnBlockpp(nn.Module):
     """Self-attention over all H*W positions (81 tokens on the 9x9 GTO
-    images).  With ``use_kernel`` the block goes through
-    ``ops.attention.fused_attn_block``, which launches the CUDA kernel for
-    a CUDA tensor (float32 or bfloat16) and runs the plain version for a CPU
-    tensor; otherwise it runs the plain version directly.  (The JAX package
+    images), through ``ops.attention.FusedAttnBlockFn`` with the float32
+    master weights.  With ``use_kernel`` both directions launch the CUDA
+    kernels for a CUDA tensor (float32 or bfloat16) and run the plain
+    versions for a CPU tensor; otherwise they run the plain versions.  (The JAX package
     takes its TPU kernel only under bfloat16, because float32 tiles trip a
     Mosaic layout check there; that is a limit of the TPU compiler, not part
     of what the block computes, so the CUDA kernel serves both types.)"""
@@ -151,12 +166,12 @@ class AttnBlockpp(nn.Module):
         self.dtype = dtype
 
     def forward(self, x):
-        fn = fused_attn_block if self.use_kernel else fused_attn_block_reference
-        return fn(x.to(self.dtype).contiguous(),
-                  self.GroupNorm_0.weight, self.GroupNorm_0.bias,
-                  self.NIN_0.W, self.NIN_0.b, self.NIN_1.W, self.NIN_1.b,
-                  self.NIN_2.W, self.NIN_2.b, self.NIN_3.W, self.NIN_3.b,
-                  groups=self.GroupNorm_0.num_groups, skip_rescale=self.skip_rescale)
+        return FusedAttnBlockFn.apply(
+            x.to(self.dtype).contiguous(),
+            self.GroupNorm_0.weight, self.GroupNorm_0.bias,
+            self.NIN_0.W, self.NIN_0.b, self.NIN_1.W, self.NIN_1.b,
+            self.NIN_2.W, self.NIN_2.b, self.NIN_3.W, self.NIN_3.b,
+            self.GroupNorm_0.num_groups, self.skip_rescale, self.use_kernel)
 
 
 class ResnetBlockDDPMpp(nn.Module):
@@ -181,13 +196,17 @@ class ResnetBlockDDPMpp(nn.Module):
         self.skip_rescale = skip_rescale
         self.dtype = dtype
 
-    def forward(self, x, temb=None, train: bool = False):
+    def forward(self, x, temb=None, train: bool = False, generator=None):
+        """With ``train`` and a dropout rate above 0, the dropout mask is
+        drawn from ``generator``."""
         h = self.act(self.GroupNorm_0(x))
         h = self.Conv_0(h)
         if temb is not None:
             h = h + self.Dense_0(self.act(temb))[:, :, None, None]
         h = self.act(self.GroupNorm_1(h))
-        h = F.dropout(h, self.dropout, training=train)
+        if train and self.dropout > 0:
+            h = apply_dropout(h, dropout_mask(h.shape, self.dropout, generator, h.device),
+                              self.dropout)
         h = self.Conv_1(h)
         if hasattr(self, "NIN_0"):
             x = self.NIN_0(x)

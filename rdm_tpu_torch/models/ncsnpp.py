@@ -34,7 +34,8 @@ class NCSNpp(nn.Module):
     def __init__(self, nf: int = 64, ch_mult: Sequence[int] = (1, 2, 2),
                  num_res_blocks: int = 2, attn_resolutions: Sequence[int] = (9,),
                  dropout: float = 0.2, resamp_with_conv: bool = True,
-                 conditional: bool = True, num_classes: int = 1,
+                 conditional: bool = True, cond_drop_prob: float = 0.5,
+                 num_classes: int = 1,
                  init_scale: float = 0.0, skip_rescale: bool = True,
                  image_size: int = 9, channels: int = 1,
                  scale_by_sigma: bool = False, fourier_scale: float = 16.0,
@@ -46,6 +47,7 @@ class NCSNpp(nn.Module):
         self.num_res_blocks = num_res_blocks
         self.attn_resolutions = tuple(attn_resolutions)
         self.conditional = conditional
+        self.cond_drop_prob = cond_drop_prob
         self.num_classes = num_classes
         self.image_size = image_size
         self.channels = channels
@@ -119,6 +121,7 @@ class NCSNpp(nn.Module):
             nf=m.nf, ch_mult=tuple(m.ch_mult), num_res_blocks=m.num_res_blocks,
             attn_resolutions=tuple(m.attn_resolutions), dropout=m.dropout,
             resamp_with_conv=m.resamp_with_conv, conditional=m.conditional,
+            cond_drop_prob=m.get("cond_drop_prob", 0.0),
             num_classes=m.get("num_classes", d.get("num_classes", 1)),
             init_scale=m.init_scale, skip_rescale=m.skip_rescale,
             image_size=image_size, channels=m.get("channels", d.get("num_channels", 1)),
@@ -154,15 +157,23 @@ class NCSNpp(nn.Module):
                     mod.W.normal_(0.0, mod.scale, generator=generator)
         return self
 
-    def forward(self, x, time_cond, class_labels=None, train: bool = False):
+    def forward(self, x, time_cond, class_labels=None, train: bool = False,
+                generator: torch.Generator | None = None):
         """x: [B, C, H, W]; time_cond: [B] noise level (the marginal sigma);
-        class_labels: optional [B, num_classes]."""
-        if train:
-            raise NotImplementedError("training (dropout, label drop) is not ported yet")
+        class_labels: optional [B, num_classes].  ``train`` turns on dropout
+        and the classifier-free-guidance label drop, both drawn from
+        ``generator`` (the label drop first, then each resblock's mask in
+        order)."""
         act = self.act
         if self.conditional and class_labels is None:
             class_labels = torch.zeros(x.shape[0], self.num_classes, dtype=x.dtype,
                                        device=x.device)
+        if train and generator is None:
+            raise ValueError("training draws dropout and label-drop masks: pass a generator")
+        if self.conditional and train and self.cond_drop_prob > 0:
+            drop = torch.rand((x.shape[0], 1), generator=generator, device=x.device)
+            mask = drop < self.cond_drop_prob
+            class_labels = class_labels * (1.0 - mask.to(class_labels.dtype))
 
         temb = self.time_embed(torch.log(time_cond))
         temb = self.time_mlp[0](temb)
@@ -177,7 +188,7 @@ class NCSNpp(nn.Module):
         levels = len(self.ch_mult)
         for i in range(levels):
             for _ in range(self.num_res_blocks):
-                h = self.down_blocks[k](h, temb)
+                h = self.down_blocks[k](h, temb, train, generator)
                 if self.down_attn[k] is not None:
                     h = self.down_attn[k](h)
                 hs.append(h)
@@ -186,10 +197,10 @@ class NCSNpp(nn.Module):
             if i != levels - 1:
                 h = self.downsample[i](h)
 
-        h = self.mid_block1(h, temb)
+        h = self.mid_block1(h, temb, train, generator)
         if hasattr(self, "mid_attn"):
             h = self.mid_attn(h)
-        h = self.mid_block2(h, temb)
+        h = self.mid_block2(h, temb, train, generator)
 
         k = 0
         for j, i in enumerate(reversed(range(levels))):
@@ -197,7 +208,7 @@ class NCSNpp(nn.Module):
                 h_skip = hs.pop()
                 h = nearest_resize(h, h_skip.shape[2:])
                 h = torch.cat([h, h_skip], dim=1)
-                h = self.up_blocks[k](h, temb)
+                h = self.up_blocks[k](h, temb, train, generator)
                 if self.up_attn[k] is not None:
                     h = self.up_attn[k](h)
                 k += 1

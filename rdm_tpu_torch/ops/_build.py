@@ -1,10 +1,11 @@
 """Build the package's CUDA sources with ``nvcc`` and load them with ctypes.
 
 Each ``csrc/<name>.cu`` has a plain ``extern "C"`` interface and does not
-include PyTorch's headers, so one ``nvcc`` call builds it in seconds.  The
+include PyTorch's headers, so one ``nvcc`` call builds it in seconds; the
+``.cu`` files may share ``.cuh`` headers of ``csrc/``.  The
 build runs at first use, into ``rdm_tpu_torch/_build/``; the library's file
-name carries a hash of the source and the flags, so a stale build is never
-loaded.  ``nvcc`` is looked up under ``$CUDA_HOME/bin`` and then
+name carries a hash of the source, the shared headers and the flags, so a
+stale build is never loaded.  ``nvcc`` is looked up under ``$CUDA_HOME/bin`` and then
 ``/usr/local/cuda/bin``; without it the build raises.
 """
 from __future__ import annotations
@@ -34,32 +35,46 @@ def find_nvcc() -> str:
 
 
 def library_path(name: str) -> str:
-    src = os.path.join(CSRC_DIR, name + ".cu")
-    with open(src, "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    return os.path.join(BUILD_DIR, f"lib{name}_{digest}.so")
+    """The library's path; its name hashes the source, every shared header
+    of ``csrc/`` and the flags, so an edit to any of them forces a build."""
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    headers = sorted(f for f in os.listdir(CSRC_DIR) if f.endswith(".cuh"))
+    for fname in [name + ".cu", *headers]:
+        with open(os.path.join(CSRC_DIR, fname), "rb") as f:
+            h.update(fname.encode() + b"\0" + f.read())
+    return os.path.join(BUILD_DIR, f"lib{name}_{h.hexdigest()[:16]}.so")
 
 
-def build(name: str) -> str:
-    """Compile ``csrc/<name>.cu`` unless its current library exists; return
-    the library's path.  The compiler's resource report (``-Xptxas -v``) is
-    kept beside the library as ``.log``."""
-    path = library_path(name)
-    if not os.path.exists(path):
-        os.makedirs(BUILD_DIR, exist_ok=True)
-        tmp = f"{path}.{os.getpid()}.tmp"
-        proc = subprocess.run([find_nvcc(), *NVCC_FLAGS, "-o", tmp,
-                               os.path.join(CSRC_DIR, name + ".cu")],
-                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+def build(*names: str) -> list:
+    """Compile each ``csrc/<name>.cu`` whose current library does not exist,
+    one ``nvcc`` per source, all started together; return the libraries'
+    paths.  The compiler's resource report (``-Xptxas -v``) is kept beside
+    each library as ``.log``."""
+    paths = [library_path(n) for n in names]
+    jobs = []
+    for name, path in zip(names, paths):
+        if not os.path.exists(path):
+            os.makedirs(BUILD_DIR, exist_ok=True)
+            tmp = f"{path}.{os.getpid()}.tmp"
+            proc = subprocess.Popen([find_nvcc(), *NVCC_FLAGS, "-o", tmp,
+                                     os.path.join(CSRC_DIR, name + ".cu")],
+                                    stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            jobs.append((name, path, tmp, proc))
+    failed = []
+    for name, path, tmp, proc in jobs:
+        out, _ = proc.communicate()
         if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed for {name}:\n{proc.stdout}")
+            failed.append(f"nvcc failed for {name}:\n{out}")
+            continue
         with open(path[:-3] + ".log", "w") as f:
-            f.write(proc.stdout)
+            f.write(out)
         os.replace(tmp, path)
-    return path
+    if failed:
+        raise RuntimeError("\n".join(failed))
+    return paths
 
 
 @functools.lru_cache(maxsize=None)
 def load_library(name: str) -> ctypes.CDLL:
     """Build ``csrc/<name>.cu`` if needed and load it."""
-    return ctypes.CDLL(build(name))
+    return ctypes.CDLL(build(name)[0])

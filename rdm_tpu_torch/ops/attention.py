@@ -1,24 +1,36 @@
 """Fused NCSN++ attention block: GroupNorm -> q, k, v NINs -> softmax
-attention over the L = H*W tokens -> output NIN -> residual (times 1/sqrt 2).
+attention over the L = H*W tokens -> output NIN -> residual (times 1/sqrt 2),
+and its backward.
 
-``fused_attn_block`` launches the hand-written CUDA kernel in
-``csrc/fused_attn_block.cu`` on a CUDA tensor and runs the plain PyTorch
-version ``fused_attn_block_reference`` on a CPU tensor; on a CUDA tensor it
-launches the kernel or raises, it never falls back.
+``FusedAttnBlockFn`` is the differentiable block the model calls.  It takes
+the activations in the working type and the ten float32 master parameters,
+casts the parameters inside, and returns float32 parameter gradients that
+were never rounded to the working type.  Its backward recomputes the
+forward, as the TPU kernel does.
 
-The kernel replaces the TPU kernel
+``fused_attn_block`` and ``fused_attn_block_bwd`` launch the hand-written
+CUDA kernels ``csrc/fused_attn_block.cu`` and ``csrc/fused_attn_block_bwd.cu``
+on CUDA tensors and run the plain PyTorch versions
+``fused_attn_block_reference`` and ``fused_attn_block_bwd_reference`` on CPU
+tensors; on a CUDA tensor they launch the kernel or raise, they never fall
+back.
+
+The forward kernel replaces the TPU kernel
 ``rdm_tpu/ops/pallas/attention.py::_fused_block_kernel``.  At the sampling
 shape (B = 1024, L = 81, C = 64, bf16) it must move 21.2 MB (x in, out out)
 and do about 4.4 GFLOP, so device memory bounds it (about 6.3 us at
 3.35 TB/s, against 4.5 us at 989 TFLOP/s).  Its design keeps every
 intermediate of one sample in shared memory, so device memory sees x, out
-and the weights once; see the source for the layout.
+and the weights once; see the source for the layout.  The backward kernel
+replaces ``_fused_block_bwd_kernel`` of the same file; operations bound it
+(see its source).
 
-Both versions take the model's NCHW activations and the NIN weights as
+Both directions take the model's NCHW activations and the NIN weights as
 (C_in, C_out) matrices, cast every parameter to the activations' type
-first, and round at the same points: h, each NIN product (before its bias
-is added in the working type), the softmax probabilities and p.v are
-rounded to the working type, statistics, scores and softmax are float32.
+first, and round at the TPU kernels' points: forward, h, each NIN product
+(before its bias is added in the working type), the softmax probabilities
+and p.v are rounded to the working type, statistics, scores and softmax are
+float32; backward, see ``fused_attn_block_bwd_reference``.
 """
 from __future__ import annotations
 
@@ -32,8 +44,7 @@ from . import _build
 SUPPORTED_CHANNELS = (64, 128)
 MAX_TOKENS = 128
 GN_EPS = 1e-6
-# Shared memory one block may use on sm_90 (227 KB), and the kernel's static
-# share of it (two float arrays of C entries).
+# Shared memory one block may use on sm_90 (227 KB).
 _SMEM_LIMIT = 232448
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -44,13 +55,23 @@ def round_to(value: float, dtype: torch.dtype) -> float:
     return float(torch.tensor(value, dtype=dtype))
 
 
+def _acc_dtype(dtype: torch.dtype) -> torch.dtype:
+    """Where the kernels accumulate in float32, the plain versions do too;
+    float64 inputs (gradient checks) stay in float64."""
+    return torch.float64 if dtype == torch.float64 else torch.float32
+
+
+def _rescale(skip_rescale: bool) -> float:
+    return 1.0 / math.sqrt(2.0) if skip_rescale else 1.0
+
+
 def fused_attn_block_reference(x, gn_scale, gn_bias, wq, bq, wk, bk, wv, bv, wp, bp,
                                *, groups: int, skip_rescale: bool = True):
     """Plain PyTorch version of the fused block, same inputs and rounding."""
     dt = x.dtype
     B, C, H, W = x.shape
     L = H * W
-    f32 = torch.float32
+    f32 = _acc_dtype(dt)
     gamma, beta, wq, bq, wk, bk, wv, bv, wp, bp = (
         p.to(dt) for p in (gn_scale, gn_bias, wq, bq, wk, bk, wv, bv, wp, bp))
 
@@ -71,9 +92,84 @@ def fused_attn_block_reference(x, gn_scale, gn_bias, wq, bq, wk, bk, wv, bv, wp,
     p = p / p.sum(-1, keepdim=True)
     o = torch.matmul(p.to(dt).to(f32), v.to(f32)).to(dt)
     o2 = nin(o, wp, bp)
-    rescale = round_to(1.0 / math.sqrt(2.0) if skip_rescale else 1.0, dt)
-    out = (x.reshape(B, C, L).transpose(1, 2) + o2) * rescale
+    out = (x.reshape(B, C, L).transpose(1, 2) + o2) * round_to(_rescale(skip_rescale), dt)
     return out.transpose(1, 2).reshape(B, C, H, W)
+
+
+def fused_attn_block_bwd_reference(x, g, gn_scale, gn_bias, wq, bq, wk, bk, wv, bv, wp, bp,
+                                   *, groups: int, skip_rescale: bool = True):
+    """Plain PyTorch backward of the fused block: recompute the forward, then
+    chain the output cotangent ``g`` back.  Returns ``(dx, dgn_scale,
+    dgn_bias, dwq, dbq, dwk, dbk, dwv, dbv, dwp, dbp)``: dx in the type of
+    ``x``, the parameter gradients in float32 (float64 for float64 input),
+    shaped like the parameters.
+
+    Rounding points, those of the TPU kernel: ``g`` is rounded to the working
+    type T first; the proj branch takes ``gs = T(g * T(rescale))`` and the
+    residual branch ``g * rescale`` in float32; do, dv, dq, dk and ds (after
+    the 1/sqrt(C) scale) are rounded to T; dp, the softmax backward, dh (the
+    float32 sum of three products) and the GroupNorm backward stay float32;
+    the parameter gradients are float32 sums; dx is rounded to T once, at the
+    end."""
+    dt = x.dtype
+    B, C, H, W = x.shape
+    L = H * W
+    cg = C // groups
+    f32 = _acc_dtype(dt)
+    shapes = [p.shape for p in (gn_scale, gn_bias, wq, bq, wk, bk, wv, bv, wp, bp)]
+    gamma, beta, wq, bq, wk, bk, wv, bv, wp, bp = (
+        p.to(dt).to(f32) for p in (gn_scale, gn_bias, wq, bq, wk, bk, wv, bv, wp, bp))
+
+    # ---- recompute the forward (B, L, C) ----
+    xg = x.reshape(B, groups, cg * L).to(f32)
+    inv_n = 1.0 / (cg * L)
+    mu = xg.sum(-1, keepdim=True) * inv_n
+    var = (xg * xg).sum(-1, keepdim=True) * inv_n - mu * mu
+    inv = torch.rsqrt(var + GN_EPS)                                  # (B, groups, 1)
+    xhat = ((xg - mu) * inv).reshape(B, C, L).transpose(1, 2)
+    h = (xhat * gamma + beta).to(dt).to(f32)
+
+    def nin(t, w, b):
+        return (torch.matmul(t, w).to(dt) + b.to(dt)).to(f32)
+
+    def tround(t):
+        return t.to(dt).to(f32)
+
+    q, k, v = nin(h, wq, bq), nin(h, wk, bk), nin(h, wv, bv)
+    scale = float(C) ** -0.5
+    s = torch.matmul(q, k.transpose(1, 2)) * scale
+    p = torch.exp(s - s.amax(-1, keepdim=True))
+    p = p / p.sum(-1, keepdim=True)                                  # float32
+    pt = tround(p)
+    o = tround(torch.matmul(pt, v))
+
+    # ---- backward ----
+    gt = g.to(dt).reshape(B, C, L).transpose(1, 2).to(f32)           # T values
+    gs = tround(gt * round_to(_rescale(skip_rescale), dt))
+    dwp = torch.einsum("blc,bld->cd", o, gs)
+    dbp = gs.sum((0, 1))
+    do = tround(torch.matmul(gs, wp.t()))
+    dv = tround(torch.matmul(pt.transpose(1, 2), do))
+    dp = torch.matmul(do, v.transpose(1, 2))
+    ds = p * (dp - (dp * p).sum(-1, keepdim=True))
+    ds = tround(ds * scale)
+    dq = tround(torch.matmul(ds, k))
+    dk = tround(torch.matmul(ds.transpose(1, 2), q))
+    dwq, dwk, dwv = (torch.einsum("blc,bld->cd", h, d) for d in (dq, dk, dv))
+    dbq, dbk, dbv = (d.sum((0, 1)) for d in (dq, dk, dv))
+    dh = (torch.matmul(dq, wq.t()) + torch.matmul(dk, wk.t())) + torch.matmul(dv, wv.t())
+
+    dgamma = (dh * xhat).sum((0, 1))
+    dbeta = dh.sum((0, 1))
+    dxhat = (dh * gamma).transpose(1, 2).reshape(B, groups, cg * L)
+    xh = xhat.transpose(1, 2).reshape(B, groups, cg * L)
+    m1 = dxhat.sum(-1, keepdim=True) * inv_n
+    m2 = (dxhat * xh).sum(-1, keepdim=True) * inv_n
+    dxf = (inv * (dxhat - m1 - xh * m2)).reshape(B, C, L)
+    dx = dxf + gt.transpose(1, 2) * _rescale(skip_rescale)
+    grads = (dgamma, dbeta, dwq, dbq, dwk, dbk, dwv, dbv, dwp, dbp)
+    return (dx.to(dt).reshape(B, C, H, W),
+            *(gr.reshape(shape) for gr, shape in zip(grads, shapes)))
 
 
 def rows_per_chunk(C: int, L: int) -> int:
@@ -89,16 +185,55 @@ def rows_per_chunk(C: int, L: int) -> int:
     return min(L, rows)
 
 
-def _library():
-    lib = _build.load_library("fused_attn_block")
-    fn = lib.rdm_fused_attn_block
+def _library(name: str, fn_name: str, argtypes, extra=()):
+    lib = _build.load_library(name)
+    fn = getattr(lib, fn_name)
     if fn.argtypes is None:
-        fn.argtypes = ([ctypes.c_void_p] * 12 + [ctypes.c_int] * 6
-                       + [ctypes.c_float] * 3 + [ctypes.c_void_p])
+        fn.argtypes = argtypes
         fn.restype = ctypes.c_int
         lib.rdm_cuda_error_string.argtypes = [ctypes.c_int]
         lib.rdm_cuda_error_string.restype = ctypes.c_char_p
+        for fname, args, res in extra:
+            getattr(lib, fname).argtypes = args
+            getattr(lib, fname).restype = res
     return lib
+
+
+def _checked_params(name, x, params):
+    """Check ``x`` and the ten parameters for a kernel and return ``(B, C, L,
+    params)`` with the parameters in the working type, contiguous, and
+    16-byte aligned (the kernels read weight rows with 16-byte loads)."""
+    if x.device.type != "cuda":
+        raise ValueError(f"{name}: unsupported device {x.device}")
+    if x.dim() != 4:
+        raise ValueError(f"{name}: expected NCHW, got shape {tuple(x.shape)}")
+    B, C, H, W = x.shape
+    L = H * W
+    if x.dtype not in _DTYPE_CODES:
+        raise ValueError(f"{name}: unsupported dtype {x.dtype}")
+    if C not in SUPPORTED_CHANNELS:
+        raise ValueError(f"{name}: unsupported C={C}")
+    if L > MAX_TOKENS:
+        raise ValueError(f"{name}: {L} tokens exceed {MAX_TOKENS}")
+    if not x.is_contiguous():
+        raise ValueError(f"{name}: x must be contiguous")
+    out = []
+    for p, shape in zip(params, _param_shapes(C)):
+        if p.device != x.device or p.numel() != math.prod(shape):
+            raise ValueError(f"{name}: parameter on another device or "
+                             f"of the wrong size ({tuple(p.shape)} vs {shape})")
+        p = p.reshape(shape).to(x.dtype).contiguous()
+        out.append(p if p.data_ptr() % 16 == 0 else p.clone())
+    return B, C, L, out
+
+
+def _param_shapes(C):
+    return ((C,), (C,), (C, C), (C,), (C, C), (C,), (C, C), (C,), (C, C), (C,))
+
+
+def _raise_on(lib, err, name):
+    if err != 0:
+        raise RuntimeError(f"{name} launch failed: " + lib.rdm_cuda_error_string(err).decode())
 
 
 def fused_attn_block(x, gn_scale, gn_bias, wq, bq, wk, bk, wv, bv, wp, bp,
@@ -109,49 +244,119 @@ def fused_attn_block(x, gn_scale, gn_bias, wq, bq, wk, bk, wv, bv, wp, bp,
     takes float32 or bfloat16, C in {64, 128} divisible by ``groups`` and
     at most 128 tokens, contiguous, and raises on anything else.
     """
+    raw = (gn_scale, gn_bias, wq, bq, wk, bk, wv, bv, wp, bp)
     if x.device.type == "cpu":
-        return fused_attn_block_reference(x, gn_scale, gn_bias, wq, bq, wk, bk,
-                                          wv, bv, wp, bp, groups=groups,
-                                          skip_rescale=skip_rescale)
-    if x.device.type != "cuda":
-        raise ValueError(f"fused_attn_block: unsupported device {x.device}")
-    if x.dim() != 4:
-        raise ValueError(f"fused_attn_block: expected NCHW, got shape {tuple(x.shape)}")
-    B, C, H, W = x.shape
-    L = H * W
-    if x.dtype not in _DTYPE_CODES:
-        raise ValueError(f"fused_attn_block: unsupported dtype {x.dtype}")
-    if C not in SUPPORTED_CHANNELS or C % groups != 0:
-        raise ValueError(f"fused_attn_block: unsupported C={C}, groups={groups}")
-    if L > MAX_TOKENS:
-        raise ValueError(f"fused_attn_block: {L} tokens exceed {MAX_TOKENS}")
-    if not x.is_contiguous():
-        raise ValueError("fused_attn_block: x must be contiguous")
-    params = []
-    for p, shape in ((gn_scale, (C,)), (gn_bias, (C,)), (wq, (C, C)), (bq, (C,)),
-                     (wk, (C, C)), (bk, (C,)), (wv, (C, C)), (bv, (C,)),
-                     (wp, (C, C)), (bp, (C,))):
-        if p.device != x.device or p.numel() != math.prod(shape):
-            raise ValueError("fused_attn_block: parameter on another device or "
-                             f"of the wrong size ({tuple(p.shape)} vs {shape})")
-        p = p.reshape(shape).to(x.dtype).contiguous()
-        # the kernel reads weight rows with 16-byte loads
-        params.append(p if p.data_ptr() % 16 == 0 else p.clone())
+        return fused_attn_block_reference(x, *raw, groups=groups, skip_rescale=skip_rescale)
+    B, C, L, params = _checked_params("fused_attn_block", x, raw)
+    if C % groups != 0:
+        raise ValueError(f"fused_attn_block: C={C} is not divisible by groups={groups}")
     out = torch.empty_like(x)
     if B == 0:
         return out
-    lib = _library()
+    lib = _library("fused_attn_block", "rdm_fused_attn_block",
+                   [ctypes.c_void_p] * 12 + [ctypes.c_int] * 6
+                   + [ctypes.c_float] * 3 + [ctypes.c_void_p])
     with torch.cuda.device(x.device):
         err = lib.rdm_fused_attn_block(
             x.data_ptr(), out.data_ptr(), *(p.data_ptr() for p in params),
             B, C, L, groups, rows_per_chunk(C, L), _DTYPE_CODES[x.dtype],
-            GN_EPS, float(C) ** -0.5, 1.0 / math.sqrt(2.0) if skip_rescale else 1.0,
+            GN_EPS, float(C) ** -0.5, _rescale(skip_rescale),
             torch.cuda.current_stream(x.device).cuda_stream)
-    if err != 0:
-        raise RuntimeError("fused_attn_block launch failed: "
-                           + lib.rdm_cuda_error_string(err).decode())
+    _raise_on(lib, err, "fused_attn_block")
     fused_attn_block.launches += 1
     return out
 
 
 fused_attn_block.launches = 0
+
+
+def _bwd_library():
+    return _library("fused_attn_block_bwd", "rdm_fused_attn_block_bwd",
+                    [ctypes.c_void_p] * 18 + [ctypes.c_int] * 5
+                    + [ctypes.c_float] * 3 + [ctypes.c_void_p],
+                    extra=[("rdm_fused_attn_block_bwd_workspace",
+                            [ctypes.c_int] * 4, ctypes.c_longlong)])
+
+
+def fused_attn_block_bwd(x, g, gn_scale, gn_bias, wq, bq, wk, bk, wv, bv, wp, bp,
+                         *, groups: int, skip_rescale: bool = True):
+    """Backward of the fused block: ``(dx, dgn_scale, dgn_bias, dwq, dbq,
+    dwk, dbk, dwv, dbv, dwp, dbp)`` for the output cotangent ``g``; dx in the
+    type of ``x``, the parameter gradients float32 and shaped like the
+    parameters.
+
+    CPU tensors take the plain version.  CUDA tensors launch the kernel
+    (with the same limits as the forward's) and raise on anything else.
+    The parameter gradients are sums in a fixed order, so two runs on the
+    same inputs agree bit for bit.
+    """
+    raw = (gn_scale, gn_bias, wq, bq, wk, bk, wv, bv, wp, bp)
+    if x.device.type == "cpu":
+        return fused_attn_block_bwd_reference(x, g, *raw, groups=groups,
+                                              skip_rescale=skip_rescale)
+    B, C, L, params = _checked_params("fused_attn_block_bwd", x, raw)
+    if C % groups != 0:
+        raise ValueError(f"fused_attn_block_bwd: C={C} is not divisible by groups={groups}")
+    if g.shape != x.shape or g.device != x.device:
+        raise ValueError(f"fused_attn_block_bwd: g of shape {tuple(g.shape)} on {g.device} "
+                         f"does not match x {tuple(x.shape)} on {x.device}")
+    g = g.to(x.dtype).contiguous()
+    # the kernel reads the weights of do, dh transposed
+    wt = [params[i].t().contiguous() for i in (2, 4, 6, 8)]
+    args = params[:8] + [wt[3], params[9]] + wt[:3]
+    dx = torch.empty_like(x)
+    grads = torch.empty(4 * C * C + 6 * C, dtype=torch.float32, device=x.device)
+    if B > 0:
+        lib = _bwd_library()
+        n_ws = lib.rdm_fused_attn_block_bwd_workspace(B, C, L, groups)
+        workspace = torch.empty(n_ws, dtype=torch.float32, device=x.device)
+        with torch.cuda.device(x.device):
+            err = lib.rdm_fused_attn_block_bwd(
+                x.data_ptr(), g.data_ptr(), dx.data_ptr(), *(a.data_ptr() for a in args),
+                grads.data_ptr(), workspace.data_ptr(), B, C, L, groups,
+                _DTYPE_CODES[x.dtype], GN_EPS, float(C) ** -0.5, _rescale(skip_rescale),
+                torch.cuda.current_stream(x.device).cuda_stream)
+        _raise_on(lib, err, "fused_attn_block_bwd")
+        fused_attn_block_bwd.launches += 1
+    else:
+        grads.zero_()
+    out, offset = [], 0
+    for p, shape in zip(raw, _param_shapes(C)):
+        n = math.prod(shape)
+        out.append(grads[offset:offset + n].reshape(p.shape))
+        offset += n
+    return (dx, *out)
+
+
+fused_attn_block_bwd.launches = 0
+
+
+class FusedAttnBlockFn(torch.autograd.Function):
+    """The differentiable fused block: ``apply(x, gn_scale, gn_bias, wq, bq,
+    wk, bk, wv, bv, wp, bp, groups, skip_rescale, use_kernel)``.
+
+    ``x`` is in the working type; the parameters are the float32 master
+    weights and are cast to the working type inside, so their gradients come
+    back in float32 and are never rounded to the working type (a Function
+    given the cast weights would have autograd round them).  It saves x and
+    the parameters and its backward recomputes the forward.  With
+    ``use_kernel`` both directions go through ``fused_attn_block`` and
+    ``fused_attn_block_bwd`` (the kernels on CUDA tensors, the plain versions
+    on CPU tensors); without it, through the plain versions on any device.
+    """
+
+    @staticmethod
+    def forward(ctx, x, *args):
+        params, (groups, skip_rescale, use_kernel) = args[:10], args[10:]
+        ctx.save_for_backward(x, *params)
+        ctx.opts = (groups, skip_rescale, use_kernel)
+        fn = fused_attn_block if use_kernel else fused_attn_block_reference
+        return fn(x, *params, groups=groups, skip_rescale=skip_rescale)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, *params = ctx.saved_tensors
+        groups, skip_rescale, use_kernel = ctx.opts
+        fn = fused_attn_block_bwd if use_kernel else fused_attn_block_bwd_reference
+        grads = fn(x, g, *params, groups=groups, skip_rescale=skip_rescale)
+        return (*grads, None, None, None)

@@ -17,6 +17,8 @@ from rdm_tpu.ops.pallas.attention import fused_attn_block as jax_fused_attn_bloc
 from rdm_tpu_torch.models.layers import AttnBlockpp
 from rdm_tpu_torch.ops import attention as attn_ops
 
+torch.set_num_threads(1)  # the suite runs in parallel worker processes
+
 
 def make_inputs(B, C, H, W, seed):
     """NHWC activations and the block's parameters as float32 numpy."""

@@ -15,6 +15,8 @@ from rdm_tpu_torch.device import resolve_device
 from rdm_tpu_torch.models import NCSNpp
 from rdm_tpu_torch.models.convert import ema_param_order
 
+torch.set_num_threads(1)  # the suite runs in parallel worker processes
+
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 

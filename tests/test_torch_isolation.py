@@ -53,13 +53,34 @@ SCRIPT = textwrap.dedent("""
     assert lm.step == 100001
     flat, times = generate_raw_samples(lm, 2, 2, sde_override=RVESDE(0.01, 5, 3))
     assert flat.shape == (2, 67) and 0.0 <= flat.min() and flat.max() <= 1.0
+
+    # training: the flagship's optimizer state restores, and the CLI trains,
+    # logs, checkpoints and samples
+    import os, tempfile
+    from rdm_tpu_torch import run_train
+    from rdm_tpu_torch.data import make_synthetic_gto_pkl
+    from rdm_tpu_torch.training import checkpoints
+    ck = checkpoints.restore_checkpoint(run + "/checkpoints/checkpoint_10.pth")
+    assert ck.optimizer["count"] == 100000
+    root = os.getcwd()
+    with tempfile.TemporaryDirectory() as tmp:
+        os.chdir(tmp)
+        pkl = make_synthetic_gto_pkl(os.path.join(tmp, "t.pkl"), n=16)
+        work = run_train.main(["+device=cpu", "model.nf=16", "model.ch_mult=[1,2]",
+                               "model.num_res_blocks=1", "model.attn_pallas=true",
+                               "data.pkl_path=" + pkl, "training.batch_size=4",
+                               "eval.batch_size=4", "training.n_iters=1",
+                               "training.snapshot_freq=1", "sde.num_scales=3"])
+        assert os.path.exists(os.path.join(work, "checkpoints", "checkpoint_1.pth"))
+        assert "training_loss" in open(os.path.join(work, "logs")).read()
+        os.chdir(root)
     assert not [m for m in sys.modules if blocked(m)]
     print("ISOLATED-OK")
 """)
 
 
 def test_port_runs_without_jax_optax_yaml():
-    env = dict(os.environ, PYTHONPATH=ROOT)
+    env = dict(os.environ, PYTHONPATH=ROOT, OMP_NUM_THREADS="1")
     proc = subprocess.run([sys.executable, "-c", SCRIPT.format(blocked=BLOCKED)],
                           cwd=ROOT, env=env, capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr[-4000:]

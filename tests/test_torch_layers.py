@@ -19,6 +19,8 @@ from rdm_tpu.models import layers as jlayers
 from rdm_tpu_torch.models import NCSNpp, layers
 from rdm_tpu_torch.models.convert import _conv, _linear, _resblock, state_dict_from_jax
 
+torch.set_num_threads(1)  # the suite runs in parallel worker processes
+
 DTYPES = {"float32": (jnp.float32, torch.float32), "bfloat16": (jnp.bfloat16, torch.bfloat16)}
 
 

@@ -12,6 +12,8 @@ from rdm_tpu_torch.ops import cube, resize
 from rdm_tpu_torch.sde import RVESDE, get_sde
 from rdm_tpu_torch.config import ConfigDict
 
+torch.set_num_threads(1)  # the suite runs in parallel worker processes
+
 
 def _well_conditioned(x, x0, sigma, k=4.0):
     """Elements within k sigma of x0 (reflected distance): where a sample

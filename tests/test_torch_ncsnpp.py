@@ -14,6 +14,8 @@ from rdm_tpu_torch.models import NCSNpp, create_model
 from rdm_tpu_torch.models.convert import ema_param_order, ema_state_dict, state_dict_from_jax
 from rdm_tpu_torch.training.checkpoints import latest_checkpoint, restore_checkpoint
 
+torch.set_num_threads(1)  # the suite runs in parallel worker processes
+
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 GOLD = os.path.join(ROOT, "tests", "golden", "ncsnpp_golden.npz")
 FLAGSHIP = os.path.join(ROOT, "Training Runs", "2026.08.17_184657")

@@ -17,6 +17,8 @@ from rdm_tpu_torch.sampling import get_pc_sampler, get_sampling_fn, pc
 from rdm_tpu_torch.config import ConfigDict
 from rdm_tpu_torch.sde import RVESDE
 
+torch.set_num_threads(1)  # the suite runs in parallel worker processes
+
 
 def _inputs(seed, B=4):
     rng = np.random.default_rng(seed)
