@@ -14,28 +14,44 @@ Phases, each printing one JSON line with its elapsed seconds:
 4. kernel_bwd the attention backward kernel against the plain backward on the
               same seeded x, g and parameters, each against its stated
               tolerance, two runs bit for bit, timed beside its bound
-5. golden     the reference NCSN++ weights of tests/golden/ncsnpp_golden.npz,
+5. kernel_resblock  the fused resblock kernel against its plain version at
+              the eight block shapes of the flagship at batch 1024 in
+              bfloat16, one float32 case and three ragged cases of batch 3;
+              each bfloat16 shape timed beside its bound, the plain version
+              and the unfused module (cuDNN convolutions)
+6. kernel_attn_core  the attention-core kernel against its plain version at
+              batch 1024, 81 tokens, 64 channels, float32 and bfloat16 (both
+              softmax settings), timed beside its bound and PyTorch's
+              scaled_dot_product_attention; one call through its entry point
+7. golden     the reference NCSN++ weights of tests/golden/ncsnpp_golden.npz,
               float32 with the attention kernel, against the stored outputs
-6. flagship   the flagship run (Training Runs/2026.08.17_184657, EMA weights,
+8. flagship   the flagship run (Training Runs/2026.08.17_184657, EMA weights,
               bfloat16, attention kernel) samples 1024 trajectories with
               1000-step reflected Euler-Maruyama; the samples must lie in the
               unit cube and match the JAX package's samples of the same
-              checkpoint by per-dimension two-sample KS statistic
-7. cfg        guided sampling (w = 0.1) at batch 256 with N = 100
-8. train      the flagship run trains on the card: checkpoint_10.pth with its
+              checkpoint by per-dimension two-sample KS statistic; no
+              resblock kernel launches
+9. flagship_resblock  the same with model.resblock_pallas on: every resblock
+              through the resblock kernel (17 per forward), the attention
+              blocks through theirs; the same checks, and trajectories/s
+              beside phase 8's
+10. cfg       guided sampling (w = 0.1) at batch 256 with N = 100
+11. train     the flagship run trains on the card: checkpoint_10.pth with its
               weights, EMA and Adam state, its training set resident on the
               card, batch 4096, bfloat16, the attention kernels forward and
               backward.  One step with the kernels against one through the
               plain versions (same batch, t, z and masks); twenty steps with
               5 + 5 kernel launches each and a mean loss inside the flagship's
-              logged range; the EMA evaluation loss at batch 16384; a
-              checkpoint round trip; ms per step
-9. run_train  python -m rdm_tpu_torch.run_train for four steps at batch 4096
+              logged range; the EMA evaluation loss at batch 16384, also with
+              the resblock kernel (17 launches); a checkpoint round trip; ms
+              per step
+12. run_train python -m rdm_tpu_torch.run_train for four steps at batch 4096
               from a temporary directory: log lines, a checkpoint the port
-              restores, snapshot samples
-10. kernels   one line {"kernels": [...]} with each kernel's launches on its
-              path (sampling for the forward, training for the backward),
-              error, times and bound
+              restores, snapshot samples (NHWC)
+13. kernels   one line {"kernels": [...]} with each kernel's launches on its
+              path (sampling for the forward kernels, training for the
+              backward, one entry-point call for the attention core), error,
+              times and bound
 
 The last line is {"ok": true, "device": {...}}.  A failed check raises, and
 the script then exits non-zero without that line.  It needs a CUDA card and
@@ -43,6 +59,7 @@ the repository around it.
 """
 from __future__ import annotations
 
+import hashlib
 import json
 import math
 import os
@@ -60,9 +77,10 @@ from rdm_tpu_torch.benchmark.common import (LoadedModel, generate_raw_samples,
 from rdm_tpu_torch.config import ConfigDict
 from rdm_tpu_torch.data import get_dataset
 from rdm_tpu_torch.models import NCSNpp, create_model
-from rdm_tpu_torch.models.layers import AttnBlockpp
+from rdm_tpu_torch.models.layers import AttnBlockpp, ResnetBlockDDPMpp
 from rdm_tpu_torch.ops import _build
 from rdm_tpu_torch.ops import attention as attn_ops
+from rdm_tpu_torch.ops import resblock as rb_ops
 from rdm_tpu_torch.sde import RVESDE, get_sde
 from rdm_tpu_torch.training import checkpoints
 from rdm_tpu_torch.training.losses import (get_loss_fn, make_eval_step,
@@ -83,7 +101,12 @@ PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
 # alpha = 0.001 / 67 at n = m = 1024.
 KS_LIMIT = 0.11
 ATTN_BLOCKS_PER_FORWARD = 5
-SOURCES = ("fused_attn_block", "fused_attn_block_bwd")
+RESBLOCKS_PER_FORWARD = 17
+# (H, C_in, C_out) of the flagship's resblocks and how many blocks of a
+# forward have each
+RESBLOCK_SHAPES = {(9, 64, 64): 2, (4, 64, 128): 1, (4, 128, 128): 1, (2, 128, 128): 4,
+                   (2, 256, 128): 3, (4, 256, 128): 3, (9, 192, 64): 1, (9, 128, 64): 2}
+SOURCES = ("fused_attn_block", "fused_attn_block_bwd", "fused_resblock", "attention_core")
 BF16_STEP = 2.0 ** -8
 PARAM_NAMES = ("gamma", "beta", "wq", "bq", "wk", "bk", "wv", "bv", "wp", "bp")
 # The flagship's logged losses at batch 4096 (Training Runs/2026.08.17_184657/
@@ -245,9 +268,134 @@ def attn_bwd_case(B, C, L, groups, dtype, seed, device, timed):
     return res
 
 
+# ---------------------------------------------------------------------------
+# fused resblock and attention core: inputs, bounds, comparisons
+
+def resblock_inputs(B, H, ci, co, dtype, seed, device):
+    """x, tembv and the block's float32 parameters (module layouts) from a
+    seeded generator."""
+    rng = np.random.default_rng(seed)
+    f = lambda *shape: torch.tensor(rng.normal(size=shape).astype(np.float32), device=device)
+    params = [1 + 0.1 * f(ci), 0.1 * f(ci), f(co, ci, 3, 3) / math.sqrt(9 * ci), 0.1 * f(co),
+              1 + 0.1 * f(co), 0.1 * f(co), f(co, co, 3, 3) / math.sqrt(9 * co), 0.1 * f(co)]
+    params += [f(ci, co) / math.sqrt(ci), 0.1 * f(co)] if ci != co else [None, None]
+    return f(B, ci, H, H).to(dtype), (0.5 * f(B, co)).to(dtype), params
+
+
+def resblock_bound_ms(B, H, ci, co, dtype) -> tuple:
+    """Least time for one launch: x, tembv and the parameters read once, the
+    output written once; the operations of the two 3x3 convolutions and the
+    NIN shortcut (multiply-adds count 2)."""
+    elt = torch.tensor([], dtype=dtype).element_size()
+    L = H * H
+    shortcut = ci * co if ci != co else 0
+    weights = 9 * ci * co + 9 * co * co + shortcut + 2 * ci + 4 * co + (co if shortcut else 0)
+    nbytes = (B * L * (ci + co) + B * co + weights) * elt
+    flops = 2 * B * L * (9 * ci * co + 9 * co * co + shortcut)
+    t_bytes = nbytes / PEAK_BYTES * 1e3
+    t_ops = flops / PEAK_FLOPS[dtype] * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def resblock_module(params, ci, co, dtype, device):
+    """The unfused ResnetBlockDDPMpp (cuDNN convolutions) carrying the same
+    parameters, and a time embedding whose dense layer gives tembv-sized
+    input."""
+    blk = ResnetBlockDDPMpp(torch.nn.functional.silu, ci, co, temb_dim=4 * 64, dropout=0.0,
+                            skip_rescale=True, dtype=dtype)
+    names = ["GroupNorm_0.weight", "GroupNorm_0.bias", "Conv_0.weight", "Conv_0.bias",
+             "GroupNorm_1.weight", "GroupNorm_1.bias", "Conv_1.weight", "Conv_1.bias",
+             "NIN_0.W", "NIN_0.b"]
+    sd = blk.state_dict()
+    sd.update({n: p.cpu() for n, p in zip(names, params) if p is not None})
+    blk.load_state_dict(sd, strict=True)
+    return blk.to(device).eval().requires_grad_(False)
+
+
+def resblock_case(B, H, ci, co, dtype, seed, device, timed):
+    x, tembv, params = resblock_inputs(B, H, ci, co, dtype, seed, device)
+    kw = dict(groups0=min(ci // 4, 32), groups1=min(co // 4, 32), skip_rescale=True)
+    out = rb_ops.fused_resblock(x, tembv, *params, **kw)
+    ref = rb_ops.fused_resblock_reference(x, tembv, *params, **kw)
+    torch.cuda.synchronize()
+    check(out.shape == ref.shape and out.dtype == ref.dtype, "resblock output shape/type")
+    check(bool(torch.isfinite(out.float()).all()), f"resblock output not finite {B, H, ci, co}")
+    err = float((out.float() - ref.float()).abs().max())
+    scale = max(1.0, float(ref.float().abs().max()))
+    # float32: the two differ in summation order only.  bfloat16: the same
+    # rounding points, but a sum next to a rounding boundary may round the
+    # other way and carry a step on through the later layers of the block:
+    # 4 bf16 steps at the output's largest magnitude.
+    tol = (1e-4 if dtype == torch.float32 else 4 * BF16_STEP) * scale
+    res = {"B": B, "H": H, "C_in": ci, "C_out": co, "dtype": str(dtype).split(".")[-1],
+           "max_abs_err": err, "tol": tol,
+           "frac_differ": float((out != ref).float().mean())}
+    check(err <= tol, f"resblock kernel disagrees with its plain version: {res}")
+    if timed:
+        res["ms"] = cuda_time_ms(lambda: rb_ops.fused_resblock(x, tembv, *params, **kw), 20)
+        res["plain_ms"] = cuda_time_ms(
+            lambda: rb_ops.fused_resblock_reference(x, tembv, *params, **kw), 5)
+        blk = resblock_module(params, ci, co, dtype, device)
+        temb = torch.randn((B, 4 * 64), generator=torch.Generator(device=device).manual_seed(seed),
+                           device=device)
+        with torch.no_grad():
+            res["module_ms"] = cuda_time_ms(lambda: blk(x, temb), 10)
+        res["bound_ms"], res["bound_by"] = resblock_bound_ms(B, H, ci, co, dtype)
+    return res
+
+
+def attn_core_bound_ms(B, L, C, dtype) -> tuple:
+    """Least time: q, k, v read once and o written once; the two products
+    (q k^T and p v, 4 L^2 C a sample)."""
+    elt = torch.tensor([], dtype=dtype).element_size()
+    t_bytes = 4 * B * L * C * elt / PEAK_BYTES * 1e3
+    t_ops = 4 * B * L * L * C / PEAK_FLOPS[dtype] * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def attn_core_case(B, L, C, dtype, softmax_f32, seed, device, timed):
+    gen = torch.Generator(device=device).manual_seed(seed)
+    q, k, v = (torch.randn((B, L, C), generator=gen, device=device).to(dtype) for _ in range(3))
+    out = attn_ops.attention_core(q, k, v, softmax_f32)
+    ref = attn_ops.attention_core_reference(q, k, v, softmax_f32)
+    torch.cuda.synchronize()
+    check(out.shape == ref.shape and out.dtype == ref.dtype, "attention core shape/type")
+    check(bool(torch.isfinite(out.float()).all()), "attention core output not finite")
+    err = float((out.float() - ref.float()).abs().max())
+    scale = max(1.0, float(ref.float().abs().max()))
+    # float32: summation order only; bfloat16: the same rounding points, a
+    # sum next to a boundary may round the other way: 2 bf16 steps
+    tol = (1e-5 if dtype == torch.float32 else 2 * BF16_STEP) * scale
+    res = {"B": B, "L": L, "C": C, "dtype": str(dtype).split(".")[-1],
+           "softmax_f32": softmax_f32, "max_abs_err": err, "tol": tol}
+    check(err <= tol, f"attention core kernel disagrees with its plain version: {res}")
+    if timed:
+        res["ms"] = cuda_time_ms(lambda: attn_ops.attention_core(q, k, v, softmax_f32), 50)
+        res["plain_ms"] = cuda_time_ms(
+            lambda: attn_ops.attention_core_reference(q, k, v, softmax_f32), 10)
+        # one head, (B, 1, L, C), the layout PyTorch's fused attention kernels take
+        sdpa = torch.nn.functional.scaled_dot_product_attention
+        q4, k4, v4 = (t.unsqueeze(1) for t in (q, k, v))
+        res["library_ms"] = cuda_time_ms(lambda: sdpa(q4, k4, v4), 50)
+        res["bound_ms"], res["bound_by"] = attn_core_bound_ms(B, L, C, dtype)
+    return res
+
+
+def per_launch(cases, key) -> float:
+    """The mean of ``key`` over the 17 resblock launches of one forward."""
+    total = sum(c[key] * RESBLOCK_SHAPES[(c["H"], c["C_in"], c["C_out"])] for c in cases)
+    return total / RESBLOCKS_PER_FORWARD
+
+
 def set_attn_kernel(model, on: bool) -> None:
     for m in model.modules():
         if isinstance(m, AttnBlockpp):
+            m.use_kernel = on
+
+
+def set_resblock_kernel(model, on: bool) -> None:
+    for m in model.modules():
+        if isinstance(m, ResnetBlockDDPMpp):
             m.use_kernel = on
 
 
@@ -357,6 +505,23 @@ def train_phase(device) -> dict:
     out.update(eval_batch=int(eimgs.shape[0]), eval_loss=eval_loss, eval_range=EVAL_LOSS_RANGE)
     check(EVAL_LOSS_RANGE[0] <= eval_loss <= EVAL_LOSS_RANGE[1],
           f"EMA evaluation loss {eval_loss} outside {EVAL_LOSS_RANGE}")
+    # the same evaluation (batch, t, z) with every resblock through its kernel;
+    # it rounds at the kernel's points, not the module's: the mean over
+    # 16384 samples agrees within half a bfloat16 step, relative
+    set_resblock_kernel(state.model, True)
+    rb_ops.fused_resblock.launches = 0
+    eval_rb = float(make_eval_step(get_sde(cfg))(
+        state, torch.from_numpy(eimgs).to(device), torch.from_numpy(elabels).to(device),
+        torch.Generator(device=device).manual_seed(14)))
+    eval_rb_launches = rb_ops.fused_resblock.launches
+    set_resblock_kernel(state.model, False)
+    out.update(eval_loss_resblock_kernel=eval_rb, eval_resblock_launches=eval_rb_launches,
+               eval_rel_diff=abs(eval_rb - eval_loss) / eval_loss)
+    check(eval_rb_launches == RESBLOCKS_PER_FORWARD,
+          f"EMA evaluation launched the resblock kernel {eval_rb_launches} times")
+    check(EVAL_LOSS_RANGE[0] <= eval_rb <= EVAL_LOSS_RANGE[1]
+          and abs(eval_rb - eval_loss) <= BF16_STEP / 2 * eval_loss,
+          f"EMA evaluation loss with the resblock kernel {eval_rb} against {eval_loss}")
 
     # 4. checkpoint round trip
     with tempfile.TemporaryDirectory() as tmp:
@@ -374,6 +539,48 @@ def train_phase(device) -> dict:
     out["checkpoint_round_trip_equal"] = same
     check(same, "checkpoint round trip changed the state")
     return out
+
+
+def flagship_sampling(run, model_overrides, t0) -> dict:
+    """The flagship samples 1024 trajectories with 1000-step reflected
+    Euler-Maruyama through ``LoadedModel`` (EMA weights, the run's config
+    with ``model_overrides``); the samples must lie in the unit cube and
+    match the JAX package's samples by per-dimension KS.  Every kernel count
+    is set to 0 just before and read just after.  The samples' sha256 lets
+    two trees' runs be compared bit for bit."""
+    lm = LoadedModel(run, model_overrides=model_overrides)
+    check(lm.model.dtype == torch.bfloat16, "flagship model is not bfloat16")
+    load_s = time.perf_counter() - t0
+    attn_ops.fused_attn_block.launches = 0
+    rb_ops.fused_resblock.launches = 0
+    samples, times = generate_raw_samples(lm, 1024, 1024, guidance_weight=0.0, seed=0)
+    launches = attn_ops.fused_attn_block.launches
+    rb_launches = rb_ops.fused_resblock.launches
+    steps = lm.sde.N - 1
+    check(launches == ATTN_BLOCKS_PER_FORWARD * steps,
+          f"flagship sampling launched the kernel {launches} times")
+    check(samples.shape == (1024, 67), f"samples shape {samples.shape}")
+    check(bool(np.isfinite(samples).all()), "non-finite samples")
+    check(float(samples.min()) >= 0.0 and float(samples.max()) <= 1.0,
+          "samples leave the unit cube")
+    ref = np.load(JAX_SAMPLES).reshape(-1, 67)
+    ks = np.array([ks_statistic(samples[:, d], ref[:, d]) for d in range(67)])
+    mean_gap = np.abs(samples.mean(0) - ref.mean(0))
+    std_gap = np.abs(samples.std(0) - ref.std(0))
+    check(float(ks.max()) < KS_LIMIT, f"max per-dimension KS {ks.max()} >= {KS_LIMIT}")
+    return dict(checkpoint=os.path.relpath(lm.checkpoint_file, ROOT), overrides=model_overrides,
+                step=lm.step, load_seconds=load_s, n=int(samples.shape[0]), steps=lm.sde.N,
+                launches=launches, resblock_launches=rb_launches, batch_seconds=times,
+                samples_sha256=hashlib.sha256(samples.tobytes()).hexdigest(),
+                trajectories_per_second=samples.shape[0] / sum(times),
+                ms_per_step=sum(times) / steps * 1e3,
+                ks_max=float(ks.max()), ks_argmax=int(ks.argmax()), ks_limit=KS_LIMIT,
+                ks_mean=float(ks.mean()), n_reference=int(ref.shape[0]),
+                mean_gap_max=float(mean_gap.max()), mean_gap_mean=float(mean_gap.mean()),
+                std_gap_max=float(std_gap.max()), std_gap_mean=float(std_gap.mean()),
+                ks_per_dim=[round(float(v), 5) for v in ks],
+                mean_gap_per_dim=[round(float(v), 5) for v in mean_gap],
+                std_gap_per_dim=[round(float(v), 5) for v in std_gap])
 
 
 def with_precision(cfg, precision):
@@ -408,7 +615,7 @@ def run_train_phase() -> dict:
     check(steps == [0, 1, 2, 3] and len(evals) == 1, f"log lines: steps {steps}, evals {evals}")
     check(ck is not None and ck.step == 4 and ck.optimizer["count"] == 4,
           "run_train checkpoint does not restore")
-    check(sample.dtype == np.uint8 and sample.shape == (4096, 1, 9, 9),
+    check(sample.dtype == np.uint8 and sample.shape == (4096, 9, 9, 1),
           f"snapshot samples {sample.dtype} {sample.shape}")
     return {"steps": steps, "eval_lines": len(evals), "checkpoint_step": ck.step,
             "sample_shape": list(sample.shape), "sample_min": int(sample.min()),
@@ -475,6 +682,41 @@ def main() -> int:
     bwd_f32 = next(c for c in bwd_cases if c["B"] == 4096 and c["dtype"] == "float32")
 
     t0 = time.perf_counter()
+    rb_cases = [resblock_case(1024, H, ci, co, torch.bfloat16, i, device, timed=True)
+                for i, (H, ci, co) in enumerate(RESBLOCK_SHAPES)]
+    rb_f32 = resblock_case(1024, 9, 64, 64, torch.float32, 20, device, timed=False)
+    rb_ragged = [resblock_case(3, H, ci, co, dtype, 21 + i, device, timed=False)
+                 for i, (H, ci, co) in enumerate([(9, 64, 64), (4, 64, 128), (2, 256, 128)])
+                 for dtype in (torch.bfloat16, torch.float32)]
+    for c in rb_cases + [rb_f32] + rb_ragged:
+        print(json.dumps({"resblock_case": c}), flush=True)
+    rb_forward = {k: per_launch(rb_cases, k) * RESBLOCKS_PER_FORWARD
+                  for k in ("ms", "plain_ms", "module_ms", "bound_ms")}
+    emit("kernel_resblock", t0, cases=len(rb_cases) + 1 + len(rb_ragged),
+         per_forward_at_b1024=rb_forward)
+
+    t0 = time.perf_counter()
+    core_cases = [attn_core_case(1024, 81, 64, torch.float32, True, 30, device, timed=True),
+                  attn_core_case(1024, 81, 64, torch.bfloat16, True, 31, device, timed=True),
+                  attn_core_case(1024, 81, 64, torch.bfloat16, False, 32, device, timed=True),
+                  attn_core_case(16, 128, 128, torch.bfloat16, True, 33, device, timed=False),
+                  attn_core_case(3, 81, 64, torch.bfloat16, True, 34, device, timed=False)]
+    for c in core_cases:
+        print(json.dumps({"attn_core_case": c}), flush=True)
+    core_main = core_cases[1]
+    # attention_core is API only (no model path calls it): one call through
+    # its entry point at the flagship attention shape is its path
+    gen = torch.Generator(device=device).manual_seed(35)
+    qkv = [torch.randn((1024, 81, 64), generator=gen, device=device).to(torch.bfloat16)
+           for _ in range(3)]
+    attn_ops.attention_core.launches = 0
+    core_out = attn_ops.attention_core(*qkv)
+    core_launches = attn_ops.attention_core.launches
+    check(core_launches == 1 and core_out.shape == (1024, 81, 64)
+          and bool(torch.isfinite(core_out.float()).all()), "attention core entry-point call")
+    emit("kernel_attn_core", t0, cases=len(core_cases), launches=core_launches)
+
+    t0 = time.perf_counter()
     g = np.load(GOLDEN)
     sd = {k[3:]: torch.from_numpy(g[k]) for k in g.files if k.startswith("sd.")}
     model = NCSNpp(attn_kernel=True)
@@ -499,37 +741,22 @@ def main() -> int:
     del model
 
     t0 = time.perf_counter()
-    lm = LoadedModel(FLAGSHIP_RUN)
-    check(lm.model.dtype == torch.bfloat16, "flagship model is not bfloat16")
-    load_s = time.perf_counter() - t0
-    attn_ops.fused_attn_block.launches = 0
-    samples, times = generate_raw_samples(lm, 1024, 1024, guidance_weight=0.0, seed=0)
-    launches = attn_ops.fused_attn_block.launches
-    steps = lm.sde.N - 1
-    check(launches == ATTN_BLOCKS_PER_FORWARD * steps,
-          f"flagship sampling launched the kernel {launches} times")
-    check(samples.shape == (1024, 67), f"samples shape {samples.shape}")
-    check(bool(np.isfinite(samples).all()), "non-finite samples")
-    check(float(samples.min()) >= 0.0 and float(samples.max()) <= 1.0,
-          "samples leave the unit cube")
-    ref = np.load(JAX_SAMPLES).reshape(-1, 67)
-    ks = np.array([ks_statistic(samples[:, d], ref[:, d]) for d in range(67)])
-    mean_gap = np.abs(samples.mean(0) - ref.mean(0))
-    std_gap = np.abs(samples.std(0) - ref.std(0))
-    check(float(ks.max()) < KS_LIMIT, f"max per-dimension KS {ks.max()} >= {KS_LIMIT}")
-    emit("flagship", t0, checkpoint=os.path.relpath(lm.checkpoint_file, ROOT),
-         step=lm.step, load_seconds=load_s, n=int(samples.shape[0]), steps=lm.sde.N,
-         launches=launches, batch_seconds=times,
-         trajectories_per_second=samples.shape[0] / sum(times),
-         ks_max=float(ks.max()), ks_argmax=int(ks.argmax()), ks_limit=KS_LIMIT,
-         ks_mean=float(ks.mean()), n_reference=int(ref.shape[0]),
-         mean_gap_max=float(mean_gap.max()), mean_gap_mean=float(mean_gap.mean()),
-         std_gap_max=float(std_gap.max()), std_gap_mean=float(std_gap.mean()),
-         ks_per_dim=[round(float(v), 5) for v in ks],
-         mean_gap_per_dim=[round(float(v), 5) for v in mean_gap],
-         std_gap_per_dim=[round(float(v), 5) for v in std_gap])
+    flag = flagship_sampling(FLAGSHIP_RUN, {}, t0)
+    launches = flag["launches"]
+    check(flag["resblock_launches"] == 0,
+          f"the default flagship path launched the resblock kernel {flag['resblock_launches']} times")
+    emit("flagship", t0, **flag)
 
     t0 = time.perf_counter()
+    flag_rb = flagship_sampling(FLAGSHIP_RUN, {"resblock_pallas": True}, t0)
+    check(flag_rb["resblock_launches"] == RESBLOCKS_PER_FORWARD * (flag_rb["steps"] - 1),
+          f"resblock sampling launched the resblock kernel {flag_rb['resblock_launches']} times")
+    emit("flagship_resblock", t0, **flag_rb,
+         default_trajectories_per_second=flag["trajectories_per_second"],
+         default_ms_per_step=flag["ms_per_step"])
+
+    t0 = time.perf_counter()
+    lm = LoadedModel(FLAGSHIP_RUN)
     sde100 = RVESDE(lm.cfg.sde.sigma_min, lm.cfg.sde.sigma_max, 100)
     before = attn_ops.fused_attn_block.launches
     cfg_samples, cfg_times = generate_raw_samples(lm, 256, 256, guidance_weight=0.1,
@@ -586,6 +813,41 @@ def main() -> int:
         "plain_us": bwd_main["plain_ms"] * 1e3,
         "bound_us": bwd_main["bound_ms"] * 1e3,
         "shape": "B=4096 C=64 L=81 groups=16 bfloat16",
+    }, {
+        "name": "fused_resblock",
+        "route": "cuda",
+        "source": "rdm_tpu_torch/csrc/fused_resblock.cu",
+        "replaces": "rdm_tpu/ops/pallas/resblock.py:51::_kernel",
+        "launches": flag_rb["resblock_launches"],
+        "max_abs_err": max(c["max_abs_err"] for c in rb_cases),
+        "ms": per_launch(rb_cases, "ms"),
+        "plain_ms": per_launch(rb_cases, "plain_ms"),
+        "bound_ms": per_launch(rb_cases, "bound_ms"),
+        "bound_by": "operations" if all(c["bound_by"] == "operations" for c in rb_cases)
+                    else "bytes",
+        "library_ms": None,
+        "module_ms": per_launch(rb_cases, "module_ms"),
+        "max_err_f32": rb_f32["max_abs_err"],
+        "max_err_bf16": max(c["max_abs_err"] for c in rb_cases),
+        "per_forward_ms": rb_forward,
+        "shape": "mean per launch over the 17 blocks of one forward, B=1024 bfloat16 "
+                 "(per shape: the resblock_case lines)",
+    }, {
+        "name": "attention_core",
+        "route": "cuda",
+        "source": "rdm_tpu_torch/csrc/attention_core.cu",
+        "replaces": "rdm_tpu/ops/pallas/attention.py:26::_attn_kernel",
+        "launches": core_launches,
+        "max_abs_err": core_main["max_abs_err"],
+        "ms": core_main["ms"],
+        "plain_ms": core_main["plain_ms"],
+        "bound_ms": core_main["bound_ms"],
+        "bound_by": core_main["bound_by"],
+        "library_ms": core_main["library_ms"],
+        "max_err_f32": core_cases[0]["max_abs_err"],
+        "max_err_bf16": core_main["max_abs_err"],
+        "path": "one call through attention_core (no model path calls it)",
+        "shape": "B=1024 L=81 C=64 bfloat16 softmax_f32",
     }]
     print(json.dumps({"phase": "total", "seconds": round(time.perf_counter() - T_START, 3)}),
           flush=True)

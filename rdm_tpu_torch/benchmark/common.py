@@ -38,12 +38,16 @@ def find_checkpoint(model_path: str):
 class LoadedModel:
     """A run directory's model with its EMA weights, on ``device`` (the card
     unless the caller names another), read through the run's
-    ``.hydra/config.yaml`` manifest."""
+    ``.hydra/config.yaml`` manifest; ``model_overrides`` replace keys of its
+    ``model`` section (e.g. ``{"resblock_pallas": True}``)."""
 
     def __init__(self, model_path: str, config_path: str | None = None,
-                 checkpoint_file: str | None = None, device=None):
+                 checkpoint_file: str | None = None, device=None,
+                 model_overrides: dict | None = None):
         self.device = resolve_device(device)
         self.cfg = load_hydra_config_from_run(config_path or model_path)
+        for key, value in (model_overrides or {}).items():
+            self.cfg.model[key] = value
         self.sde = get_sde(self.cfg)
         if checkpoint_file is None:
             checkpoint_file = find_checkpoint(model_path)

@@ -1,8 +1,10 @@
 """Where the time of one sampling step goes, on the card.
 
-    python -m rdm_tpu_torch.benchmark.profile_sampling
+    python -m rdm_tpu_torch.benchmark.profile_sampling [model.<key>=<value> ...]
 
-Loads the flagship run with its EMA weights, warms up, then traces
+Loads the flagship run with its EMA weights (``model.<key>=<value>``
+replaces a key of its model config, e.g. ``model.resblock_pallas=true``),
+warms up, then traces
 ``STEPS`` reflected Euler-Maruyama updates of ``BATCH`` trajectories with
 ``torch.profiler``.  Prints one JSON line: the wall time per step (host
 clock, ending in a synchronisation), the device time per step (the sum of
@@ -14,10 +16,12 @@ from __future__ import annotations
 
 import json
 import os
+import sys
 import time
 
 import torch
 
+from ..config import parse_value
 from ..models.registry import get_cf_score_fn
 from ..sampling import get_pc_sampler
 from ..sde import RVESDE
@@ -29,8 +33,14 @@ BATCH = 1024       # the flagship sampling batch
 STEPS = 5
 
 
-def main():
-    lm = LoadedModel(FLAGSHIP)            # on the card, or raises
+def main(argv=None):
+    overrides = {}
+    for arg in sys.argv[1:] if argv is None else argv:
+        key, _, raw = arg.partition("=")
+        if not key.startswith("model.") or not raw:
+            raise SystemExit(f"expected model.<key>=<value>, got {arg!r}")
+        overrides[key[len("model."):]] = parse_value(raw)
+    lm = LoadedModel(FLAGSHIP, model_overrides=overrides)   # on the card, or raises
     sde = RVESDE(lm.sde.sigma_min, lm.sde.sigma_max, STEPS + 1)
     sampler = get_pc_sampler(sde, sample_shape(lm.cfg, BATCH), eps=1e-5)
     gen = torch.Generator(device=lm.device).manual_seed(0)
@@ -46,7 +56,7 @@ def main():
 
     prof = trace_kernels(lambda: sampler(score_fn, gen), STEPS)
     out = {
-        "batch": BATCH, "steps": STEPS,
+        "batch": BATCH, "steps": STEPS, "model_overrides": overrides,
         "device_name": torch.cuda.get_device_name(lm.device),
         "wall_ms_per_step": wall_ms,
         "idle_share": 1.0 - prof["device_ms_per_step"] / wall_ms,

@@ -1,8 +1,9 @@
-// Device helpers shared by the fused attention block's forward and backward
-// kernels (fused_attn_block.cu, fused_attn_block_bwd.cu): conversions to and
-// from the working type, rounding to it, vector loads, warp reductions and
-// the register-tiled product loop.  Everything sits in an unnamed namespace,
-// so each translation unit gets its own copy.
+// Device helpers shared by the attention kernels (fused_attn_block.cu,
+// fused_attn_block_bwd.cu, attention_core.cu) and the fused resblock
+// (fused_resblock.cu): conversions to and from the working type, rounding to
+// it, vector loads, warp reductions, the register-tiled product loop and the
+// row softmax.  Everything sits in an unnamed namespace, so each translation
+// unit gets its own copy.
 #pragma once
 
 #include <cmath>
@@ -112,6 +113,31 @@ __device__ __forceinline__ void tile_product(int M, int N, int K, LoadA a, LoadB
 #pragma unroll
       for (int n = 0; n < TN; ++n)
         if (i0 + m < M && j0 + n < N) store(i0 + m, j0 + n, acc[m][n]);
+  }
+}
+
+// Softmax of nr score rows of length L (row stride LP) in place, one warp
+// per row; the probabilities are rounded to the working type T.  With
+// kScoresInT (scores already in T), every step also runs in T: s - max and
+// its exp are rounded to T, and the sum (taken in f32) is rounded to T before
+// the division.  Otherwise the whole softmax is f32.
+template <typename T, bool kScoresInT = false>
+__device__ __forceinline__ void softmax_rows(float* sb, int nr, int L, int LP) {
+  const int lane = threadIdx.x & 31;
+  for (int r = threadIdx.x >> 5; r < nr; r += kWarps) {
+    float* srow = sb + r * LP;
+    float m = -INFINITY;
+    for (int j = lane; j < L; j += 32) m = fmaxf(m, srow[j]);
+    m = warp_max(m);
+    float sum = 0.f;
+    for (int j = lane; j < L; j += 32) {
+      const float e = kScoresInT ? rnd<T>(expf(rnd<T>(srow[j] - m))) : expf(srow[j] - m);
+      srow[j] = e;
+      sum += e;
+    }
+    sum = warp_sum(sum);
+    if (kScoresInT) sum = rnd<T>(sum);
+    for (int j = lane; j < L; j += 32) srow[j] = rnd<T>(srow[j] / sum);
   }
 }
 

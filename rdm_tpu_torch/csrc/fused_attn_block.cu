@@ -127,20 +127,7 @@ fused_attn_block_kernel(const T* __restrict__ x, T* __restrict__ out,
                  [=](int i, int j, float acc) { sb[i * LP + j] = acc * scale; });
     __syncthreads();
 
-    for (int r = warp; r < nr; r += kWarps) {
-      float* srow = sb + r * LP;
-      float m = -INFINITY;
-      for (int j = lane; j < L; j += 32) m = fmaxf(m, srow[j]);
-      m = warp_max(m);
-      float sum = 0.f;
-      for (int j = lane; j < L; j += 32) {
-        const float e = expf(srow[j] - m);
-        srow[j] = e;
-        sum += e;
-      }
-      sum = warp_sum(sum);
-      for (int j = lane; j < L; j += 32) srow[j] = rnd<T>(srow[j] / sum);
-    }
+    softmax_rows<T>(sb, nr, L, LP);
     __syncthreads();
 
     float* oc = hb + r0 * CP;

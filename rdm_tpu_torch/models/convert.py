@@ -11,6 +11,8 @@
   the ``mu``/``nu`` trees, which have the layout of ``params``) and its
   schedule count into the port's optimizer state, without
   ``time_embed.W``, which does not train.
+* ``jax_tree_from_state_dict`` is the inverse of ``state_dict_from_jax``:
+  the Flax ``params`` tree as nested dicts of float32 numpy arrays.
 """
 from __future__ import annotations
 
@@ -130,3 +132,60 @@ def adam_state_from_jax(count, mu: dict, nu: dict, schedule_count) -> dict:
 
     return {"count": int(count), "schedule_count": int(schedule_count),
             "mu": moments(mu), "nu": moments(nu)}
+
+
+# Flax names of a resblock's and an attention block's submodules.
+_RESBLOCK_FLAX = {"GroupNorm_0": ("norm0",), "Conv_0": ("conv0", "conv"),
+                  "Dense_0": ("temb_proj",), "GroupNorm_1": ("norm1",),
+                  "Conv_1": ("conv1", "conv"), "NIN_0": ("shortcut",)}
+_ATTN_FLAX = {"GroupNorm_0": ("norm",), "NIN_0": ("q",), "NIN_1": ("k",), "NIN_2": ("v",),
+              "NIN_3": ("proj",)}
+_LIST_FLAX = {"down_blocks": "db", "up_blocks": "ub", "down_attn": "da", "up_attn": "ua",
+              "downsample": "ds", "upsample": "us"}
+
+
+def _flax_module_path(mods) -> tuple:
+    """The Flax path of the module a state-dict key names (its dotted
+    module names without the leaf)."""
+    head = mods[0]
+    if head == "time_mlp":
+        return ({"0": "time_mlp0", "2": "time_mlp1"}[mods[1]],)
+    if head in ("input_conv", "out_conv"):
+        return (head, "conv")
+    if head in _LIST_FLAX:
+        name, rest = _LIST_FLAX[head] + mods[1], mods[2:]
+    else:
+        name, rest = head, mods[1:]
+    if not rest:
+        return (name,)
+    if head in ("downsample", "upsample"):
+        return (name, "conv", "conv")
+    table = _ATTN_FLAX if head in ("down_attn", "up_attn", "mid_attn") else _RESBLOCK_FLAX
+    return (name,) + table[rest[0]]
+
+
+def _flax_leaf(leaf: str, value: np.ndarray) -> tuple:
+    """A state-dict leaf as its Flax leaf name and array: convolution
+    kernels OIHW -> HWIO, dense (out, in) -> (in, out), GroupNorm weight ->
+    scale, NIN W/b and the Fourier W unchanged."""
+    if leaf == "weight":
+        if value.ndim == 4:
+            return "kernel", value.transpose(2, 3, 1, 0)
+        if value.ndim == 2:
+            return "kernel", value.T
+        return "scale", value
+    return leaf, value
+
+
+def jax_tree_from_state_dict(sd: dict) -> dict:
+    """Port state dict (reference names) -> NCSN++ Flax params tree of
+    float32 numpy arrays; the inverse of ``state_dict_from_jax``."""
+    tree: dict = {}
+    for key, tensor in sd.items():
+        *mods, leaf = key.split(".")
+        node = tree
+        for name in _flax_module_path(mods):
+            node = node.setdefault(name, {})
+        name, value = _flax_leaf(leaf, tensor.detach().cpu().numpy().astype(np.float32))
+        node[name] = np.ascontiguousarray(value)
+    return tree

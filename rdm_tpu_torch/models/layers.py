@@ -9,14 +9,18 @@ and eps 1e-6 throughout.
 """
 from __future__ import annotations
 
+import logging
 import math
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..ops.attention import FusedAttnBlockFn, round_to
+from ..ops.attention import SUPPORTED_CHANNELS, FusedAttnBlockFn, round_to
+from ..ops.resblock import FusedResblockFn
 from ..ops.resize import upsample2x_nearest
+
+logger = logging.getLogger(__name__)
 
 
 def get_act(name: str):
@@ -151,7 +155,10 @@ class AttnBlockpp(nn.Module):
     versions for a CPU tensor; otherwise they run the plain versions.  (The JAX package
     takes its TPU kernel only under bfloat16, because float32 tiles trip a
     Mosaic layout check there; that is a limit of the TPU compiler, not part
-    of what the block computes, so the CUDA kernel serves both types.)"""
+    of what the block computes, so the CUDA kernel serves both types.)
+    The kernels take the widths of ``ops.attention.SUPPORTED_CHANNELS``; a
+    block of another width is routed to the plain versions here, once, with
+    a log line, as the JAX package routes by type."""
 
     def __init__(self, channels: int, skip_rescale: bool = False, init_scale: float = 0.0,
                  use_kernel: bool = False, dtype=torch.float32):
@@ -162,6 +169,10 @@ class AttnBlockpp(nn.Module):
         self.NIN_2 = NIN(channels, channels, dtype=dtype)
         self.NIN_3 = NIN(channels, channels, init_scale=init_scale, dtype=dtype)
         self.skip_rescale = skip_rescale
+        if use_kernel and channels not in SUPPORTED_CHANNELS:
+            logger.warning("attention block of width %d: the CUDA kernels take widths %s; "
+                           "this block runs the plain versions", channels, SUPPORTED_CHANNELS)
+            use_kernel = False
         self.use_kernel = use_kernel
         self.dtype = dtype
 
@@ -177,11 +188,19 @@ class AttnBlockpp(nn.Module):
 class ResnetBlockDDPMpp(nn.Module):
     """GN -> act -> conv3x3 -> + time -> GN -> act -> dropout -> conv3x3
     (zero-init), with a NIN shortcut when the width changes and the
-    1/sqrt(2) skip rescale."""
+    1/sqrt(2) skip rescale.
+
+    With ``use_kernel`` the block goes through ``ops.resblock.FusedResblockFn``
+    (the CUDA kernel for a CUDA tensor, its plain version for a CPU tensor)
+    where the JAX package takes its TPU kernel: bfloat16, no active dropout,
+    and a time embedding.  Like the TPU kernel, the fused block applies SiLU
+    whatever ``act`` is, and rounds at the kernel's points, which differ
+    from this module's.  The parameters and their names are the same either
+    way."""
 
     def __init__(self, act, in_ch: int, out_ch: int, temb_dim: int | None = None,
                  dropout: float = 0.1, skip_rescale: bool = False,
-                 init_scale: float = 0.0, dtype=torch.float32):
+                 init_scale: float = 0.0, use_kernel: bool = False, dtype=torch.float32):
         super().__init__()
         self.GroupNorm_0 = GroupNorm(group_count(in_ch), in_ch, dtype=dtype)
         self.Conv_0 = Conv3x3(in_ch, out_ch, dtype=dtype)
@@ -194,11 +213,22 @@ class ResnetBlockDDPMpp(nn.Module):
         self.act = act
         self.dropout = dropout
         self.skip_rescale = skip_rescale
+        self.use_kernel = use_kernel
         self.dtype = dtype
 
     def forward(self, x, temb=None, train: bool = False, generator=None):
         """With ``train`` and a dropout rate above 0, the dropout mask is
         drawn from ``generator``."""
+        if (self.use_kernel and self.dtype == torch.bfloat16
+                and not (train and self.dropout > 0) and temb is not None):
+            nin = (self.NIN_0.W, self.NIN_0.b) if hasattr(self, "NIN_0") else (None, None)
+            return FusedResblockFn.apply(
+                x.to(self.dtype).contiguous(), self.Dense_0(self.act(temb)),
+                self.GroupNorm_0.weight, self.GroupNorm_0.bias,
+                self.Conv_0.weight, self.Conv_0.bias,
+                self.GroupNorm_1.weight, self.GroupNorm_1.bias,
+                self.Conv_1.weight, self.Conv_1.bias, *nin,
+                self.GroupNorm_0.num_groups, self.GroupNorm_1.num_groups, self.skip_rescale)
         h = self.act(self.GroupNorm_0(x))
         h = self.Conv_0(h)
         if temb is not None:

@@ -14,6 +14,9 @@ GTO config: nf 64, ch_mult (1, 2, 2), 2 res blocks, attention at
 resolution 9 (blocks ``down_attn.0-1`` and ``up_attn.6-8``), 9x9x1 input,
 swish, skip rescale.  With ``precision: bfloat16`` the parameters stay
 float32 and the computation runs in bfloat16, as in the JAX package.
+``attn_pallas`` and ``resblock_pallas`` of the model config turn on the
+fused attention blocks and the fused resblocks (``attn_kernel``,
+``resblock_kernel``).
 """
 from __future__ import annotations
 
@@ -40,7 +43,7 @@ class NCSNpp(nn.Module):
                  image_size: int = 9, channels: int = 1,
                  scale_by_sigma: bool = False, fourier_scale: float = 16.0,
                  nonlinearity: str = "swish", dtype=torch.float32,
-                 attn_kernel: bool = False):
+                 attn_kernel: bool = False, resblock_kernel: bool = False):
         super().__init__()
         self.nf = nf
         self.ch_mult = tuple(ch_mult)
@@ -59,7 +62,7 @@ class NCSNpp(nn.Module):
         def resblock(in_ch, out_ch):
             return ResnetBlockDDPMpp(act, in_ch, out_ch, temb_dim=4 * nf, dropout=dropout,
                                      skip_rescale=skip_rescale, init_scale=init_scale,
-                                     dtype=dtype)
+                                     use_kernel=resblock_kernel, dtype=dtype)
 
         def attnblock(ch):
             return AttnBlockpp(ch, skip_rescale=skip_rescale, init_scale=init_scale,
@@ -129,6 +132,7 @@ class NCSNpp(nn.Module):
             fourier_scale=m.fourier_scale, nonlinearity=m.nonlinearity,
             dtype=torch.bfloat16 if m.get("precision") == "bfloat16" else torch.float32,
             attn_kernel=bool(m.get("attn_pallas", False)),
+            resblock_kernel=bool(m.get("resblock_pallas", False)),
         )
 
     def _has_attn(self, level: int) -> bool:

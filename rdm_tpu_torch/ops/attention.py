@@ -1,6 +1,6 @@
 """Fused NCSN++ attention block: GroupNorm -> q, k, v NINs -> softmax
 attention over the L = H*W tokens -> output NIN -> residual (times 1/sqrt 2),
-and its backward.
+and its backward; and the bare attention core softmax(q k^T / sqrt(C)) v.
 
 ``FusedAttnBlockFn`` is the differentiable block the model calls.  It takes
 the activations in the working type and the ten float32 master parameters,
@@ -25,7 +25,11 @@ and the weights once; see the source for the layout.  The backward kernel
 replaces ``_fused_block_bwd_kernel`` of the same file; operations bound it
 (see its source).
 
-Both directions take the model's NCHW activations and the NIN weights as
+``attention_core`` launches ``csrc/attention_core.cu`` on CUDA tensors
+and runs ``attention_core_reference`` on CPU tensors.  It replaces the TPU
+kernel ``_attn_kernel`` of the same file; memory bounds it.
+
+Both block directions take the model's NCHW activations and the NIN weights as
 (C_in, C_out) matrices, cast every parameter to the activations' type
 first, and round at the TPU kernels' points: forward, h, each NIN product
 (before its bias is added in the working type), the softmax probabilities
@@ -43,6 +47,7 @@ from . import _build
 
 SUPPORTED_CHANNELS = (64, 128)
 MAX_TOKENS = 128
+CORE_MAX_CHANNELS = 128
 GN_EPS = 1e-6
 # Shared memory one block may use on sm_90 (227 KB).
 _SMEM_LIMIT = 232448
@@ -199,24 +204,30 @@ def _library(name: str, fn_name: str, argtypes, extra=()):
     return lib
 
 
-def _checked_params(name, x, params):
-    """Check ``x`` and the ten parameters for a kernel and return ``(B, C, L,
-    params)`` with the parameters in the working type, contiguous, and
-    16-byte aligned (the kernels read weight rows with 16-byte loads)."""
+def check_activations(name, x):
+    """Raise unless ``x`` is a contiguous NCHW float32 or bfloat16 CUDA
+    tensor, which every kernel of the package reads."""
     if x.device.type != "cuda":
         raise ValueError(f"{name}: unsupported device {x.device}")
     if x.dim() != 4:
         raise ValueError(f"{name}: expected NCHW, got shape {tuple(x.shape)}")
-    B, C, H, W = x.shape
-    L = H * W
     if x.dtype not in _DTYPE_CODES:
         raise ValueError(f"{name}: unsupported dtype {x.dtype}")
+    if not x.is_contiguous():
+        raise ValueError(f"{name}: x must be contiguous")
+
+
+def _checked_params(name, x, params):
+    """Check ``x`` and the ten parameters for a kernel and return ``(B, C, L,
+    params)`` with the parameters in the working type, contiguous, and
+    16-byte aligned (the kernels read weight rows with 16-byte loads)."""
+    check_activations(name, x)
+    B, C, H, W = x.shape
+    L = H * W
     if C not in SUPPORTED_CHANNELS:
         raise ValueError(f"{name}: unsupported C={C}")
     if L > MAX_TOKENS:
         raise ValueError(f"{name}: {L} tokens exceed {MAX_TOKENS}")
-    if not x.is_contiguous():
-        raise ValueError(f"{name}: x must be contiguous")
     out = []
     for p, shape in zip(params, _param_shapes(C)):
         if p.device != x.device or p.numel() != math.prod(shape):
@@ -360,3 +371,79 @@ class FusedAttnBlockFn(torch.autograd.Function):
         fn = fused_attn_block_bwd if use_kernel else fused_attn_block_bwd_reference
         grads = fn(x, g, *params, groups=groups, skip_rescale=skip_rescale)
         return (*grads, None, None, None)
+
+
+def attention_core_reference(q, k, v, softmax_f32: bool = True):
+    """Plain PyTorch version of the attention core, same inputs and
+    rounding: with ``softmax_f32`` (or float32 inputs) scores and softmax
+    are float32 and p is rounded to v's type; otherwise the scores are
+    rounded to q's type and scaled by the scale rounded to it, s - max and
+    its exp are rounded, and the sum (taken in float32) is rounded before the
+    division.  p.v accumulates in float32 and is rounded once."""
+    dt = q.dtype
+    f32 = _acc_dtype(dt)
+    scale = float(q.shape[-1]) ** -0.5
+    s = torch.matmul(q.to(f32), k.to(f32).transpose(-1, -2))
+    if softmax_f32 or dt == f32:
+        s = s * scale
+        p = torch.exp(s - s.amax(-1, keepdim=True))
+        p = (p / p.sum(-1, keepdim=True)).to(v.dtype)
+    else:
+        s = s.to(dt) * round_to(scale, dt)
+        e = torch.exp(s - s.amax(-1, keepdim=True))
+        p = e / e.to(f32).sum(-1, keepdim=True).to(dt)
+    return torch.matmul(p.to(f32), v.to(f32)).to(dt)
+
+
+def core_rows_per_chunk(C: int, L: int) -> int:
+    """Query rows the attention-core kernel handles at once: all of them
+    where shared memory allows, else the most that fit beside k transposed
+    (C x LP) and v (L x C), each row taking one row of q (C + 1) and of
+    scores (LP), all float32."""
+    lp = -(-L // 8) * 8
+    rows = (_SMEM_LIMIT - 4 * (C * lp + L * C)) // (4 * (C + 1 + lp))
+    if rows < 1:
+        raise ValueError(f"attention_core: C={C}, L={L} does not fit in shared memory")
+    return min(L, rows)
+
+
+def attention_core(q, k, v, softmax_f32: bool = True):
+    """softmax(q k^T / sqrt(C)) v over (B, L, C) ``q``, ``k``, ``v``, in
+    q's type; the L x L scores never leave the chip.
+
+    CPU tensors take the plain version.  CUDA tensors launch the kernel; it
+    takes float32 or bfloat16 of one type, L <= 128 and C <= 128 with C % 8
+    == 0, contiguous, and raises on anything else.
+    """
+    if q.device.type == "cpu":
+        return attention_core_reference(q, k, v, softmax_f32)
+    name = "attention_core"
+    if q.device.type != "cuda":
+        raise ValueError(f"{name}: unsupported device {q.device}")
+    if any(t.shape != q.shape or t.dtype != q.dtype or t.device != q.device for t in (k, v)):
+        raise ValueError(f"{name}: q, k, v must share shape, type and device")
+    if q.dim() != 3 or q.dtype not in _DTYPE_CODES:
+        raise ValueError(f"{name}: expected (B, L, C) float32 or bfloat16, got "
+                         f"{tuple(q.shape)} {q.dtype}")
+    B, L, C = q.shape
+    if L > MAX_TOKENS or C > CORE_MAX_CHANNELS or C % 8 != 0:
+        raise ValueError(f"{name}: unsupported L={L}, C={C} (L <= {MAX_TOKENS}, "
+                         f"C <= {CORE_MAX_CHANNELS}, C % 8 == 0)")
+    if not all(t.is_contiguous() for t in (q, k, v)):
+        raise ValueError(f"{name}: q, k, v must be contiguous")
+    out = torch.empty_like(q)
+    if B == 0:
+        return out
+    lib = _library("attention_core", "rdm_attention_core",
+                   [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [ctypes.c_float, ctypes.c_void_p])
+    with torch.cuda.device(q.device):
+        err = lib.rdm_attention_core(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, L, C,
+            core_rows_per_chunk(C, L), _DTYPE_CODES[q.dtype], int(not softmax_f32),
+            float(C) ** -0.5, torch.cuda.current_stream(q.device).cuda_stream)
+    _raise_on(lib, err, name)
+    attention_core.launches += 1
+    return out
+
+
+attention_core.launches = 0

@@ -7,7 +7,9 @@ block with the one from ``configs/vis.yaml`` (and the CLI), restores the
 requested (or latest) checkpoint with its EMA weights and writes
 ``eval.rounds`` batches as ``vis/<date>/<time>/images/samples_{r}.npz``
 (uint8, NHWC) plus a PNG grid when matplotlib is installed.  It runs on the
-card; ``+device=cpu`` runs it on the CPU.
+card; ``+device=cpu`` runs it on the CPU.  ``model.<key>=<value>`` replaces
+a key of the run's model config: ``model.resblock_pallas=true`` samples
+with the fused resblock kernel.
 """
 from __future__ import annotations
 
@@ -59,7 +61,8 @@ def main(argv=None, out_root: str = "vis") -> str:
             raise FileNotFoundError(f"no checkpoints under {ckpt_dir}")
     else:
         path = os.path.join(ckpt_dir, f"checkpoint_{cfg.eval.ckpt}.pth")
-    lm = LoadedModel(cfg.load_dir, checkpoint_file=path, device=cfg.get("device"))
+    lm = LoadedModel(cfg.load_dir, checkpoint_file=path, device=cfg.get("device"),
+                     model_overrides=cfg.get("model"))
     load_cfg = lm.cfg
     load_cfg.sampling = cfg.sampling  # the vis config's sampling instructions
     if cfg.sampling.denoiser == "network":

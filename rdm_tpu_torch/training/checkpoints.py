@@ -6,10 +6,11 @@ scaler, config, ...}``: ``model`` is a state dict in the reference names,
 ``parameters()`` order.  Checkpoints written by the JAX package keep the
 optax optimizer state under ``optimizer.optax_state`` and Flax trees under
 ``native_params`` and ``native_ema_shadow``; unpickling them names optax's
-state classes and ``numpy._core`` (numpy >= 2).  The port writes its own
-optimizer state under ``optimizer`` (counts and name-keyed Adam moments);
-the JAX package's restore reads such a file through its reference branch
-(model, EMA and step; a fresh optimizer).
+state classes and ``numpy._core`` (numpy >= 2).  The port writes the same
+entries (the optimizer state as the JAX package's optax chain, the trees as
+nested dicts of float32 numpy arrays), so the JAX package resumes a port
+run with its Adam moments, counts and learning rate.  It names optax's
+classes in the pickle without importing optax (``_OptaxPickler``).
 
 ``restore_checkpoint`` reads ``step``, ``model``, ``ema`` and the optimizer
 state of either package and ignores the rest.  It unpickles through a
@@ -30,13 +31,12 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
-from ..models.convert import adam_state_from_jax, ema_state_dict
+from ..models.convert import adam_state_from_jax, ema_state_dict, jax_tree_from_state_dict
 
-_OPTAX_STATE_CLASSES = {
-    ("optax._src.transform", "ScaleByAdamState"),
-    ("optax._src.transform", "ScaleByScheduleState"),
-    ("optax._src.base", "EmptyState"),
-}
+_OPTAX_EMPTY = ("optax._src.base", "EmptyState")
+_OPTAX_ADAM = ("optax._src.transform", "ScaleByAdamState")
+_OPTAX_SCHEDULE = ("optax._src.transform", "ScaleByScheduleState")
+_OPTAX_STATE_CLASSES = {_OPTAX_EMPTY, _OPTAX_ADAM, _OPTAX_SCHEDULE}
 
 _ALLOWED_ROOTS = ("torch", "numpy", "collections", "_codecs")
 _NUMPY_MAJOR = int(np.__version__.split(".")[0])
@@ -76,6 +76,68 @@ restricted_pickle = types.SimpleNamespace(
     Unpickler=RestrictedUnpickler,
     load=lambda f, **kw: RestrictedUnpickler(f, **kw).load(),
     __name__="restricted_pickle")
+
+
+class _GlobalName:
+    """A module-level name that ``_OptaxPickler`` writes as is.  Callable
+    only so that the pickler takes it as a reduce function."""
+
+    def __init__(self, module: str, name: str):
+        self.module, self.name = module, name
+
+    def __call__(self, *args):
+        raise TypeError(f"{self.module}.{self.name} is a name to pickle, not a class")
+
+
+class _OptaxState:
+    """One optax state tuple to write; it unpickles as ``cls(*fields)``."""
+
+    def __init__(self, cls: tuple, *fields):
+        self.cls, self.fields = _GlobalName(*cls), fields
+
+    def __reduce__(self):
+        return self.cls, self.fields
+
+
+class _OptaxPickler(pickle._Pickler):
+    """Python's own pickler, writing each ``_GlobalName`` as a global by
+    name.  Both picklers check that a global they write can be imported;
+    the port writes optax's class names where optax is not installed."""
+
+    dispatch = dict(pickle._Pickler.dispatch)
+
+    def _save_global_name(self, obj):
+        if self.proto >= 4:
+            self.save(obj.module)
+            self.save(obj.name)
+            self.write(pickle.STACK_GLOBAL)
+        else:
+            self.write(pickle.GLOBAL + f"{obj.module}\n{obj.name}\n".encode("utf-8"))
+        self.memoize(obj)
+
+    dispatch[_GlobalName] = _save_global_name
+
+
+optax_pickle = types.SimpleNamespace(Pickler=_OptaxPickler, __name__="optax_pickle")
+
+
+def _optax_chain(optimizer, model_sd: dict) -> tuple:
+    """The optimizer's state as the JAX package's optax chain
+    (``rdm_tpu/training/losses.py:get_optimizer``): the clip's empty state
+    when clipping is on, Adam's count and moments, the schedule's count.
+    The moments are Flax trees; the frozen ``time_embed.W`` has zero
+    moments there, as under optax."""
+    def tree(moments):
+        sd = {k: torch.zeros_like(v) if k == "time_embed.W" else moments[k]
+              for k, v in model_sd.items()}
+        return jax_tree_from_state_dict(sd)
+
+    opt = optimizer.state_dict()
+    chain = [_OptaxState(_OPTAX_EMPTY)] if optimizer.grad_clip >= 0 else []
+    return tuple(chain + [
+        _OptaxState(_OPTAX_ADAM, np.asarray(opt["count"], np.int32), tree(opt["mu"]),
+                    tree(opt["nu"])),
+        _OptaxState(_OPTAX_SCHEDULE, np.asarray(opt["schedule_count"], np.int32))])
 
 
 class Checkpoint(NamedTuple):
@@ -126,28 +188,30 @@ def restore_checkpoint(path: str) -> Optional[Checkpoint]:
 
 
 def save_checkpoint(path: str, state, config=None) -> None:
-    """Write ``state`` (a ``TrainState``) in the reference layout ``{step,
-    model, optimizer, ema: {decay, num_updates, shadow_params}, scaler: None,
-    config}``, every tensor float32 on the CPU."""
+    """Write ``state`` (a ``TrainState``) in the JAX package's layout
+    ``{step, model, optimizer: {optax_state}, ema: {decay, num_updates,
+    shadow_params}, scaler: None, config, native_params,
+    native_ema_shadow}``, every tensor and array float32 on the CPU."""
     os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
 
     def cpu(t):
         return t.detach().to("cpu", torch.float32).clone()
 
-    opt = state.optimizer.state_dict()
+    model_sd = {k: cpu(v) for k, v in state.model.state_dict().items()}
+    shadows = [cpu(s) for s in state.ema.shadow_params]
     checkpoint = {
         "step": int(state.step),
-        "model": {k: cpu(v) for k, v in state.model.state_dict().items()},
-        "optimizer": {"count": opt["count"], "schedule_count": opt["schedule_count"],
-                      "mu": {k: cpu(v) for k, v in opt["mu"].items()},
-                      "nu": {k: cpu(v) for k, v in opt["nu"].items()}},
+        "model": model_sd,
+        "optimizer": {"optax_state": _optax_chain(state.optimizer, model_sd)},
         "ema": {"decay": float(state.ema.decay), "num_updates": int(state.ema.num_updates),
-                "shadow_params": [cpu(s) for s in state.ema.shadow_params]},
+                "shadow_params": shadows},
         "scaler": None,
         "config": config.to_plain() if hasattr(config, "to_plain") else config,
+        "native_params": jax_tree_from_state_dict(model_sd),
+        "native_ema_shadow": jax_tree_from_state_dict(ema_state_dict(model_sd, shadows)),
     }
     tmp = f"{path}.{os.getpid()}.tmp"
-    torch.save(checkpoint, tmp)
+    torch.save(checkpoint, tmp, pickle_module=optax_pickle)
     os.replace(tmp, path)
 
 

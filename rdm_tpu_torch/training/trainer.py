@@ -8,7 +8,7 @@ What it keeps of the reference loop:
   * the rolling meta checkpoint every ``snapshot_freq_for_preemption`` steps;
   * a snapshot checkpoint and EMA sampling with classifier-free guidance
     every ``snapshot_freq`` steps and at the last step, saved as
-    ``samples/iter_{step}/sample_0.npy`` (uint8) and a PNG grid when
+    ``samples/iter_{step}/sample_0.npy`` (uint8, NHWC) and a PNG grid when
     matplotlib is installed;
   * resume from ``checkpoint_path`` or the meta checkpoint, with the
     optimizer state;
@@ -188,12 +188,12 @@ def run(cfg, work_dir: str, checkpoint_path: str | None = None) -> None:
             if cfg.training.snapshot_sampling:
                 mprint(f"Generating samples at step: {step}")
                 with torch.no_grad(), state.ema.average_parameters(state.params):
-                    sample = snapshot_sample(generator).float().cpu().numpy()
+                    sample = snapshot_sample(generator).float().permute(0, 2, 3, 1).cpu().numpy()
                 this_dir = os.path.join(sample_dir, f"iter_{step}")
                 makedirs(this_dir)
-                np.save(os.path.join(this_dir, "sample_0"),
+                np.save(os.path.join(this_dir, "sample_0"),     # NHWC, as the JAX package
                         np.clip(np.round(sample * 255), 0, 255).astype(np.uint8))
-                save_grid(sample.transpose(0, 2, 3, 1), os.path.join(this_dir, "sample_0.png"))
+                save_grid(sample, os.path.join(this_dir, "sample_0.png"))
             dt = time.time() - t_last
             mprint(f"snapshot at step {step} done ({dt:.1f}s since last)")
             t_last = time.time()

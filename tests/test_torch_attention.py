@@ -5,6 +5,7 @@ runs for CPU tensors) against the JAX Pallas kernel in interpret mode and
 against the JAX XLA ``AttnBlockpp``, on the same seeded inputs.
 Card (marker ``gpu``): the CUDA kernel against the plain version.
 """
+import logging
 import math
 
 import jax
@@ -14,6 +15,7 @@ import pytest
 import torch
 
 from rdm_tpu.ops.pallas.attention import fused_attn_block as jax_fused_attn_block
+from rdm_tpu_torch.models import NCSNpp
 from rdm_tpu_torch.models.layers import AttnBlockpp
 from rdm_tpu_torch.ops import attention as attn_ops
 
@@ -110,6 +112,27 @@ def test_wrapper_raises_on_other_devices():
     p = [torch.empty(s, device="meta") for s in [(64,)] * 2 + [(64, 64), (64,)] * 4]
     with pytest.raises(ValueError):
         attn_ops.fused_attn_block(x, *p, groups=16)
+
+
+def test_unsupported_width_routes_to_plain_at_construction(caplog):
+    """A width the kernels do not take is routed to the plain versions once,
+    when the block is built, with a log line; the kernel widths keep it."""
+    with caplog.at_level(logging.WARNING, logger="rdm_tpu_torch.models.layers"):
+        narrow = AttnBlockpp(32, skip_rescale=True, use_kernel=True)
+        wide = AttnBlockpp(64, skip_rescale=True, use_kernel=True)
+    assert not narrow.use_kernel and wide.use_kernel
+    logged = [r.getMessage() for r in caplog.records if "width 32" in r.getMessage()]
+    assert len(logged) == 1, logged
+    x, _ = make_inputs(2, 32, 9, 9, seed=4)
+    xt = torch.from_numpy(x.transpose(0, 3, 1, 2).copy())
+    before = attn_ops.fused_attn_block.launches
+    with torch.no_grad():
+        out = narrow(xt)
+    assert out.shape == xt.shape and torch.isfinite(out).all()
+    assert attn_ops.fused_attn_block.launches == before
+    model = NCSNpp(nf=32, attn_kernel=True)
+    blocks = [m for m in model.modules() if isinstance(m, AttnBlockpp)]
+    assert blocks and not any(m.use_kernel for m in blocks)
 
 
 def test_rows_per_chunk():

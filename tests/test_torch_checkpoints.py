@@ -16,7 +16,8 @@ from rdm_tpu.training import get_optimizer as jax_get_optimizer
 from rdm_tpu.training.state import TrainState as JTrainState
 from rdm_tpu_torch.config import load_config, load_hydra_config_from_run
 from rdm_tpu_torch.models import NCSNpp, create_model
-from rdm_tpu_torch.models.convert import ema_param_order, state_dict_from_jax
+from rdm_tpu_torch.models.convert import (ema_param_order, jax_tree_from_state_dict,
+                                          state_dict_from_jax)
 from rdm_tpu_torch.sde import RVESDE
 from rdm_tpu_torch.training import checkpoints
 from rdm_tpu_torch.training.losses import make_train_step
@@ -61,7 +62,8 @@ def test_port_checkpoint_restores_through_jax(tmp_path):
     path = str(tmp_path / "checkpoint_1.pth")
     checkpoints.save_checkpoint(path, state, config=cfg)
     raw = torch.load(path, weights_only=False)
-    assert set(raw) == {"step", "model", "optimizer", "ema", "scaler", "config"}
+    assert set(raw) == {"step", "model", "optimizer", "ema", "scaler", "config",
+                        "native_params", "native_ema_shadow"}
     assert raw["scaler"] is None and raw["ema"]["num_updates"] == 3
     restored = jax_checkpoints.restore_checkpoint(path, jax_template(cfg))
     assert int(restored.step) == 3 and int(restored.ema.num_updates) == 3
@@ -72,6 +74,58 @@ def test_port_checkpoint_restores_through_jax(tmp_path):
         np.testing.assert_array_equal(theirs[name], sd[name].numpy())
     for name, shadow in zip(ema_param_order(sd), state.ema.shadow_params):
         np.testing.assert_array_equal(theirs_ema[name], shadow.numpy())
+
+
+def test_jax_resumes_port_checkpoint_with_adam_state(tmp_path):
+    """The JAX package restores a port checkpoint with its optax chain: the
+    Adam moments and counts are the port's, and so is the next update (its
+    learning rate inside warmup, 3 of 10 steps, included); a fresh optax
+    state would restart warmup at learning rate 0."""
+    import optax
+
+    cfg = load_config("train", SMALL + ["optim.warmup=10"])
+    state = trained_state(cfg, 3)
+    path = str(tmp_path / "checkpoint_1.pth")
+    checkpoints.save_checkpoint(path, state, config=cfg)
+    restored = jax_checkpoints.restore_checkpoint(path, jax_template(cfg))
+    chain = restored.opt_state
+    assert [type(s).__name__ for s in chain] == ["EmptyState", "ScaleByAdamState",
+                                                 "ScaleByScheduleState"]
+    adam, schedule = chain[1], chain[2]
+    assert int(adam.count) == state.optimizer.count == 3
+    assert int(schedule.count) == state.optimizer.schedule_count == 3
+    mu, nu = state_dict_from_jax(adam.mu), state_dict_from_jax(adam.nu)
+    assert not mu["time_embed.W"].any() and not nu["time_embed.W"].any()
+    for name, m, v in zip(state.optimizer.names, state.optimizer.mu, state.optimizer.nu):
+        assert torch.equal(mu[name], m) and torch.equal(nu[name], v), name
+    lr = np.float32(cfg.optim.lr) * np.minimum(np.float32(3) / np.float32(10), np.float32(1))
+    assert state.optimizer.learning_rate(state.optimizer.schedule_count) == float(lr) > 0
+
+    # one more update from the same gradients on both sides
+    rng = np.random.default_rng(5)
+    sd = {k: v.clone() for k, v in state.model.state_dict().items()}
+    grads = {n: torch.from_numpy((1e-3 * rng.normal(size=sd[n].shape)).astype(np.float32))
+             for n in state.optimizer.names}
+    grads_tree = jax.tree.map(jnp.asarray, jax_tree_from_state_dict(
+        {n: grads.get(n, torch.zeros_like(v)) for n, v in sd.items()}))
+    tx = jax_get_optimizer(cfg)
+
+    @jax.jit
+    def jax_step(grads, opt_state, params):
+        return optax.apply_updates(params, tx.update(grads, opt_state, params)[0])
+
+    theirs = ncsnpp_params_to_torch(jax.device_get(jax_step(grads_tree, chain,
+                                                            restored.params)))
+    g = [grads[n] for n in state.optimizer.names]
+    finite, norm = state.optimizer.check(torch.zeros(()), g)
+    state.optimizer.apply(g, norm)
+    ours = state.model.state_dict()
+    for name in state.optimizer.names:
+        # float32 on both sides, optax's algebra; an update step differs in
+        # the last place at most
+        np.testing.assert_allclose(ours[name].numpy(), theirs[name], rtol=1e-6, atol=1e-9,
+                                   err_msg=name)
+    assert finite and any(not np.array_equal(ours[n].numpy(), sd[n].numpy()) for n in ours)
 
 
 @pytest.fixture(scope="module")

@@ -68,6 +68,27 @@ def test_run_vis_writes_samples(tiny_run, tmp_path):
         assert s.shape == (2, 9, 9, 1) and s.dtype == np.uint8
 
 
+def test_run_vis_turns_on_the_resblock_kernel(tiny_run, tmp_path, monkeypatch):
+    """``model.resblock_pallas=true`` (with bfloat16) routes every resblock
+    of the loaded model through the fused block."""
+    from rdm_tpu_torch.models.layers import ResnetBlockDDPMpp
+    from rdm_tpu_torch.ops import resblock as rb_ops
+
+    calls = []
+    apply = rb_ops.FusedResblockFn.apply
+    monkeypatch.setattr(rb_ops.FusedResblockFn, "apply", lambda *a: calls.append(1) or apply(*a))
+    out = run_vis.main([f"load_dir={tiny_run}", "eval.batch_size=2", "+device=cpu",
+                        "model.resblock_pallas=true", "model.precision=bfloat16"],
+                       out_root=str(tmp_path / "vis"))
+    with np.load(os.path.join(out, "images", "samples_0.npz")) as z:
+        assert z["samples"].shape == (2, 9, 9, 1)
+    n_blocks = sum(isinstance(m, ResnetBlockDDPMpp) for m in NCSNpp(
+        nf=16, ch_mult=(1, 2), num_res_blocks=1).modules())
+    assert n_blocks == 8 and len(calls) == n_blocks * 3     # sde.num_scales 4: 3 steps
+    lm = LoadedModel(str(tiny_run), device="cpu", model_overrides={"resblock_pallas": True})
+    assert all(m.use_kernel for m in lm.model.modules() if isinstance(m, ResnetBlockDDPMpp))
+
+
 def test_bench_prints_one_json_line(capsys):
     bench.main(["--batch", "2", "--steps", "3", "--repeats", "1", "--device", "cpu"])
     out = json.loads(capsys.readouterr().out.strip().splitlines()[-1])

@@ -165,11 +165,16 @@ def test_flagship_outputs_match_jax_f32(flagship_ckpt, jax_flagship_ema):
     assert np.all(err <= 1e-3 * scale), (err, scale)
 
 
-@pytest.mark.parametrize("attn_pallas", [True, False])
-def test_flagship_outputs_match_jax_bf16(flagship_ckpt, jax_flagship_ema, attn_pallas):
+@pytest.mark.parametrize("attn_pallas,resblock_pallas", [
+    pytest.param(True, False, id="True"), pytest.param(False, False, id="False"),
+    pytest.param(True, True, id="resblock_pallas")])
+def test_flagship_outputs_match_jax_bf16(flagship_ckpt, jax_flagship_ema, attn_pallas,
+                                         resblock_pallas):
     """The flagship as it samples: float32 parameters, bfloat16 compute.
     The JAX side runs its Pallas attention kernel in interpret mode (the
-    run's own setting) or its XLA block.
+    run's own setting) or its XLA block; with ``resblock_pallas`` also its
+    Pallas resblock kernel in interpret mode, and the port its fused
+    resblock (the kernel's plain version on the CPU).
 
     Each block agrees with its JAX twin to a bfloat16 step or two on the
     same inputs (tests/test_torch_layers.py, test_torch_attention.py), but
@@ -188,6 +193,7 @@ def test_flagship_outputs_match_jax_bf16(flagship_ckpt, jax_flagship_ema, attn_p
     cfg = load_hydra_config_from_run(FLAGSHIP)
     assert cfg.model.precision == "bfloat16"
     cfg.model.attn_pallas = attn_pallas
+    cfg.model.resblock_pallas = resblock_pallas
     ours, theirs = port_scores(cfg, flagship_ckpt.ema), jax_scores(cfg, jax_flagship_ema)
     cfg.model.precision = "float32"
     exact = jax_scores(cfg, jax_flagship_ema)

@@ -42,7 +42,7 @@ def test_run_train_on_cpu(first_run):
     meta = checkpoints.restore_checkpoint(str(run / "checkpoints-meta" / "checkpoint.pth"))
     assert meta.step == 3
     sample = np.load(run / "samples" / "iter_3" / "sample_0.npy")
-    assert sample.shape == (8, 1, 9, 9) and sample.dtype == np.uint8
+    assert sample.shape == (8, 9, 9, 1) and sample.dtype == np.uint8    # NHWC
 
 
 def test_run_train_resumes_from_meta_checkpoint(first_run, monkeypatch):
