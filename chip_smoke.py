@@ -35,8 +35,12 @@ Phases, each printing one JSON line with its elapsed seconds:
               through the resblock kernel (17 per forward), the attention
               blocks through theirs; the same checks, and trajectories/s
               beside phase 8's
-10. cfg       guided sampling (w = 0.1) at batch 256 with N = 100
-11. train     the flagship run trains on the card: checkpoint_10.pth with its
+10. resblock_routing  an NCSN++ at nf 32 with model.resblock_pallas on:
+              every resblock is routed, when the model is built, to the fused
+              block's plain version (the kernel takes none of its shapes); one
+              forward on the card runs and launches the resblock kernel 0 times
+11. cfg       guided sampling (w = 0.1) at batch 256 with N = 100
+12. train     the flagship run trains on the card: checkpoint_10.pth with its
               weights, EMA and Adam state, its training set resident on the
               card, batch 4096, bfloat16, the attention kernels forward and
               backward.  One step with the kernels against one through the
@@ -45,13 +49,25 @@ Phases, each printing one JSON line with its elapsed seconds:
               logged range; the EMA evaluation loss at batch 16384, also with
               the resblock kernel (17 launches); a checkpoint round trip; ms
               per step
-12. run_train python -m rdm_tpu_torch.run_train for four steps at batch 4096
+13. run_train python -m rdm_tpu_torch.run_train for four steps at batch 4096
               from a temporary directory: log lines, a checkpoint the port
               restores, snapshot samples (NHWC)
-13. kernels   one line {"kernels": [...]} with each kernel's launches on its
+14. kernel_micro_cf  the channels-first kernels of csrc/micro_cf.cu at the
+              TPU script's shapes (C 64, N 20,736 = 81 x 256, bfloat16), each
+              against its plain version on the same seeded inputs: both
+              transposes and the roll sum bit for bit, the dots at K 64 and
+              K 192 within one bf16 step (plus the float32 allowance of two
+              sums in another order), and the roll sum's library yardstick
+              (one F.conv1d) within the same; then the entry point
+              python -m rdm_tpu_torch.scripts.micro_cf once, in process, as
+              its path, with its chained and cold times, bounds and library
+              times, and the plain versions' cold times beside them
+15. kernels   one line {"kernels": [...]} with each kernel's launches on its
               path (sampling for the forward kernels, training for the
-              backward, one entry-point call for the attention core), error,
-              times and bound
+              backward, one entry-point call for the attention core, the
+              micro_cf script for its three kernels: the wrappers' counts,
+              and beside them the kernel runs of the script's CUDA-graph
+              replays), error, times and bound
 
 The last line is {"ok": true, "device": {...}}.  A failed check raises, and
 the script then exits non-zero without that line.  It needs a CUDA card and
@@ -74,13 +90,15 @@ import torch
 import rdm_tpu_torch
 from rdm_tpu_torch.benchmark.common import (LoadedModel, generate_raw_samples,
                                             load_training_run)
-from rdm_tpu_torch.config import ConfigDict
+from rdm_tpu_torch.config import ConfigDict, load_config
 from rdm_tpu_torch.data import get_dataset
 from rdm_tpu_torch.models import NCSNpp, create_model
 from rdm_tpu_torch.models.layers import AttnBlockpp, ResnetBlockDDPMpp
 from rdm_tpu_torch.ops import _build
 from rdm_tpu_torch.ops import attention as attn_ops
+from rdm_tpu_torch.ops import micro_cf
 from rdm_tpu_torch.ops import resblock as rb_ops
+from rdm_tpu_torch.scripts import micro_cf as micro_cf_script
 from rdm_tpu_torch.sde import RVESDE, get_sde
 from rdm_tpu_torch.training import checkpoints
 from rdm_tpu_torch.training.losses import (get_loss_fn, make_eval_step,
@@ -106,7 +124,8 @@ RESBLOCKS_PER_FORWARD = 17
 # forward have each
 RESBLOCK_SHAPES = {(9, 64, 64): 2, (4, 64, 128): 1, (4, 128, 128): 1, (2, 128, 128): 4,
                    (2, 256, 128): 3, (4, 256, 128): 3, (9, 192, 64): 1, (9, 128, 64): 2}
-SOURCES = ("fused_attn_block", "fused_attn_block_bwd", "fused_resblock", "attention_core")
+SOURCES = ("fused_attn_block", "fused_attn_block_bwd", "fused_resblock", "attention_core",
+           "micro_cf")
 BF16_STEP = 2.0 ** -8
 PARAM_NAMES = ("gamma", "beta", "wq", "bq", "wk", "bk", "wv", "bv", "wp", "bp")
 # The flagship's logged losses at batch 4096 (Training Runs/2026.08.17_184657/
@@ -622,6 +641,133 @@ def run_train_phase() -> dict:
             "sample_max": int(sample.max())}
 
 
+def resblock_routing_phase(device) -> dict:
+    """An nf-32 NCSN++ with the resblock kernel on: the kernel takes none of
+    its block shapes, so every block runs the fused block's plain version;
+    one forward on the card, no resblock kernel launch."""
+    cfg = load_config("train", ["model.nf=32", "model.precision=bfloat16",
+                                "model.resblock_pallas=true"])
+    model = create_model(cfg).init_weights(torch.Generator().manual_seed(0))
+    model.to(device).eval().requires_grad_(False)
+    blocks = [m for m in model.modules() if isinstance(m, ResnetBlockDDPMpp)]
+    check(len(blocks) == RESBLOCKS_PER_FORWARD
+          and all(b.use_kernel and b.fused_forward is rb_ops.fused_resblock_reference
+                  for b in blocks),
+          "nf-32 resblocks are not routed to the plain fused block")
+    gen = torch.Generator(device=device).manual_seed(50)
+    x = torch.rand((64, 1, 9, 9), generator=gen, device=device)
+    sigma = torch.exp(torch.empty(64, device=device).uniform_(math.log(0.01), math.log(5.0),
+                                                              generator=gen))
+    labels = torch.rand((64, 1), generator=gen, device=device)
+    rb_ops.fused_resblock.launches = 0
+    with torch.no_grad():
+        out = model(x, sigma, labels)
+    torch.cuda.synchronize()
+    launches = rb_ops.fused_resblock.launches
+    check(out.shape == (64, 1, 9, 9) and bool(torch.isfinite(out.float()).all()),
+          "nf-32 forward output")
+    check(launches == 0, f"nf-32 forward launched the resblock kernel {launches} times")
+    return {"nf": 32, "batch": 64, "routed_blocks": len(blocks), "resblock_launches": launches,
+            "out_abs_max": float(out.float().abs().max())}
+
+
+# ---------------------------------------------------------------------------
+# channels-first microbenchmark kernels (csrc/micro_cf.cu)
+
+MICRO_TB = 256
+MICRO_C = 64
+
+
+def bf16_ulp(t):
+    """One bfloat16 step at each element's magnitude (float32 tensor in)."""
+    mag = t.abs().clamp_min(torch.finfo(torch.float32).tiny)
+    return torch.exp2(torch.floor(torch.log2(mag)) - 7)
+
+
+def micro_cf_cases(device) -> dict:
+    """Each kernel of csrc/micro_cf.cu against its plain version on the same
+    seeded inputs at the TPU script's shapes, and the plain versions' cold
+    times (inputs rotating over more than twice the L2, as the script's)."""
+    C, N = MICRO_C, micro_cf.L_TOKENS * MICRO_TB
+    rnd, cold_us = micro_cf_script.randn, micro_cf_script.cold_us
+    out = {}
+    for key, shape in (("transpose_nc_to_cn", (N, C)), ("transpose_cn_to_nc", (C, N))):
+        x = rnd(shape, 40, device)
+        y, ref = micro_cf.cf_transpose(x), micro_cf.cf_transpose_reference(x)
+        torch.cuda.synchronize()
+        check(torch.equal(y, ref), f"{key}: the kernel differs from its plain version")
+        out[key] = {"shape": list(shape), "max_abs_err": float((y.float() - ref.float()).abs().max()),
+                    "tol": 0.0, "plain_cold_us": cold_us(micro_cf.cf_transpose_reference,
+                                                         lambda i: rnd(shape, 41 + i, device),
+                                                         2 * C * N, device)}
+    x = rnd((C, N), 42, device)
+    y, ref = micro_cf.cf_masked_roll_sum(x), micro_cf.cf_masked_roll_sum_reference(x)
+    conv = micro_cf_script.roll_sum_conv1d(x)
+    lib = conv(x).float()
+    torch.cuda.synchronize()
+    check(torch.equal(y, ref), "roll sum: the kernel differs from its plain version")
+    # The library yardstick sums the same n = 8 exact terms in another order
+    # and rounds once: within one bf16 step plus the float32 allowance
+    # 2 n u sum|terms| <= 2 n u n max|x|.
+    n = len(micro_cf.SHIFTS)
+    allow = 2 * n * 2.0 ** -24 * n * x.float().abs().max()
+    lib_err = (lib - ref.float()).abs()
+    check(bool((lib_err <= bf16_ulp(ref.float()) + allow).all()),
+          f"roll sum: F.conv1d differs from the plain version by {float(lib_err.max())}")
+    make = lambda i: rnd((C, N), 43 + i, device)
+    out["roll"] = {"shape": [C, N], "max_abs_err": float((y.float() - ref.float()).abs().max()),
+                   "tol": 0.0,
+                   "plain_cold_us": cold_us(micro_cf.cf_masked_roll_sum_reference, make,
+                                            2 * C * N, device),
+                   "library": "F.conv1d", "library_cold_us": cold_us(conv, make, 2 * C * N, device),
+                   "library_max_abs_err": float(lib_err.max()),
+                   "library_bit_equal_share": float((lib == ref.float()).float().mean())}
+    for K in (C, 3 * C):
+        taps = micro_cf.dots_taps(C, K)
+        w, x = rnd((taps, C, K), 44, device), rnd((K, N), 45, device)
+        y = micro_cf.cf_dots(w, x, K).float()
+        ref = micro_cf.cf_dots_reference(w, x, K).float()
+        torch.cuda.synchronize()
+        # Both sum the same exact float32 products in another order and round
+        # once: within one bf16 step at each element, plus the float32
+        # allowance of two sums of n = taps * K terms (2 n u sum |terms|,
+        # u = 2^-24), about a tenth of a step for a typical element.
+        allow = 2 * taps * K * 2.0 ** -24 * (w.float().abs().sum(0) @ x.float().abs())
+        err = (y - ref).abs()
+        ulp = bf16_ulp(ref)
+        res = {"K": K, "taps": taps, "shape": [C, N], "max_abs_err": float(err.max()),
+               "max_err_bf16_steps": float((err / ulp).max()),
+               "bit_equal_share": float((y == ref).float().mean()),
+               "tol": "one bf16 step at each element + 2 n u sum|terms|"}
+        check(bool(torch.isfinite(y).all()) and bool((err <= ulp + allow).all()),
+              f"dots: the kernel differs from its plain version {res}")
+        res["plain_cold_us"] = cold_us(lambda xx: micro_cf.cf_dots_reference(w, xx, K),
+                                       lambda i: rnd((K, N), 46 + i, device), 2 * K * N, device)
+        out[f"dots_k{K}"] = res
+    return out
+
+
+def micro_cf_entry(name, source_line, mcf, wrapper, case, timing):
+    """One entry of the kernels line for a kernel of csrc/micro_cf.cu: ms is
+    the cold time (inputs out of L2), the one compared with the bound;
+    launches is the wrapper's count in the script's run (a call captured
+    into a CUDA graph counts once), kernel_runs what the card ran (each
+    captured call once per replay)."""
+    return {"name": name, "route": "cuda", "source": "rdm_tpu_torch/csrc/micro_cf.cu",
+            "replaces": f"scripts/micro_pallas_cf.py:{source_line}",
+            "launches": mcf["launches"][wrapper], "kernel_runs": mcf["kernel_runs"][wrapper],
+            "launches_note": "a call captured into a CUDA graph counts once; kernel_runs "
+                             "counts each replay",
+            "max_abs_err": case["max_abs_err"], "ms": timing["cold_us"] / 1e3,
+            "plain_ms": case["plain_cold_us"] / 1e3, "bound_ms": timing["bound_us"] / 1e3,
+            "bound_by": timing["bound_by"],
+            "library_ms": timing["library_us"] / 1e3,
+            "chained_ms": timing["chained_us"] / 1e3,
+            "share_of_bound": timing["bound_us"] / timing["cold_us"],
+            "path": "python -m rdm_tpu_torch.scripts.micro_cf (in process)",
+            "shape": f"C=64 N={micro_cf.L_TOKENS * MICRO_TB} bfloat16"}
+
+
 # ---------------------------------------------------------------------------
 
 def main() -> int:
@@ -756,6 +902,9 @@ def main() -> int:
          default_ms_per_step=flag["ms_per_step"])
 
     t0 = time.perf_counter()
+    emit("resblock_routing", t0, **resblock_routing_phase(device))
+
+    t0 = time.perf_counter()
     lm = LoadedModel(FLAGSHIP_RUN)
     sde100 = RVESDE(lm.cfg.sde.sigma_min, lm.cfg.sde.sigma_max, 100)
     before = attn_ops.fused_attn_block.launches
@@ -776,6 +925,25 @@ def main() -> int:
 
     t0 = time.perf_counter()
     emit("run_train", t0, **run_train_phase())
+
+    t0 = time.perf_counter()
+    mcf_cases = micro_cf_cases(device)
+    for key, c in mcf_cases.items():
+        print(json.dumps({"micro_cf_case": {"kernel": key, **c}}), flush=True)
+    mcf_kernels = (micro_cf.cf_transpose, micro_cf.cf_masked_roll_sum, micro_cf.cf_dots)
+    for f in mcf_kernels:
+        f.launches = 0
+    mcf = micro_cf_script.main(["--tb", str(MICRO_TB)])
+    mcf_launches = {f.__name__: f.launches for f in mcf_kernels}
+    check(all(n > 0 for n in mcf_launches.values()) and mcf_launches == mcf["launches"],
+          f"the micro_cf entry point did not launch every kernel: {mcf_launches}")
+    emit("kernel_micro_cf", t0, launches=mcf_launches, results=mcf)
+    one_way = mcf["transpose_pair"]["one_way"]
+    dots = {K: micro_cf_entry(f"cf_dots K={K}", 111, mcf, "cf_dots",
+                              mcf_cases[f"dots_k{K}"], mcf[f"dots_k{K}"]) for K in (64, 192)}
+    dots[64]["k192"] = {k: dots[192][k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
+                                                   "bound_by", "library_ms", "chained_ms",
+                                                   "share_of_bound")}
 
     kernels = [{
         "name": "fused_attn_block",
@@ -848,7 +1016,17 @@ def main() -> int:
         "max_err_bf16": core_main["max_abs_err"],
         "path": "one call through attention_core (no model path calls it)",
         "shape": "B=1024 L=81 C=64 bfloat16 softmax_f32",
-    }]
+    },
+        micro_cf_entry("cf_transpose (N,C)->(C,N)", 49, mcf, "cf_transpose",
+                       mcf_cases["transpose_nc_to_cn"], one_way["nc_to_cn"]),
+        micro_cf_entry("cf_transpose (C,N)->(N,C)", 56, mcf, "cf_transpose",
+                       mcf_cases["transpose_cn_to_nc"], one_way["cn_to_nc"]),
+        micro_cf_entry("cf_masked_roll_sum", 85, mcf, "cf_masked_roll_sum",
+                       mcf_cases["roll"], mcf["roll"]),
+        dots[64],
+    ]
+    for k in kernels[4:6]:
+        k["launches_note"] += "; one wrapper and one count for both directions"
     print(json.dumps({"phase": "total", "seconds": round(time.perf_counter() - T_START, 3)}),
           flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -17,7 +17,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops.attention import SUPPORTED_CHANNELS, FusedAttnBlockFn, round_to
-from ..ops.resblock import FusedResblockFn
+from ..ops.resblock import FusedResblockFn, fused_resblock
 from ..ops.resize import upsample2x_nearest
 
 logger = logging.getLogger(__name__)
@@ -191,16 +191,21 @@ class ResnetBlockDDPMpp(nn.Module):
     1/sqrt(2) skip rescale.
 
     With ``use_kernel`` the block goes through ``ops.resblock.FusedResblockFn``
-    (the CUDA kernel for a CUDA tensor, its plain version for a CPU tensor)
     where the JAX package takes its TPU kernel: bfloat16, no active dropout,
     and a time embedding.  Like the TPU kernel, the fused block applies SiLU
     whatever ``act`` is, and rounds at the kernel's points, which differ
-    from this module's.  The parameters and their names are the same either
-    way."""
+    from this module's.  ``fused_forward`` is the fused block's forward
+    (``NCSNpp`` takes it from ``ops.resblock.route`` when it builds the
+    block): ``fused_resblock``, which launches the kernel for a CUDA tensor
+    and runs its plain version for a CPU tensor, or, for a shape the kernel
+    does not take, ``fused_resblock_reference`` on any device, as the JAX
+    package's kernel computes every shape.  The parameters and their names
+    are the same either way."""
 
     def __init__(self, act, in_ch: int, out_ch: int, temb_dim: int | None = None,
                  dropout: float = 0.1, skip_rescale: bool = False,
-                 init_scale: float = 0.0, use_kernel: bool = False, dtype=torch.float32):
+                 init_scale: float = 0.0, use_kernel: bool = False,
+                 fused_forward=fused_resblock, dtype=torch.float32):
         super().__init__()
         self.GroupNorm_0 = GroupNorm(group_count(in_ch), in_ch, dtype=dtype)
         self.Conv_0 = Conv3x3(in_ch, out_ch, dtype=dtype)
@@ -214,6 +219,7 @@ class ResnetBlockDDPMpp(nn.Module):
         self.dropout = dropout
         self.skip_rescale = skip_rescale
         self.use_kernel = use_kernel
+        self.fused_forward = fused_forward
         self.dtype = dtype
 
     def forward(self, x, temb=None, train: bool = False, generator=None):
@@ -228,7 +234,8 @@ class ResnetBlockDDPMpp(nn.Module):
                 self.Conv_0.weight, self.Conv_0.bias,
                 self.GroupNorm_1.weight, self.GroupNorm_1.bias,
                 self.Conv_1.weight, self.Conv_1.bias, *nin,
-                self.GroupNorm_0.num_groups, self.GroupNorm_1.num_groups, self.skip_rescale)
+                self.GroupNorm_0.num_groups, self.GroupNorm_1.num_groups, self.skip_rescale,
+                self.fused_forward)
         h = self.act(self.GroupNorm_0(x))
         h = self.Conv_0(h)
         if temb is not None:

@@ -20,16 +20,20 @@ fused attention blocks and the fused resblocks (``attn_kernel``,
 """
 from __future__ import annotations
 
+import logging
 from typing import Sequence
 
 import torch
 from torch import nn
 
+from ..ops import resblock as rb_ops
 from ..ops.resize import nearest_resize
 from .layers import (AttnBlockpp, Conv3x3, Dense, Downsample, GaussianFourierProjection,
                      GroupNorm, NIN, ResnetBlockDDPMpp, Upsample, default_init_, get_act,
                      group_count)
 from .registry import register_model
+
+logger = logging.getLogger(__name__)
 
 
 @register_model(name="ncsnpp")
@@ -59,10 +63,20 @@ class NCSNpp(nn.Module):
         self.act = act = get_act(nonlinearity)
         levels = len(self.ch_mult)
 
-        def resblock(in_ch, out_ch):
+        def resblock(in_ch, out_ch, level):
+            # The block's nominal resolution decides, once, whether the CUDA
+            # kernel takes its shape; a block it does not take runs the
+            # fused block's plain version on any device.
+            res = self._resolution(level)
+            fused = rb_ops.route(res, res, in_ch, out_ch)
+            if resblock_kernel and fused is not rb_ops.fused_resblock:
+                logger.warning("resblock %dx%d, %d -> %d channels: the CUDA kernel does not "
+                               "take this shape; the block runs the fused block's plain "
+                               "version", res, res, in_ch, out_ch)
             return ResnetBlockDDPMpp(act, in_ch, out_ch, temb_dim=4 * nf, dropout=dropout,
                                      skip_rescale=skip_rescale, init_scale=init_scale,
-                                     use_kernel=resblock_kernel, dtype=dtype)
+                                     use_kernel=resblock_kernel, fused_forward=fused,
+                                     dtype=dtype)
 
         def attnblock(ch):
             return AttnBlockpp(ch, skip_rescale=skip_rescale, init_scale=init_scale,
@@ -82,7 +96,7 @@ class NCSNpp(nn.Module):
         in_ch = nf
         for i, mult in enumerate(self.ch_mult):
             for _ in range(num_res_blocks):
-                down_blocks.append(resblock(in_ch, nf * mult))
+                down_blocks.append(resblock(in_ch, nf * mult, i))
                 in_ch = nf * mult
                 down_attn.append(attnblock(in_ch) if self._has_attn(i) else None)
                 hs_ch.append(in_ch)
@@ -93,16 +107,16 @@ class NCSNpp(nn.Module):
         self.down_attn = nn.ModuleList(down_attn)
         self.downsample = nn.ModuleList(downsample)
 
-        self.mid_block1 = resblock(in_ch, in_ch)
+        self.mid_block1 = resblock(in_ch, in_ch, levels - 1)
         if self._has_attn(levels - 1):
             self.mid_attn = attnblock(in_ch)
-        self.mid_block2 = resblock(in_ch, in_ch)
+        self.mid_block2 = resblock(in_ch, in_ch, levels - 1)
 
         up_blocks, up_attn, upsample = [], [], []
         for i in reversed(range(levels)):
             out_ch = nf * self.ch_mult[i]
             for _ in range(num_res_blocks + 1):
-                up_blocks.append(resblock(in_ch + hs_ch.pop(), out_ch))
+                up_blocks.append(resblock(in_ch + hs_ch.pop(), out_ch, i))
                 in_ch = out_ch
                 up_attn.append(attnblock(in_ch) if self._has_attn(i) else None)
             if i != 0:
@@ -135,9 +149,12 @@ class NCSNpp(nn.Module):
             resblock_kernel=bool(m.get("resblock_pallas", False)),
         )
 
+    def _resolution(self, level: int) -> int:
+        """Nominal resolution of a level, as the reference computes it."""
+        return self.image_size // (2 ** level)
+
     def _has_attn(self, level: int) -> bool:
-        # Nominal resolution, as the reference checks it.
-        return self.image_size // (2 ** level) in self.attn_resolutions
+        return self._resolution(level) in self.attn_resolutions
 
     def init_weights(self, generator: torch.Generator | None = None) -> "NCSNpp":
         """Random weights from ``generator``: DDPM init for convs, dense and

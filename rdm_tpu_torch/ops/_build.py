@@ -21,6 +21,8 @@ CSRC_DIR = os.path.join(PACKAGE_DIR, "csrc")
 BUILD_DIR = os.path.join(PACKAGE_DIR, "_build")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+# Shared memory one block may use on sm_90 (227 KB).
+SMEM_LIMIT = 232448
 
 
 def find_nvcc() -> str:
@@ -78,3 +80,26 @@ def build(*names: str) -> list:
 def load_library(name: str) -> ctypes.CDLL:
     """Build ``csrc/<name>.cu`` if needed and load it."""
     return ctypes.CDLL(build(name)[0])
+
+
+def library(name: str, fn_name: str, argtypes, extra=()):
+    """``load_library(name)`` with the types of ``fn_name`` (a launcher that
+    returns a ``cudaError_t`` as int), of ``rdm_cuda_error_string`` and of
+    each ``(name, argtypes, restype)`` of ``extra`` set on first use."""
+    lib = load_library(name)
+    fn = getattr(lib, fn_name)
+    if fn.argtypes is None:
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+        lib.rdm_cuda_error_string.argtypes = [ctypes.c_int]
+        lib.rdm_cuda_error_string.restype = ctypes.c_char_p
+        for fname, args, res in extra:
+            getattr(lib, fname).argtypes = args
+            getattr(lib, fname).restype = res
+    return lib
+
+
+def raise_on(lib, err: int, name: str) -> None:
+    """Raise with CUDA's message unless the launcher returned 0."""
+    if err != 0:
+        raise RuntimeError(f"{name} launch failed: " + lib.rdm_cuda_error_string(err).decode())

@@ -49,8 +49,6 @@ SUPPORTED_CHANNELS = (64, 128)
 MAX_TOKENS = 128
 CORE_MAX_CHANNELS = 128
 GN_EPS = 1e-6
-# Shared memory one block may use on sm_90 (227 KB).
-_SMEM_LIMIT = 232448
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 
@@ -184,24 +182,10 @@ def rows_per_chunk(C: int, L: int) -> int:
     row of a chunk, one row of q (C + 1) and of scores (LP), all float32."""
     lp = -(-L // 8) * 8
     fixed = 4 * (C * lp + L * C + L * (C + 1)) + 2 * 4 * C
-    rows = (_SMEM_LIMIT - fixed) // (4 * (C + 1 + lp))
+    rows = (_build.SMEM_LIMIT - fixed) // (4 * (C + 1 + lp))
     if rows < 1:
         raise ValueError(f"fused_attn_block: C={C}, L={L} does not fit in shared memory")
     return min(L, rows)
-
-
-def _library(name: str, fn_name: str, argtypes, extra=()):
-    lib = _build.load_library(name)
-    fn = getattr(lib, fn_name)
-    if fn.argtypes is None:
-        fn.argtypes = argtypes
-        fn.restype = ctypes.c_int
-        lib.rdm_cuda_error_string.argtypes = [ctypes.c_int]
-        lib.rdm_cuda_error_string.restype = ctypes.c_char_p
-        for fname, args, res in extra:
-            getattr(lib, fname).argtypes = args
-            getattr(lib, fname).restype = res
-    return lib
 
 
 def check_activations(name, x):
@@ -242,11 +226,6 @@ def _param_shapes(C):
     return ((C,), (C,), (C, C), (C,), (C, C), (C,), (C, C), (C,), (C, C), (C,))
 
 
-def _raise_on(lib, err, name):
-    if err != 0:
-        raise RuntimeError(f"{name} launch failed: " + lib.rdm_cuda_error_string(err).decode())
-
-
 def fused_attn_block(x, gn_scale, gn_bias, wq, bq, wk, bk, wv, bv, wp, bp,
                      *, groups: int, skip_rescale: bool = True):
     """The fused attention block on NCHW ``x``.
@@ -264,7 +243,7 @@ def fused_attn_block(x, gn_scale, gn_bias, wq, bq, wk, bk, wv, bv, wp, bp,
     out = torch.empty_like(x)
     if B == 0:
         return out
-    lib = _library("fused_attn_block", "rdm_fused_attn_block",
+    lib = _build.library("fused_attn_block", "rdm_fused_attn_block",
                    [ctypes.c_void_p] * 12 + [ctypes.c_int] * 6
                    + [ctypes.c_float] * 3 + [ctypes.c_void_p])
     with torch.cuda.device(x.device):
@@ -273,7 +252,7 @@ def fused_attn_block(x, gn_scale, gn_bias, wq, bq, wk, bk, wv, bv, wp, bp,
             B, C, L, groups, rows_per_chunk(C, L), _DTYPE_CODES[x.dtype],
             GN_EPS, float(C) ** -0.5, _rescale(skip_rescale),
             torch.cuda.current_stream(x.device).cuda_stream)
-    _raise_on(lib, err, "fused_attn_block")
+    _build.raise_on(lib, err, "fused_attn_block")
     fused_attn_block.launches += 1
     return out
 
@@ -282,7 +261,7 @@ fused_attn_block.launches = 0
 
 
 def _bwd_library():
-    return _library("fused_attn_block_bwd", "rdm_fused_attn_block_bwd",
+    return _build.library("fused_attn_block_bwd", "rdm_fused_attn_block_bwd",
                     [ctypes.c_void_p] * 18 + [ctypes.c_int] * 5
                     + [ctypes.c_float] * 3 + [ctypes.c_void_p],
                     extra=[("rdm_fused_attn_block_bwd_workspace",
@@ -327,7 +306,7 @@ def fused_attn_block_bwd(x, g, gn_scale, gn_bias, wq, bq, wk, bk, wv, bv, wp, bp
                 grads.data_ptr(), workspace.data_ptr(), B, C, L, groups,
                 _DTYPE_CODES[x.dtype], GN_EPS, float(C) ** -0.5, _rescale(skip_rescale),
                 torch.cuda.current_stream(x.device).cuda_stream)
-        _raise_on(lib, err, "fused_attn_block_bwd")
+        _build.raise_on(lib, err, "fused_attn_block_bwd")
         fused_attn_block_bwd.launches += 1
     else:
         grads.zero_()
@@ -401,7 +380,7 @@ def core_rows_per_chunk(C: int, L: int) -> int:
     (C x LP) and v (L x C), each row taking one row of q (C + 1) and of
     scores (LP), all float32."""
     lp = -(-L // 8) * 8
-    rows = (_SMEM_LIMIT - 4 * (C * lp + L * C)) // (4 * (C + 1 + lp))
+    rows = (_build.SMEM_LIMIT - 4 * (C * lp + L * C)) // (4 * (C + 1 + lp))
     if rows < 1:
         raise ValueError(f"attention_core: C={C}, L={L} does not fit in shared memory")
     return min(L, rows)
@@ -434,14 +413,14 @@ def attention_core(q, k, v, softmax_f32: bool = True):
     out = torch.empty_like(q)
     if B == 0:
         return out
-    lib = _library("attention_core", "rdm_attention_core",
+    lib = _build.library("attention_core", "rdm_attention_core",
                    [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [ctypes.c_float, ctypes.c_void_p])
     with torch.cuda.device(q.device):
         err = lib.rdm_attention_core(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, L, C,
             core_rows_per_chunk(C, L), _DTYPE_CODES[q.dtype], int(not softmax_f32),
             float(C) ** -0.5, torch.cuda.current_stream(q.device).cuda_stream)
-    _raise_on(lib, err, name)
+    _build.raise_on(lib, err, name)
     attention_core.launches += 1
     return out
 

@@ -40,8 +40,8 @@ import ctypes
 import torch
 import torch.nn.functional as F
 
-from .attention import (GN_EPS, _DTYPE_CODES, _acc_dtype, _library, _raise_on, _rescale,
-                        check_activations, round_to)
+from . import _build
+from .attention import GN_EPS, _DTYPE_CODES, _acc_dtype, _rescale, check_activations, round_to
 
 # (H, C_out) the kernel takes, with H = W; C_in is any of KERNEL_C_IN.
 KERNEL_SHAPES = ((9, 64), (4, 128), (2, 128))
@@ -187,7 +187,7 @@ def fused_resblock(x, tembv, gn0_w, gn0_b, conv0_w, conv0_b, gn1_w, gn1_b,
     out = torch.empty((B, c_out, H, H), dtype=x.dtype, device=x.device)
     if B == 0:
         return out
-    lib = _library("fused_resblock", "rdm_fused_resblock",
+    lib = _build.library("fused_resblock", "rdm_fused_resblock",
                    [ctypes.c_void_p] * 13 + [ctypes.c_int] * 7
                    + [ctypes.c_float] * 2 + [ctypes.c_void_p])
     ptr = lambda t: None if t is None else t.data_ptr()
@@ -196,7 +196,7 @@ def fused_resblock(x, tembv, gn0_w, gn0_b, conv0_w, conv0_b, gn1_w, gn1_b,
             x.data_ptr(), tembv.data_ptr(), out.data_ptr(), *(ptr(p) for p in params),
             B, H, c_in, c_out, groups0, groups1, _DTYPE_CODES[x.dtype],
             GN_EPS, _rescale(skip_rescale), torch.cuda.current_stream(x.device).cuda_stream)
-    _raise_on(lib, err, "fused_resblock")
+    _build.raise_on(lib, err, "fused_resblock")
     fused_resblock.launches += 1
     return out
 
@@ -204,26 +204,38 @@ def fused_resblock(x, tembv, gn0_w, gn0_b, conv0_w, conv0_b, gn1_w, gn1_b,
 fused_resblock.launches = 0
 
 
+def route(H: int, W: int, c_in: int, c_out: int):
+    """The fused block's forward for a block shape, chosen once when the
+    model is built: ``fused_resblock`` where the kernel takes the shape,
+    else ``fused_resblock_reference`` on any device (the TPU kernel computes
+    every shape; nothing falls back at launch time)."""
+    return fused_resblock if kernel_takes(H, W, c_in, c_out) else fused_resblock_reference
+
+
 class FusedResblockFn(torch.autograd.Function):
     """The differentiable fused block: ``apply(x, tembv, gn0_w, gn0_b,
     conv0_w, conv0_b, gn1_w, gn1_b, conv1_w, conv1_b, nin_w, nin_b, groups0,
-    groups1, skip_rescale)`` with ``nin_w``/``nin_b`` None where the width
-    does not change.
+    groups1, skip_rescale[, forward_fn])`` with ``nin_w``/``nin_b`` None
+    where the width does not change.
 
     ``x`` and ``tembv`` are in the working type; the parameters are the
-    float32 master weights.  The forward goes through ``fused_resblock``
-    (the kernel on CUDA tensors, the plain version on CPU tensors), which
-    casts them inside.  The backward differentiates ``resblock_jnp_twin``
-    with the float32 parameters and the cotangent in the output's type, so
-    the parameter gradients come back in float32.
+    float32 master weights.  The forward is ``forward_fn``, which casts them
+    inside: ``fused_resblock`` (the default: the kernel on CUDA tensors, the
+    plain version on CPU tensors) or ``fused_resblock_reference`` (the plain
+    version on any device, for a block shape the kernel does not take; see
+    ``route``).  The backward differentiates ``resblock_jnp_twin`` with the
+    float32 parameters and the cotangent in the output's type, so the
+    parameter gradients come back in float32.
     """
 
     @staticmethod
     def forward(ctx, x, tembv, *args):
-        params, (groups0, groups1, skip_rescale) = args[:10], args[10:]
+        params, (groups0, groups1, skip_rescale, *forward_fn) = args[:10], args[10:]
         ctx.save_for_backward(x, tembv, *params)
         ctx.opts = dict(groups0=groups0, groups1=groups1, skip_rescale=skip_rescale)
-        return fused_resblock(x, tembv, *params, **ctx.opts)
+        ctx.n_opts = len(args) - 10
+        fn = forward_fn[0] if forward_fn else fused_resblock
+        return fn(x, tembv, *params, **ctx.opts)
 
     @staticmethod
     def backward(ctx, g):
@@ -236,4 +248,4 @@ class FusedResblockFn(torch.autograd.Function):
             wrt = [t for t in ins if t is not None and t.requires_grad]
             grads = iter(torch.autograd.grad(out, wrt, g.to(out.dtype)))
         return (*(next(grads) if t is not None and t.requires_grad else None for t in ins),
-                None, None, None)
+                *(None,) * ctx.n_opts)

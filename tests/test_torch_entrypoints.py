@@ -95,6 +95,37 @@ def test_bench_prints_one_json_line(capsys):
     assert out["value"] > 0 and out["value_cfg_w0.1"] > 0 and out["device"] == "cpu"
 
 
+def test_micro_cf_prints_the_tpu_scripts_lines_on_the_cpu(monkeypatch):
+    """``python -m rdm_tpu_torch.scripts.micro_cf --device cpu --tb 2`` prints
+    the TPU script's lines in its order (device, conv, dots K 64, dots
+    K 192, roll, transpose pair), host-clock times only; without a card and
+    without ``--device`` it raises."""
+    import subprocess
+    import sys
+
+    env = dict(os.environ, PYTHONPATH=ROOT, OMP_NUM_THREADS="1")
+    proc = subprocess.run([sys.executable, "-m", "rdm_tpu_torch.scripts.micro_cf",
+                           "--device", "cpu", "--tb", "2"], cwd=ROOT, env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    lines = proc.stdout.strip().splitlines()
+    assert len(lines) == 6, lines
+    heads = ["device: cpu", "cuDNN conv3x3 NHWC (TB=2):", "9 dots (C=64,K=64)@(K,N=162):",
+             "3 dots (C=64,K=192)@(K,N=162):", "8 masked lane-rolls (C,N):",
+             "transpose pair (N,C)<->(C,N):"]
+    for line, head in zip(lines, heads):
+        assert line.startswith(head), (line, head)
+    for line in lines[1:]:
+        assert float(line.split("chained")[1].split("us")[0]) > 0
+        assert "bound" not in line and "cold" not in line     # no card numbers from the CPU
+    assert all("TF/s" in line for line in lines[1:4])
+
+    from rdm_tpu_torch.scripts import micro_cf
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        micro_cf.main([])
+
+
 def test_sampling_efficiency_metrics():
     m = sampling_efficiency_metrics([1.0, 3.0])
     assert m["total_sampling_time"] == 4.0 and m["samples_per_second"] == 0.5

@@ -1,5 +1,5 @@
 """The port runs where JAX, flax, optax and PyYAML are absent, and imports
-nothing of the JAX package."""
+nothing of the JAX package or of its ``scripts/``."""
 import os
 import re
 import subprocess
@@ -7,7 +7,7 @@ import sys
 import textwrap
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-BLOCKED = ("jax", "jaxlib", "flax", "optax", "yaml", "rdm_tpu")
+BLOCKED = ("jax", "jaxlib", "flax", "optax", "yaml", "rdm_tpu", "scripts")
 
 SCRIPT = textwrap.dedent("""
     import importlib.abc, sys
