@@ -21,7 +21,9 @@ Phases, each printing one JSON line with its elapsed seconds:
               and the unfused module (cuDNN convolutions)
 6. kernel_attn_core  the attention-core kernel against its plain version at
               batch 1024, 81 tokens, 64 channels, float32 and bfloat16 (both
-              softmax settings), timed beside its bound and PyTorch's
+              softmax settings), and at batch 1025, 4096, 3 and 16 (128 x 128);
+              timed cold (inputs rotating over more than twice the L2) and
+              warm beside its bound, its plain version and PyTorch's
               scaled_dot_product_attention; one call through its entry point
 7. golden     the reference NCSN++ weights of tests/golden/ncsnpp_golden.npz,
               float32 with the attention kernel, against the stored outputs
@@ -57,7 +59,9 @@ Phases, each printing one JSON line with its elapsed seconds:
               against its plain version on the same seeded inputs: both
               transposes and the roll sum bit for bit, the dots at K 64 and
               K 192 within one bf16 step (plus the float32 allowance of two
-              sums in another order), and the roll sum's library yardstick
+              sums in another order), also at N = 64 x 132 x 3 + 8 and
+              64 x 132 x 10 + 8 (more tiles than three a block, ragged), and
+              the roll sum's library yardstick
               (one F.conv1d) within the same; then the entry point
               python -m rdm_tpu_torch.scripts.micro_cf once, in process, as
               its path, with its chained and cold times, bounds and library
@@ -372,9 +376,13 @@ def attn_core_bound_ms(B, L, C, dtype) -> tuple:
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
-def attn_core_case(B, L, C, dtype, softmax_f32, seed, device, timed):
+def attn_core_inputs(B, L, C, dtype, seed, device):
     gen = torch.Generator(device=device).manual_seed(seed)
-    q, k, v = (torch.randn((B, L, C), generator=gen, device=device).to(dtype) for _ in range(3))
+    return tuple(torch.randn((B, L, C), generator=gen, device=device).to(dtype) for _ in range(3))
+
+
+def attn_core_case(B, L, C, dtype, softmax_f32, seed, device, timed):
+    q, k, v = attn_core_inputs(B, L, C, dtype, seed, device)
     out = attn_ops.attention_core(q, k, v, softmax_f32)
     ref = attn_ops.attention_core_reference(q, k, v, softmax_f32)
     torch.cuda.synchronize()
@@ -389,14 +397,24 @@ def attn_core_case(B, L, C, dtype, softmax_f32, seed, device, timed):
            "softmax_f32": softmax_f32, "max_abs_err": err, "tol": tol}
     check(err <= tol, f"attention core kernel disagrees with its plain version: {res}")
     if timed:
-        res["ms"] = cuda_time_ms(lambda: attn_ops.attention_core(q, k, v, softmax_f32), 50)
-        res["plain_ms"] = cuda_time_ms(
-            lambda: attn_ops.attention_core_reference(q, k, v, softmax_f32), 10)
         # one head, (B, 1, L, C), the layout PyTorch's fused attention kernels take
-        sdpa = torch.nn.functional.scaled_dot_product_attention
-        q4, k4, v4 = (t.unsqueeze(1) for t in (q, k, v))
-        res["library_ms"] = cuda_time_ms(lambda: sdpa(q4, k4, v4), 50)
+        sdpa = lambda t: torch.nn.functional.scaled_dot_product_attention(
+            *(x.unsqueeze(1) for x in t))
+        fns = {"": lambda t: attn_ops.attention_core(*t, softmax_f32),
+               "plain_": lambda t: attn_ops.attention_core_reference(*t, softmax_f32),
+               "library_": sdpa}
+        # Both as the micro_cf script times: the slope over CUDA graphs of 50
+        # and 500 calls, so no host launch cost enters.  cold: q, k, v rotate
+        # over more than twice the L2 (the time compared with the bound);
+        # warm: the same inputs each call, nearly all in the 50 MB L2.
+        make = lambda i: attn_core_inputs(B, L, C, dtype, 100 + i, device)
+        nbytes = 3 * q.numel() * q.element_size()
+        for key, fn in fns.items():
+            res[key + "ms"] = micro_cf_script.cold_us(fn, make, nbytes, device) / 1e3
+            res[key + "warm_ms"] = micro_cf_script.slope_us(
+                lambda n, fn=fn: [fn((q, k, v)) for _ in range(n)], device) / 1e3
         res["bound_ms"], res["bound_by"] = attn_core_bound_ms(B, L, C, dtype)
+        res["share_of_bound"] = res["bound_ms"] / res["ms"]
     return res
 
 
@@ -722,9 +740,13 @@ def micro_cf_cases(device) -> dict:
                    "library": "F.conv1d", "library_cold_us": cold_us(conv, make, 2 * C * N, device),
                    "library_max_abs_err": float(lib_err.max()),
                    "library_bit_equal_share": float((lib == ref.float()).float().mean())}
-    for K in (C, 3 * C):
+    # the script's N (324 tiles: 2 or 3 a block), then more than 3 tiles a
+    # block with a ragged last tile, and 10 or 11 tiles a block (ring stages
+    # reused often)
+    edges = (64 * 132 * 3 + 8, 64 * 132 * 10 + 8)
+    for K, n in [(C, N), (3 * C, N)] + [(k, n) for n in edges for k in (C, 3 * C)]:
         taps = micro_cf.dots_taps(C, K)
-        w, x = rnd((taps, C, K), 44, device), rnd((K, N), 45, device)
+        w, x = rnd((taps, C, K), 44, device), rnd((K, n), 45, device)
         y = micro_cf.cf_dots(w, x, K).float()
         ref = micro_cf.cf_dots_reference(w, x, K).float()
         torch.cuda.synchronize()
@@ -735,12 +757,15 @@ def micro_cf_cases(device) -> dict:
         allow = 2 * taps * K * 2.0 ** -24 * (w.float().abs().sum(0) @ x.float().abs())
         err = (y - ref).abs()
         ulp = bf16_ulp(ref)
-        res = {"K": K, "taps": taps, "shape": [C, N], "max_abs_err": float(err.max()),
+        res = {"K": K, "taps": taps, "shape": [C, n], "max_abs_err": float(err.max()),
                "max_err_bf16_steps": float((err / ulp).max()),
                "bit_equal_share": float((y == ref).float().mean()),
                "tol": "one bf16 step at each element + 2 n u sum|terms|"}
         check(bool(torch.isfinite(y).all()) and bool((err <= ulp + allow).all()),
               f"dots: the kernel differs from its plain version {res}")
+        if n != N:
+            out[f"dots_k{K}_n{n}"] = res
+            continue
         res["plain_cold_us"] = cold_us(lambda xx: micro_cf.cf_dots_reference(w, xx, K),
                                        lambda i: rnd((K, N), 46 + i, device), 2 * K * N, device)
         out[f"dots_k{K}"] = res
@@ -846,7 +871,12 @@ def main() -> int:
                   attn_core_case(1024, 81, 64, torch.bfloat16, True, 31, device, timed=True),
                   attn_core_case(1024, 81, 64, torch.bfloat16, False, 32, device, timed=True),
                   attn_core_case(16, 128, 128, torch.bfloat16, True, 33, device, timed=False),
-                  attn_core_case(3, 81, 64, torch.bfloat16, True, 34, device, timed=False)]
+                  attn_core_case(3, 81, 64, torch.bfloat16, True, 34, device, timed=False),
+                  # a batch that no grid of the persistent kernel divides
+                  attn_core_case(1025, 81, 64, torch.bfloat16, True, 36, device, timed=False),
+                  attn_core_case(1025, 81, 64, torch.bfloat16, False, 37, device, timed=False),
+                  # the training batch: about 31 samples a block, ring stages reused often
+                  attn_core_case(4096, 81, 64, torch.bfloat16, True, 38, device, timed=False)]
     for c in core_cases:
         print(json.dumps({"attn_core_case": c}), flush=True)
     core_main = core_cases[1]
@@ -1012,6 +1042,17 @@ def main() -> int:
         "bound_ms": core_main["bound_ms"],
         "bound_by": core_main["bound_by"],
         "library_ms": core_main["library_ms"],
+        "timing": "CUDA-graph slopes; cold: q, k, v rotate over more than twice the L2; "
+                  "warm_*: the same inputs each call",
+        "warm_ms": core_main["warm_ms"],
+        "plain_warm_ms": core_main["plain_warm_ms"],
+        "library_warm_ms": core_main["library_warm_ms"],
+        "share_of_bound": core_main["share_of_bound"],
+        "bf16_scores_in_t": {k: core_cases[2][k] for k in ("max_abs_err", "ms", "warm_ms",
+                                                           "library_ms")},
+        "f32": {k: core_cases[0][k] for k in ("max_abs_err", "ms", "warm_ms", "plain_ms",
+                                              "library_ms", "library_warm_ms", "bound_ms",
+                                              "bound_by")},
         "max_err_f32": core_cases[0]["max_abs_err"],
         "max_err_bf16": core_main["max_abs_err"],
         "path": "one call through attention_core (no model path calls it)",

@@ -25,18 +25,30 @@
 //   float in shared memory, then each thread sums the shifted taps of
 //   lanes t, t + 256, ... in the order of the shifts, so neighbouring
 //   threads read neighbouring words.
-// * Dots: a block owns a 64 x 128 output tile.  It stages all of w (taps x
-//   64 x K, 73.7 KB at both K) and its K x 128 slice of x once in shared
-//   memory with asynchronous copies (cp.async), rows padded by 16 bytes so
-//   that the tensor-core fragment loads (ldmatrix) fall on distinct banks,
-//   and eight warps each keep a 32 x 32 float32 accumulator (2 x 4 tiles of
-//   mma.sync.m16n8k16, bf16 in) across all taps and K; the sum is rounded
-//   once, through a float32 stage in shared memory that gives 16-byte
-//   coalesced stores.
+// * Dots: one persistent block per SM (at most one per 64-column tile)
+//   walks the output tiles b, b + gridDim.x, ... (324 tiles at N 20,736: 2
+//   or 3 a block).  The earlier kernel gave each of 162 blocks one 128-column
+//   tile: each staged all of w from L2, waited for all its loads, then
+//   computed, then stored, with no overlap, and 30 SMs took two tiles; its
+//   mma.sync products lost to cuBLAS.  Here one producer warp loads all of w
+//   once per block, tap by tap (taps x 64 x K, 73.7 KB at both K, as
+//   64 x 64 panels), then streams the block's K x 64 x tiles through a ring
+//   of one or two stages for each consumer, all with TMA (128-byte swizzle,
+//   completion counted on mbarriers; cuTensorMapEncodeTiled is taken from
+//   the runtime's driver entry point, so the library needs no -lcuda).  Three consumer
+//   warpgroups take the tiles in turn (at N 20,736 a block's tiles all run
+//   at once): each issues taps x K / 16 = 36 wgmma.m64n64k16 (A = w[t]
+//   K-major, B = the x tile N-major) into one float32 accumulator, frees the
+//   stage, and rounds once to bf16 through a per-warp swizzled stage into
+//   16-byte coalesced stores while the other warpgroups' products and the
+//   producer's loads run.
 #include <cstdint>
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+
+#include "mma_ptx.cuh"
+#include "tma.cuh"
 
 namespace {
 
@@ -135,132 +147,167 @@ roll_sum_kernel(const bf16* __restrict__ x, bf16* __restrict__ y, int N, int L, 
 }
 
 // ---------------------------------------------------------------------------
-// channels-first dots on the tensor cores
+// channels-first dots: persistent, a TMA ring of x tiles, wgmma
 
-// 16 bytes from global to shared memory without a register round trip;
-// src_bytes 0 fills the 16 bytes with zeros.  Every copy a thread issues is
-// in flight at once until cp_async_wait_all.
-__device__ __forceinline__ void cp_async16(void* dst, const void* src, int src_bytes) {
-  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d), "l"(src),
-               "r"(src_bytes));
+constexpr int kRows = 64;            // C: every row of w, the rows of y
+constexpr int kTileN = 64;           // output columns of a tile
+constexpr int kMaxTaps = 16;
+constexpr int kMaxK = 256;           // a TMA box has at most 256 rows
+constexpr int kPanel = kRows * 128;  // bytes of one 64 x 64 bf16 panel of w
+constexpr int kConsumers = 3;                 // consumer warpgroups, taking tiles in turn
+constexpr int kOutStage = kConsumers * 4 * 16 * 128;   // 16 rows x 64 bf16 for each consumer warp
+constexpr int kDotsThreads = kConsumers * 128 + 32;    // and one producer warp
+
+// wgmma shared-memory descriptor of a 128-byte-swizzled operand: start
+// address, leading and stride byte offsets (16-byte units), layout 1 (128B).
+__device__ __forceinline__ uint64_t sw128_desc(const void* p, uint32_t lbo, uint32_t sbo) {
+  return static_cast<uint64_t>((smem_u32(p) & 0x3FFFF) >> 4) |
+         (static_cast<uint64_t>((lbo >> 4) & 0x3FFF) << 16) |
+         (static_cast<uint64_t>((sbo >> 4) & 0x3FFF) << 32) | (1ull << 62);
 }
 
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.wait_all;\n" ::);
-}
-
-// Four 8 x 8 bf16 matrices from shared memory into the fragment layout of
-// mma.m16n8k16 (lane l gives the address of row l % 8 of matrix l / 8);
-// .trans hands each lane a column pair instead of a row pair.
-__device__ __forceinline__ void ldmatrix_x4(unsigned (&r)[4], const void* p) {
-  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(p));
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(a));
-}
-
-__device__ __forceinline__ void ldmatrix_x4_trans(unsigned (&r)[4], const void* p) {
-  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(p));
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(a));
-}
-
-// d (16 x 8 float) += a (16 x 16 bf16, row-major) b (16 x 8 bf16, column-major).
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const unsigned (&a)[4], unsigned b0,
-                                         unsigned b1) {
+// d (64 x 64 float, the warpgroup's registers) += a (64 x 16, K-major) b (16 x 64,
+// N-major: imm-trans-b 1), both bf16 from shared memory.
+__device__ __forceinline__ void wgmma_64x64x16(float (&d)[32], uint64_t da, uint64_t db) {
   asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
-      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, 0, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
+        "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(1));
 }
 
-constexpr int kRows = 64;            // C: every row of w
-constexpr int kCols = 128;           // output columns a block owns
-constexpr int kXPitch = kCols + 8;   // bf16 row pitch of the staged x slice
-constexpr int kOPitch = kCols + 4;   // float row pitch of the output stage
+// Keep the compiler from moving reads or writes of the accumulators across
+// the asynchronous products.
+__device__ __forceinline__ void fence_acc(float (&d)[32]) {
+#pragma unroll
+  for (int i = 0; i < 32; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
 
-// y (64 x N) = bf16(sum_t w[t] (64 x K) @ x[:K] (K x N)); K % 16 == 0,
-// N % 8 == 0.
-__global__ void __launch_bounds__(kThreads)
-dots_kernel(const bf16* __restrict__ w, const bf16* __restrict__ x, bf16* __restrict__ y,
-            int taps, int K, int N) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  const int wp = K + 8;                                     // bf16 row pitch of staged w
-  bf16* ws = reinterpret_cast<bf16*>(smem);                 // taps * 64 rows of wp
-  bf16* xs = ws + static_cast<size_t>(taps) * kRows * wp;   // K rows of kXPitch
-  float* os = reinterpret_cast<float*>(smem);               // 64 rows of kOPitch, after the products
-  const int n0 = blockIdx.x * kCols;
-
-  // Stage all of w and the block's x slice with asynchronous copies, all in
-  // flight together (a load-then-store loop would wait out one L2 round trip
-  // per 16 bytes of each thread).
-  const int kc = K / 8;
-  for (int q = threadIdx.x; q < taps * kRows * kc; q += kThreads) {
-    const int r = q / kc, k = q - r * kc;
-    cp_async16(ws + static_cast<size_t>(r) * wp + 8 * k, w + static_cast<size_t>(r) * K + 8 * k,
-               16);
-  }
-  for (int q = threadIdx.x; q < K * (kCols / 8); q += kThreads) {
-    const int r = q / (kCols / 8), k = q % (kCols / 8);
-    const bool in = n0 + 8 * k < N;
-    cp_async16(xs + r * kXPitch + 8 * k, in ? x + static_cast<size_t>(r) * N + n0 + 8 * k : x,
-               in ? 16 : 0);
-  }
-  cp_async_wait_all();
-  __syncthreads();
-
-  // 2 x 4 warps of 32 x 32 over the 64 x 128 tile; each warp keeps 2 x 4
-  // float32 accumulators of 16 x 8 (mma.m16n8k16) across all taps and K.
+// y (64 x N) = bf16(sum_t w[t] (64 x K) @ x[:K] (K x N)) over 64-column
+// tiles; block b takes tiles b, b + gridDim.x, ..., and its i-th tile goes
+// to consumer c = i % kConsumers, as that consumer's m-th (m = i /
+// kConsumers), into stage m % spc of the consumer's own spc = stages /
+// kConsumers stages: a stage serves one consumer only, so a consumer waits
+// for a stage's next phase only after consuming the phase before it itself,
+// which is what makes a parity wait exact (attention_core.cu says why).
+// Shared memory, from a 1024-byte boundary: w as taps x
+// ceil(K / 64) panels of 64 rows x 64 values (TMA, 128-byte swizzle: the
+// K-major A operand), the ring of `stages` x tiles of K rows x 64 values
+// (the N-major B operand), the consumer warps' output stages, then the
+// barriers.
+__global__ void __launch_bounds__(kDotsThreads, 1)
+dots_kernel(const __grid_constant__ CUtensorMap tmap_w, const __grid_constant__ CUtensorMap tmap_x,
+            bf16* __restrict__ y, int taps, int K, int N, int stages) {
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  unsigned char* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  const int panels = (K + 63) / 64;
+  const int x_bytes = K * 128;
+  unsigned char* ws = smem;
+  unsigned char* xs = ws + taps * panels * kPanel;
+  unsigned char* os = xs + stages * x_bytes;
+  uint64_t* full = reinterpret_cast<uint64_t*>(os + kOutStage);
+  uint64_t* empty = full + stages;
+  uint64_t* wbar = empty + stages;            // one per tap
+  const int tiles = (N + kTileN - 1) / kTileN;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int wm = (warp >> 2) * 32;
-  const int wn = (warp & 3) * 32;
-  const int lrow = lane & 15, lcol = (lane >> 4) * 8;   // this lane's ldmatrix row address
-  float acc[2][4][4] = {};
-  for (int t = 0; t < taps; ++t) {
-    const bf16* wt = ws + static_cast<size_t>(t) * kRows * wp;
-    for (int k0 = 0; k0 < K; k0 += 16) {
-      unsigned a[2][4], b[2][4];
-#pragma unroll
-      for (int i = 0; i < 2; ++i) ldmatrix_x4(a[i], wt + (wm + 16 * i + lrow) * wp + k0 + lcol);
-#pragma unroll
-      for (int j = 0; j < 2; ++j)
-        ldmatrix_x4_trans(b[j], xs + (k0 + lrow) * kXPitch + wn + 16 * j + lcol);
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-#pragma unroll
-        for (int j = 0; j < 2; ++j) {
-          mma_bf16(acc[i][2 * j], a[i], b[j][0], b[j][1]);
-          mma_bf16(acc[i][2 * j + 1], a[i], b[j][2], b[j][3]);
-        }
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < stages; ++s) {
+      mbar_init(full + s, 1);
+      mbar_init(empty + s, 4);                // one arrival per warp of the consumer
     }
+    for (int t = 0; t < taps; ++t) mbar_init(wbar + t, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
-  __syncthreads();                   // every warp is done with ws and xs
-  const int g = lane >> 2, tq = lane & 3;
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      float* o = os + (wm + 16 * i + g) * kOPitch + wn + 8 * j + 2 * tq;
-      *reinterpret_cast<float2*>(o) = make_float2(acc[i][j][0], acc[i][j][1]);
-      *reinterpret_cast<float2*>(o + 8 * kOPitch) = make_float2(acc[i][j][2], acc[i][j][3]);
-    }
   __syncthreads();
 
-  for (int q = threadIdx.x; q < kRows * (kCols / 8); q += kThreads) {
-    const int r = q / (kCols / 8), k = q % (kCols / 8);
-    if (n0 + 8 * k >= N) continue;
-    const float4 u = *reinterpret_cast<const float4*>(os + r * kOPitch + 8 * k);
-    const float4 v = *reinterpret_cast<const float4*>(os + r * kOPitch + 8 * k + 4);
-    const __nv_bfloat162 p0 = __floats2bfloat162_rn(u.x, u.y), p1 = __floats2bfloat162_rn(u.z, u.w);
-    const __nv_bfloat162 p2 = __floats2bfloat162_rn(v.x, v.y), p3 = __floats2bfloat162_rn(v.z, v.w);
-    uint4 out;
-    out.x = *reinterpret_cast<const uint32_t*>(&p0);
-    out.y = *reinterpret_cast<const uint32_t*>(&p1);
-    out.z = *reinterpret_cast<const uint32_t*>(&p2);
-    out.w = *reinterpret_cast<const uint32_t*>(&p3);
-    *reinterpret_cast<uint4*>(y + static_cast<size_t>(r) * N + n0 + 8 * k) = out;
+  if (warp == 4 * kConsumers) {
+    // Producer: w once, tap by tap, then the block's x tiles through the ring.
+    if (lane == 0) {
+      for (int t = 0; t < taps; ++t) {
+        mbar_expect_tx(wbar + t, panels * kPanel);
+        for (int p = 0; p < panels; ++p)
+          tma_load_2d(ws + (t * panels + p) * kPanel, &tmap_w, 64 * p, kRows * t, wbar + t);
+      }
+      const int spc = stages / kConsumers;
+      int i = 0;
+      for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x, ++i) {
+        const int m = i / kConsumers, s = (i % kConsumers) * spc + m % spc;
+        if (m >= spc) mbar_wait(empty + s, (m / spc - 1) & 1);
+        mbar_expect_tx(full + s, x_bytes);
+        tma_load_2d(xs + s * x_bytes, &tmap_x, kTileN * tile, 0, full + s);
+      }
+    }
+    return;
   }
+
+  // Consumers: warpgroup c takes the block's tiles c, c + kConsumers, ...;
+  // its warp w4 holds rows 16 w4 .. 16 w4 + 15 of the 64 x 64 accumulator.
+  const int c = warp >> 2, w4 = warp & 3;
+  const int g = lane >> 2, tq = lane & 3;
+  unsigned char* stage = os + (c * 4 + w4) * 16 * 128;
+  const int spc = stages / kConsumers;
+  for (int m = 0, tile = blockIdx.x + c * gridDim.x; tile < tiles;
+       ++m, tile += kConsumers * gridDim.x) {
+    const int s = c * spc + m % spc;
+    float acc[32];
+#pragma unroll
+    for (int r = 0; r < 32; ++r) acc[r] = 0.f;
+    fence_acc(acc);
+    mbar_wait(full + s, (m / spc) & 1);
+    __syncwarp();
+    asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+    for (int t = 0; t < taps; ++t) {
+      mbar_wait(wbar + t, 0);                 // passes at once after the first tile
+      __syncwarp();                           // wgmma is warp-aligned: reconverge first
+      for (int k = 0; k < K / 16; ++k) {
+        // A: panel k / 4 of tap t, 32 bytes per 16 values along K inside the
+        // swizzled 128-byte rows, 8-row groups 1024 bytes apart; B: 16 rows of
+        // 128 bytes per step, 8-row groups 1024 bytes apart (a 64-wide tile
+        // is one swizzle atom across N, so its other offset is never used).
+        const uint64_t da = sw128_desc(ws + (t * panels + k / 4) * kPanel + 32 * (k % 4), 16, 1024);
+        const uint64_t db = sw128_desc(xs + s * x_bytes + k * 2048, 1024, 1024);
+        wgmma_64x64x16(acc, da, db);
+      }
+    }
+    asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+    asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+    fence_acc(acc);
+    if (lane == 0) mbar_arrive(empty + s);   // the x tile is read
+
+    // Round once; stage the warp's 16 rows (128-byte rows, chunk j of row r
+    // at j ^ (r % 8)) and write them with 16-byte stores.
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      *reinterpret_cast<uint32_t*>(stage + g * 128 + ((j ^ g) << 4) + 4 * tq) =
+          pack_bf16(acc[4 * j], acc[4 * j + 1]);
+      *reinterpret_cast<uint32_t*>(stage + (g + 8) * 128 + ((j ^ g) << 4) + 4 * tq) =
+          pack_bf16(acc[4 * j + 2], acc[4 * j + 3]);
+    }
+    __syncwarp();
+#pragma unroll
+    for (int it = 0; it < 4; ++it) {
+      const int r = it * 4 + (lane >> 3), ch = lane & 7;
+      const int col = kTileN * tile + 8 * ch;
+      if (col < N)
+        *reinterpret_cast<uint4*>(y + static_cast<size_t>(16 * w4 + r) * N + col) =
+            *reinterpret_cast<const uint4*>(stage + r * 128 + ((ch ^ (r & 7)) << 4));
+    }
+    __syncwarp();
+  }
+}
+
+// Shared memory the kernel lays out for `stages` (ops/micro_cf.py: dots_plan).
+int dots_smem_needed(int taps, int K, int stages) {
+  return 1024 + taps * ((K + 63) / 64) * kPanel + stages * K * 128 + kOutStage
+         + 8 * (2 * stages + taps);
 }
 
 }  // namespace
@@ -296,19 +343,28 @@ int rdm_cf_masked_roll_sum(const void* x, void* y, int C, int N, int L, const in
 }
 
 // w (taps x 64 x K), x (>= K rows of N) and y (64 x N) are row-major
-// bfloat16; smem is the block's shared memory (ops/micro_cf.py:
-// dots_smem_bytes).
-int rdm_cf_dots(const void* w, const void* x, void* y, int taps, int K, int N, int smem,
-                void* stream) {
-  if (taps < 1 || K < 16 || K % 16 != 0 || N < 8 || N % 8 != 0 || smem < 1 ||
+// bfloat16 starting on 16-byte boundaries; stages and smem are the plan of
+// ops/micro_cf.py: dots_plan.
+int rdm_cf_dots(const void* w, const void* x, void* y, int taps, int K, int N, int stages,
+                int smem, void* stream) {
+  if (taps < 1 || taps > kMaxTaps || K < 16 || K > kMaxK || K % 16 != 0 || N < 8 || N % 8 != 0 ||
+      stages < kConsumers || stages % kConsumers != 0 || smem < dots_smem_needed(taps, K, stages) ||
       smem > kSmemLimit)
     return static_cast<int>(cudaErrorInvalidValue);
   // The most any shape may take, set once.
   static const cudaError_t attr = cudaFuncSetAttribute(
       dots_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemLimit);
   if (attr != cudaSuccess) return static_cast<int>(attr);
-  dots_kernel<<<(N + kCols - 1) / kCols, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const bf16*>(w), static_cast<const bf16*>(x), static_cast<bf16*>(y), taps, K, N);
+  CUtensorMap tmap_w, tmap_x;
+  if (!tensor_map_2d(&tmap_w, w, taps * kRows, K, kRows) || !tensor_map_2d(&tmap_x, x, K, N, K))
+    return static_cast<int>(cudaErrorNotSupported);
+  int dev = 0, sms = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int tiles = (N + kTileN - 1) / kTileN;
+  dots_kernel<<<tiles < sms ? tiles : sms, kDotsThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+      tmap_w, tmap_x, static_cast<bf16*>(y), taps, K, N, stages);
   return static_cast<int>(cudaGetLastError());
 }
 

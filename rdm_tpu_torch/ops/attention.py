@@ -27,7 +27,10 @@ replaces ``_fused_block_bwd_kernel`` of the same file; operations bound it
 
 ``attention_core`` launches ``csrc/attention_core.cu`` on CUDA tensors
 and runs ``attention_core_reference`` on CPU tensors.  It replaces the TPU
-kernel ``_attn_kernel`` of the same file; memory bounds it.
+kernel ``_attn_kernel`` of the same file; memory bounds it.  In bfloat16 it
+runs on the tensor cores with the scores in registers, fed by a TMA ring of
+staged samples (``core_plan``); in float32 it keeps the scalar kernel
+(``core_rows_per_chunk``).
 
 Both block directions take the model's NCHW activations and the NIN weights as
 (C_in, C_out) matrices, cast every parameter to the activations' type
@@ -40,6 +43,7 @@ from __future__ import annotations
 
 import ctypes
 import math
+from typing import NamedTuple
 
 import torch
 
@@ -48,6 +52,8 @@ from . import _build
 SUPPORTED_CHANNELS = (64, 128)
 MAX_TOKENS = 128
 CORE_MAX_CHANNELS = 128
+# ring stages of each consumer group of the bfloat16 attention-core kernel
+CORE_STAGES_PER_GROUP = 2
 GN_EPS = 1e-6
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -375,15 +381,42 @@ def attention_core_reference(q, k, v, softmax_f32: bool = True):
 
 
 def core_rows_per_chunk(C: int, L: int) -> int:
-    """Query rows the attention-core kernel handles at once: all of them
-    where shared memory allows, else the most that fit beside k transposed
-    (C x LP) and v (L x C), each row taking one row of q (C + 1) and of
-    scores (LP), all float32."""
+    """Query rows the float32 attention-core kernel handles at once: all of
+    them where shared memory allows, else the most that fit beside k
+    transposed (C x LP) and v (L x C), each row taking one row of q (C + 1)
+    and of scores (LP), all float32."""
     lp = -(-L // 8) * 8
     rows = (_build.SMEM_LIMIT - 4 * (C * lp + L * C)) // (4 * (C + 1 + lp))
     if rows < 1:
         raise ValueError(f"attention_core: C={C}, L={L} does not fit in shared memory")
     return min(L, rows)
+
+
+class CorePlan(NamedTuple):
+    """Launch plan of the bfloat16 attention-core kernel (``csrc/attention_core.cu``)."""
+    key_tiles: int          # keys padded to 16 key_tiles (2, 4, 6 or 8), zeros past L
+    channel_tiles: int      # channels padded to 16 channel_tiles (4 or 8), zeros past C
+    groups: int             # consumer groups, each taking every groups-th sample
+    warps: int              # per block: one per 16 query rows in each group, and a producer
+    samples_in_flight: int  # per block: the ring's stages, two of each group's own
+    smem_bytes: int         # 1024 of alignment slack, the ring, two barriers a stage
+
+
+def core_plan(L: int, C: int) -> CorePlan:
+    """The bfloat16 kernel's plan for (L, C), as ``attention_core.cu``
+    computes it; raises where the kernel does not take the shape."""
+    if not (1 <= L <= MAX_TOKENS and 8 <= C <= CORE_MAX_CHANNELS and C % 8 == 0):
+        raise ValueError(f"attention_core: unsupported L={L}, C={C} (L <= {MAX_TOKENS}, "
+                         f"C <= {CORE_MAX_CHANNELS}, C % 8 == 0)")
+    key_tiles = -(-L // 32) * 2
+    channel_tiles = 4 if C <= 64 else 8
+    groups = 1 if key_tiles * channel_tiles >= 32 else 2
+    sample = 3 * (16 * key_tiles) * (16 * channel_tiles) * 2       # q, k, v in bfloat16
+    stages = CORE_STAGES_PER_GROUP * groups
+    smem = 1024 + stages * (sample + 16)
+    if smem > _build.SMEM_LIMIT:
+        raise ValueError(f"attention_core: L={L}, C={C} needs {smem} bytes of shared memory")
+    return CorePlan(key_tiles, channel_tiles, groups, groups * -(-L // 16) + 1, stages, smem)
 
 
 def attention_core(q, k, v, softmax_f32: bool = True):
@@ -392,7 +425,8 @@ def attention_core(q, k, v, softmax_f32: bool = True):
 
     CPU tensors take the plain version.  CUDA tensors launch the kernel; it
     takes float32 or bfloat16 of one type, L <= 128 and C <= 128 with C % 8
-    == 0, contiguous, and raises on anything else.
+    == 0, contiguous (bfloat16: starting on a 16-byte boundary), and raises
+    on anything else.
     """
     if q.device.type == "cpu":
         return attention_core_reference(q, k, v, softmax_f32)
@@ -405,11 +439,12 @@ def attention_core(q, k, v, softmax_f32: bool = True):
         raise ValueError(f"{name}: expected (B, L, C) float32 or bfloat16, got "
                          f"{tuple(q.shape)} {q.dtype}")
     B, L, C = q.shape
-    if L > MAX_TOKENS or C > CORE_MAX_CHANNELS or C % 8 != 0:
-        raise ValueError(f"{name}: unsupported L={L}, C={C} (L <= {MAX_TOKENS}, "
-                         f"C <= {CORE_MAX_CHANNELS}, C % 8 == 0)")
+    core_plan(L, C)
     if not all(t.is_contiguous() for t in (q, k, v)):
         raise ValueError(f"{name}: q, k, v must be contiguous")
+    bf16 = q.dtype == torch.bfloat16
+    if bf16 and any(t.data_ptr() % 16 for t in (q, k, v)):
+        raise ValueError(f"{name}: bfloat16 q, k, v must start on a 16-byte boundary")
     out = torch.empty_like(q)
     if B == 0:
         return out
@@ -418,8 +453,9 @@ def attention_core(q, k, v, softmax_f32: bool = True):
     with torch.cuda.device(q.device):
         err = lib.rdm_attention_core(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, L, C,
-            core_rows_per_chunk(C, L), _DTYPE_CODES[q.dtype], int(not softmax_f32),
-            float(C) ** -0.5, torch.cuda.current_stream(q.device).cuda_stream)
+            0 if bf16 else core_rows_per_chunk(C, L), _DTYPE_CODES[q.dtype],
+            int(not softmax_f32), float(C) ** -0.5,
+            torch.cuda.current_stream(q.device).cuda_stream)
     _build.raise_on(lib, err, name)
     attention_core.launches += 1
     return out

@@ -16,7 +16,8 @@ axis last, bfloat16.
 * ``cf_dots(w, x, K)`` with w (taps, C, K) and x (>= K, N):
   ``out = bf16(sum_t f32(w[t] @ x[:K]))`` of shape (C, N), every tap
   multiplying the same ``x[:K]`` (the script's :97-104: a throughput
-  probe), with 9 taps for K = C and 3 otherwise.
+  probe), with 9 taps for K = C and 3 otherwise.  Its kernel is persistent:
+  TMA loads into a ring of x tiles, ``wgmma`` products (``dots_plan``).
 
 Each function has its plain PyTorch version (``*_reference``) and a
 wrapper that runs the plain version for a CPU tensor and, for a CUDA
@@ -26,6 +27,7 @@ it never falls back.  Each wrapper counts its launches in ``.launches``.
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import torch
 
@@ -36,8 +38,11 @@ SHIFTS = (-10, -9, -8, -1, 1, 8, 9, 10)
 # the kernel's halo: shifts reach at most two 16-byte chunks past a span
 MAX_SHIFT = 16
 MAX_SHIFTS = 16
-DOTS_ROWS = 64          # C: the rows of w a block stages, all of them
-DOTS_COLS = 128         # output columns a block owns
+DOTS_ROWS = 64          # C: the rows of w and of the output
+DOTS_TILE = 64          # output columns of a tile
+DOTS_MAX_K = 256        # a TMA box of the x tile has at most 256 rows
+DOTS_CONSUMERS = 3      # consumer warpgroups, four warps each
+DOTS_MAX_STAGES_PER_CONSUMER = 2
 _CHUNK = 8              # bfloat16 values in 16 bytes
 
 
@@ -47,12 +52,27 @@ def dots_taps(C: int, K: int) -> int:
     return 9 if K == C else 3
 
 
-def dots_smem_bytes(taps: int, K: int) -> int:
-    """Shared memory of one block of the dots kernel: all of w with rows
-    padded by 8 values, and the K x 128 slice of x with rows padded by 8;
-    the float32 64 x 132 output stage reuses them."""
-    staged = 2 * (taps * DOTS_ROWS * (K + 8) + K * (DOTS_COLS + 8))
-    return max(staged, 4 * DOTS_ROWS * (DOTS_COLS + 4))
+class DotsPlan(NamedTuple):
+    """Launch plan of the dots kernel (``csrc/micro_cf.cu``: dots_smem_needed)."""
+    stages: int             # x tiles of K x 64 in the ring, the same number for each consumer
+    smem_bytes: int         # 1024 of alignment slack, w, the ring, output stages, barriers
+
+
+def dots_plan(taps: int, K: int):
+    """The ring and shared memory of one block: all of w as taps x
+    ceil(K / 64) panels of 64 x 64 bf16, one or two K x 64 x tiles for each
+    consumer warpgroup (as many as fit), a 16 x 64 bf16 output stage for
+    each consumer warp and one 8-byte barrier per stage (two) and per tap.
+    None where K exceeds a TMA box or not one x tile a consumer fits."""
+    out_stages = DOTS_CONSUMERS * 4 * 16 * DOTS_TILE * 2
+    fixed = 1024 + taps * (-(-K // 64)) * DOTS_ROWS * 128 + out_stages + 8 * taps
+    tile = K * DOTS_TILE * 2 + 16
+    per_consumer = min(DOTS_MAX_STAGES_PER_CONSUMER,
+                       (_build.SMEM_LIMIT - fixed) // (DOTS_CONSUMERS * tile))
+    if K > DOTS_MAX_K or per_consumer < 1:
+        return None
+    stages = DOTS_CONSUMERS * per_consumer
+    return DotsPlan(stages, fixed + stages * tile)
 
 
 # ---------------------------------------------------------------------------
@@ -187,9 +207,9 @@ cf_masked_roll_sum.launches = 0
 def cf_dots(w, x, K: int):
     """``bf16(sum_t f32(w[t] @ x[:K]))`` for bfloat16 w (taps, C, K) and x
     (>= K, N), taps = ``dots_taps(C, K)``.  CPU tensors take the plain
-    version; CUDA tensors launch the tensor-core kernel, which takes C = 64,
-    K a multiple of 16 whose staged w and x fit in shared memory, N a
-    multiple of 8, and raises on anything else."""
+    version; CUDA tensors launch the persistent tensor-core kernel, which
+    takes C = 64, K a multiple of 16 with a plan (``dots_plan``: K <= 256),
+    N a multiple of 8, and raises on anything else."""
     _check_dims("cf_dots", w, 3)
     _check_dims("cf_dots", x, 2)
     taps, C, k_w = w.shape
@@ -199,17 +219,18 @@ def cf_dots(w, x, K: int):
     if _on_cpu("cf_dots", w, x):
         return cf_dots_reference(w, x, K)
     N = x.shape[1]
-    if C != DOTS_ROWS or K % 16 or N % _CHUNK or dots_smem_bytes(taps, K) > _build.SMEM_LIMIT:
+    plan = dots_plan(taps, K)
+    if C != DOTS_ROWS or K % 16 or N % _CHUNK or plan is None:
         raise ValueError(f"cf_dots: unsupported C={C}, K={K}, N={N} (C = {DOTS_ROWS}, "
-                         f"K % 16 == 0 within shared memory, N % {_CHUNK} == 0)")
+                         f"K % 16 == 0 and K <= {DOTS_MAX_K}, N % {_CHUNK} == 0)")
     out = torch.empty((C, N), dtype=x.dtype, device=x.device)
     if N == 0:
         return out
     lib = _build.library("micro_cf", "rdm_cf_dots",
-                   [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4 + [ctypes.c_void_p])
+                   [ctypes.c_void_p] * 3 + [ctypes.c_int] * 5 + [ctypes.c_void_p])
     with torch.cuda.device(x.device):
         err = lib.rdm_cf_dots(w.data_ptr(), x.data_ptr(), out.data_ptr(), taps, K, N,
-                              dots_smem_bytes(taps, K), _stream(x))
+                              plan.stages, plan.smem_bytes, _stream(x))
     _build.raise_on(lib, err, "cf_dots")
     cf_dots.launches += 1
     return out

@@ -131,6 +131,30 @@ def test_core_rows_per_chunk():
     assert 4 * (128 * 128 + 128 * 128 + r * (129 + 128)) <= 232448
 
 
+def test_core_plan_fits_every_accepted_shape():
+    """The bfloat16 kernel's plan for every (L, C) the wrapper takes: keys
+    and channels padded to whole tiles, one warp per 16 query rows in each
+    consumer group and a producer warp, two staged samples of each group's
+    own, all of it within one block's shared memory."""
+    for L in range(1, 129):
+        for C in range(8, 129, 8):
+            plan = attn_ops.core_plan(L, C)
+            assert plan.key_tiles in (2, 4, 6, 8) and L <= 16 * plan.key_tiles < L + 32
+            assert plan.channel_tiles == (4 if C <= 64 else 8)
+            assert plan.groups == (1 if plan.key_tiles * plan.channel_tiles >= 32 else 2)
+            assert plan.warps == plan.groups * -(-L // 16) + 1
+            sample = 3 * 16 * plan.key_tiles * 16 * plan.channel_tiles * 2
+            assert plan.samples_in_flight == 2 * plan.groups
+            assert plan.smem_bytes == 1024 + plan.samples_in_flight * (sample + 16)
+            assert plan.smem_bytes <= 232448
+    # the flagship's shape: 2 groups of 6 warps and a producer, 4 samples of 36,864 bytes
+    assert attn_ops.core_plan(81, 64) == (6, 4, 2, 13, 4, 148544)
+    assert attn_ops.core_plan(128, 128) == (8, 8, 1, 9, 2, 197664)    # the largest
+    for L, C in [(0, 64), (129, 64), (81, 136), (81, 60), (81, 0)]:
+        with pytest.raises(ValueError):
+            attn_ops.core_plan(L, C)
+
+
 # ---------------------------------------------------------------------------
 # On the card
 
@@ -169,3 +193,74 @@ def test_kernel_rejects_unsupported(cuda_device):
     q = torch.zeros((2, 81, 64), device=cuda_device, dtype=torch.float16)
     with pytest.raises(ValueError):
         attn_ops.attention_core(q, q, q)
+
+
+def card_qkv(B, L, C, seed, device):
+    return [torch.from_numpy(a).to(device, torch.bfloat16) for a in make_qkv(B, L, C, seed)]
+
+
+def check_bf16(out, ref):
+    # the same rounding points; a sum next to a boundary may round the other
+    # way: 2 bf16 steps at the output's scale
+    err = float((out.float() - ref.float()).abs().max())
+    scale = max(1.0, float(ref.float().abs().max()))
+    assert bool(torch.isfinite(out.float()).all())
+    assert err <= 2 * BF16_STEP * scale, err
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("softmax_f32", [True, False])
+@pytest.mark.parametrize("C", [8, 32, 64, 128])
+@pytest.mark.parametrize("L", [1, 16, 81, 128])
+@pytest.mark.parametrize("B", [1, 3, 1025])
+def test_bf16_kernel_shapes_and_edges(cuda_device, B, L, C, softmax_f32):
+    """Batches that no grid divides evenly (each block walks samples in
+    turn, two in flight), one token to the most, narrow to wide channels."""
+    q, k, v = card_qkv(B, L, C, B + L + C, cuda_device)
+    before = attn_ops.attention_core.launches
+    out = attn_ops.attention_core(q, k, v, softmax_f32)
+    ref = attn_ops.attention_core_reference(q, k, v, softmax_f32)
+    torch.cuda.synchronize()
+    assert attn_ops.attention_core.launches == before + 1
+    check_bf16(out, ref)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("softmax_f32", [True, False])
+@pytest.mark.parametrize("L,C", [(81, 64), (128, 128), (16, 32)])
+def test_bf16_kernel_many_samples_per_block(cuda_device, L, C, softmax_f32):
+    """B 4096: a block takes about 31 samples, so each ring stage is refilled
+    many times over; every sample must still be computed from its own q, k,
+    v (a stage reused before its earlier load landed would mix samples)."""
+    q, k, v = card_qkv(4096, L, C, 5, cuda_device)
+    out = attn_ops.attention_core(q, k, v, softmax_f32)
+    ref = attn_ops.attention_core_reference(q, k, v, softmax_f32)
+    torch.cuda.synchronize()
+    check_bf16(out, ref)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("softmax_f32", [True, False])
+@pytest.mark.parametrize("L", [17, 81])
+def test_padded_keys_carry_no_weight(cuda_device, L, softmax_f32):
+    """The last real key scores far above the rest and the keys past it
+    (padding up to a whole tile) would dominate if they took any weight:
+    p puts nearly all its mass on key L - 1, as the plain version does."""
+    B, C = 8, 64
+    q, k, v = card_qkv(B, L, C, 11, cuda_device)
+    q = q.abs()
+    k[:, L - 1] = 4.0                  # scores about 4 sqrt(C) E|q| above the others
+    v[:, L - 1] = -3.0
+    out = attn_ops.attention_core(q, k, v, softmax_f32)
+    ref = attn_ops.attention_core_reference(q, k, v, softmax_f32)
+    torch.cuda.synchronize()
+    check_bf16(out, ref)
+    assert float((out.float() + 3.0).abs().max()) < 0.05
+
+
+@pytest.mark.gpu
+def test_bf16_kernel_rejects_views_off_a_16_byte_boundary(cuda_device):
+    x = torch.zeros(2 * 81 * 64 + 8, device=cuda_device, dtype=torch.bfloat16)
+    view = x[1:1 + 2 * 81 * 64].view(2, 81, 64)            # contiguous, 2 bytes off
+    with pytest.raises(ValueError, match="16-byte"):
+        attn_ops.attention_core(view, view, view)

@@ -189,7 +189,37 @@ def test_wrappers_take_plain_versions_on_cpu_and_check_inputs():
         micro_cf.cf_dots(w[:3], x, C)                          # K = C takes 9 taps
     with pytest.raises(ValueError, match="device"):
         micro_cf.cf_transpose(torch.empty((8, 8), dtype=torch.bfloat16, device="meta"))
-    assert micro_cf.dots_smem_bytes(9, 64) <= 232448 and micro_cf.dots_smem_bytes(3, 192) <= 232448
+    assert micro_cf.dots_plan(9, 64).smem_bytes <= 232448
+    assert micro_cf.dots_plan(3, 192).smem_bytes <= 232448
+
+
+def test_dots_plan():
+    """The dots kernel's ring: all of w (taps x ceil(K / 64) panels of
+    64 x 64), one or two K x 64 x tiles of each of the 3 consumer
+    warpgroups' own, a 16 x 64 output stage for each of the 12 consumer
+    warps and the barriers, within one block's shared memory; no plan past a
+    TMA box of 256 rows."""
+    assert micro_cf.dots_plan(9, 64) == (6, 1024 + 9 * 8192 + 24576 + 72 + 6 * (8192 + 16))
+    assert micro_cf.dots_plan(3, 192) == (3, 1024 + 9 * 8192 + 24576 + 24 + 3 * (24576 + 16))
+    for K in range(16, 257, 16):
+        taps = micro_cf.dots_taps(64, K)
+        plan = micro_cf.dots_plan(taps, K)
+        assert plan.stages in (3, 6) and plan.smem_bytes <= 232448
+    assert micro_cf.dots_plan(3, 256).stages == 3
+    assert micro_cf.dots_plan(3, 272) is None
+
+
+def test_knockout_variants_still_apply_to_the_sources():
+    """``benchmark/knockouts.py`` edits the kernel sources by their text; each
+    edit must still find its text, so that the tool keeps measuring what it
+    names."""
+    from rdm_tpu_torch.benchmark import knockouts
+
+    for name, (fname, old, _) in knockouts.EDITS.items():
+        edited_file, src = knockouts.edited_source(name)
+        assert edited_file == fname
+        with open(os.path.join(ROOT, "rdm_tpu_torch", "csrc", fname)) as f:
+            assert (src != f.read()) == (old is not None), name
 
 
 # ---------------------------------------------------------------------------
@@ -231,8 +261,10 @@ def test_roll_sum_kernel_is_exact(cuda_device, N):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("K", [64, 192])
-@pytest.mark.parametrize("N", [20736, 200])
+@pytest.mark.parametrize("K", [16, 64, 192])
+# one tile; ragged; 324 tiles (2 or 3 per SM); 397 tiles (over 3 per SM),
+# ragged; 1321 tiles (10 or 11 per SM: each ring stage refilled again and again)
+@pytest.mark.parametrize("N", [8, 200, 20736, 64 * 132 * 3 + 8, 64 * 132 * 10 + 8])
 def test_dots_kernel_within_one_bf16_step(cuda_device, K, N):
     taps = micro_cf.dots_taps(64, K)
     w, x = card_randn((taps, 64, K), 2, cuda_device), card_randn((K, N), 3, cuda_device)
@@ -246,6 +278,13 @@ def test_dots_kernel_within_one_bf16_step(cuda_device, K, N):
     f32_allow = 2 * taps * K * 2.0 ** -24 * (w.float().abs().sum(0) @ x.float().abs())
     ulp = torch.from_numpy(bf16_ulp(ref.cpu().numpy())).to(cuda_device).float()
     assert bool(((out - ref).abs() <= ulp + f32_allow).all())
+
+
+@pytest.mark.gpu
+def test_dots_kernel_raises_without_a_plan(cuda_device):
+    w, x = card_randn((3, 64, 272), 7, cuda_device), card_randn((272, 64), 8, cuda_device)
+    with pytest.raises(ValueError, match="K <= 256"):
+        micro_cf.cf_dots(w, x, 272)
 
 
 @pytest.mark.gpu
