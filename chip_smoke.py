@@ -7,18 +7,28 @@ Phases, each printing one JSON line with its elapsed seconds:
 
 1. env        torch/CUDA versions, the card, nvidia-smi's name and power limit
 2. build      nvcc builds every CUDA source of the sampling and training paths,
-              one nvcc per source, all at once, with each one's ptxas report
+              one nvcc per source, all at once, with each one's ptxas
+              register and spill lines
 3. kernel     the attention kernel against its plain PyTorch version on the
-              same seeded inputs, with the stated tolerance, timed with CUDA
-              events beside its bound
+              same seeded inputs, with the stated tolerance (bfloat16 at
+              B 1024, 1025, 3 and 4096 through the tensor-core body, C 128
+              and L 128 and float32 through the scalar one); timed cold and
+              warm as CUDA-graph slopes beside its bound, the kernel alone
+              (parameters prepared once) and the plain version, with the
+              weight bytes its launch plan reads from L2 (modeled, not
+              measured)
 4. kernel_bwd the attention backward kernel against the plain backward on the
               same seeded x, g and parameters, each against its stated
               tolerance, two runs bit for bit, timed beside its bound
 5. kernel_resblock  the fused resblock kernel against its plain version at
-              the eight block shapes of the flagship at batch 1024 in
-              bfloat16, one float32 case and three ragged cases of batch 3;
-              each bfloat16 shape timed beside its bound, the plain version
-              and the unfused module (cuDNN convolutions)
+              the eight block shapes of the flagship at batch 1024, 3 and
+              1025 in bfloat16 (the tensor-core body), one float32 case at
+              1024 and three at batch 3 (the scalar body); each bfloat16
+              shape at 1024 timed cold and warm as CUDA-graph slopes beside
+              its bound, the kernel alone (parameters prepared once), the
+              plain version and the unfused module (cuDNN convolutions),
+              with its launch plan and the weight bytes the plan reads from
+              L2 (modeled, not measured)
 6. kernel_attn_core  the attention-core kernel against its plain version at
               batch 1024, 81 tokens, 64 channels, float32 and bfloat16 (both
               softmax settings), and at batch 1025, 4096, 3 and 16 (128 x 128);
@@ -219,15 +229,42 @@ def attn_case(B, C, L, groups, dtype, seed, device, timed):
     # later products, so allow 4 steps at the output's largest magnitude.
     tol = (1e-4 if dtype == torch.float32 else 4 * 2.0 ** -8) * scale
     res = {"B": B, "C": C, "L": L, "groups": groups, "dtype": str(dtype).split(".")[-1],
-           "max_abs_err": err, "tol": tol}
+           "body": attn_ops.attn_body(C, L, dtype), "max_abs_err": err, "tol": tol}
     check(bool(torch.isfinite(out.float()).all()), f"kernel output not finite {res}")
     check(err <= tol, f"kernel disagrees with its plain version: {res}")
     if timed:
-        res["ms"] = cuda_time_ms(lambda: attn_ops.fused_attn_block(x, *params, **kw), 50)
-        res["plain_ms"] = cuda_time_ms(
-            lambda: attn_ops.fused_attn_block_reference(x, *params, **kw), 10)
+        # CUDA-graph slopes as attn_core_case takes them.  cold: x rotates
+        # over more than twice the L2 (the time compared with the bound);
+        # warm: the same x each call.  ms is the wrapper call the model
+        # makes (it casts the ten parameters every call); kernel_ms the
+        # kernel alone, its parameters prepared once.
+        launch = attn_ops._launcher(*params, C=C, L=L, dtype=dtype, **kw)
+        wrapper = lambda t: attn_ops.fused_attn_block(t, *params, **kw)
+        make = lambda i: torch.randn(x.shape, generator=torch.Generator(device=device)
+                                     .manual_seed(100 + i), device=device).to(dtype)
+        nbytes = x.numel() * x.element_size()
+        fns = {"": wrapper, "kernel_": launch,
+               "plain_": lambda t: attn_ops.fused_attn_block_reference(t, *params, **kw)}
+        for key, fn in fns.items():
+            ks = (5, 50) if key == "plain_" else micro_cf_script.KS
+            res[key + "ms"] = micro_cf_script.cold_us(fn, make, nbytes, device, ks) / 1e3
+        res["warm_ms"] = micro_cf_script.slope_us(
+            lambda n: [wrapper(x) for _ in range(n)], device) / 1e3
         res["bound_ms"], res["bound_by"] = attn_bound_ms(B, C, L, dtype)
+        res["share_of_bound"] = res["bound_ms"] / res["ms"]
+        res["modeled_weight_bytes"] = modeled_weight_bytes_attn(B, C, L, dtype)
     return res
+
+
+def modeled_weight_bytes_attn(B, C, L, dtype) -> int:
+    """Arithmetic, not a measurement: bytes of the four C x C weights the
+    launch reads from L2 if the tensor-core body stages them once per
+    persistent block and the scalar one once per sample (it reads them
+    inside every product's loop, so more)."""
+    elt = torch.tensor([], dtype=dtype).element_size()
+    blocks = min(B, torch.cuda.get_device_properties(0).multi_processor_count)
+    per_block = 4 * C * C * elt
+    return (blocks if attn_ops.attn_body(C, L, dtype) == "tensor_cores" else B) * per_block
 
 
 def attn_bwd_bound_ms(B, C, L, dtype) -> tuple:
@@ -355,16 +392,49 @@ def resblock_case(B, H, ci, co, dtype, seed, device, timed):
            "frac_differ": float((out != ref).float().mean())}
     check(err <= tol, f"resblock kernel disagrees with its plain version: {res}")
     if timed:
-        res["ms"] = cuda_time_ms(lambda: rb_ops.fused_resblock(x, tembv, *params, **kw), 20)
-        res["plain_ms"] = cuda_time_ms(
-            lambda: rb_ops.fused_resblock_reference(x, tembv, *params, **kw), 5)
+        # CUDA-graph slopes as attn_core_case takes them.  cold: x and tembv
+        # rotate over more than twice the L2 (the time compared with the
+        # bound); warm: the same inputs each call.  ms is the wrapper call
+        # the model makes (it casts and re-lays the weights every call);
+        # kernel_ms the kernel alone, its parameters prepared once.
+        launch = rb_ops._launcher(*params, H=H, dtype=dtype, **kw)
+        wrapper = lambda t: rb_ops.fused_resblock(*t, *params, **kw)
         blk = resblock_module(params, ci, co, dtype, device)
         temb = torch.randn((B, 4 * 64), generator=torch.Generator(device=device).manual_seed(seed),
                            device=device)
+
+        def make(i):
+            gen = torch.Generator(device=device).manual_seed(100 + i)
+            return (torch.randn((B, ci, H, H), generator=gen, device=device).to(dtype),
+                    (0.5 * torch.randn((B, co), generator=gen, device=device)).to(dtype))
+
+        nbytes = (x.numel() + tembv.numel()) * x.element_size()
+        fns = {"": wrapper, "kernel_": lambda t: launch(*t),
+               "plain_": lambda t: rb_ops.fused_resblock_reference(*t, *params, **kw),
+               "module_": lambda t: blk(t[0], temb)}
         with torch.no_grad():
-            res["module_ms"] = cuda_time_ms(lambda: blk(x, temb), 10)
+            for key, fn in fns.items():
+                ks = (5, 50) if key in ("plain_", "module_") else micro_cf_script.KS
+                res[key + "ms"] = micro_cf_script.cold_us(fn, make, nbytes, device, ks) / 1e3
+            res["warm_ms"] = micro_cf_script.slope_us(
+                lambda n: [wrapper((x, tembv)) for _ in range(n)], device) / 1e3
         res["bound_ms"], res["bound_by"] = resblock_bound_ms(B, H, ci, co, dtype)
+        res["share_of_bound"] = res["bound_ms"] / res["ms"]
+        if dtype == torch.bfloat16:
+            plan = rb_ops.resblock_plan(H, ci, co)
+            res["plan"] = plan._asdict()
+            res["modeled_weight_bytes"] = modeled_weight_bytes_resblock(plan, B)
     return res
+
+
+def modeled_weight_bytes_resblock(plan, B) -> int:
+    """Arithmetic on the launch plan, not a measurement: the weight bytes
+    the launch reads from L2 if every persistent block (one an SM) loads
+    each stage once where they stay resident, and every group streams them
+    once where they do not."""
+    groups = -(-B // plan.samples)
+    blocks = min(groups, torch.cuda.get_device_properties(0).multi_processor_count)
+    return (blocks if plan.resident else groups) * plan.weight_stages * plan.stage_bytes
 
 
 def attn_core_bound_ms(B, L, C, dtype) -> tuple:
@@ -828,7 +898,9 @@ def main() -> int:
         cases.append(attn_case(1024, 128, 81, 32, dtype, 1, device, timed=False))
         cases.append(attn_case(3, 64, 81, 16, dtype, 2, device, timed=False))
         cases.append(attn_case(64, 128, 128, 32, dtype, 3, device, timed=False))
-    # the forward at the training shape
+    # a batch that no grid of the persistent kernel divides, and the forward
+    # at the training shape (about 31 samples a block: every ring stage refilled)
+    cases.append(attn_case(1025, 64, 81, 16, torch.bfloat16, 9, device, timed=False))
     cases.append(attn_case(4096, 64, 81, 16, torch.bfloat16, 8, device, timed=True))
     for c in cases:
         print(json.dumps({"attn_case": c}), flush=True)
@@ -838,6 +910,7 @@ def main() -> int:
                      and c["dtype"] == "bfloat16")
     f32_case = next(c for c in cases if c["B"] == 1024 and c["C"] == 64
                     and c["dtype"] == "float32")
+    train_case = next(c for c in cases if c["B"] == 4096)
 
     t0 = time.perf_counter()
     bwd_cases = []
@@ -856,15 +929,20 @@ def main() -> int:
     rb_cases = [resblock_case(1024, H, ci, co, torch.bfloat16, i, device, timed=True)
                 for i, (H, ci, co) in enumerate(RESBLOCK_SHAPES)]
     rb_f32 = resblock_case(1024, 9, 64, 64, torch.float32, 20, device, timed=False)
-    rb_ragged = [resblock_case(3, H, ci, co, dtype, 21 + i, device, timed=False)
-                 for i, (H, ci, co) in enumerate([(9, 64, 64), (4, 64, 128), (2, 256, 128)])
-                 for dtype in (torch.bfloat16, torch.float32)]
+    # ragged: B 3 (one partial group) and 1025 (no persistent grid divides
+    # it) at every shape in bfloat16, B 3 at three shapes in float32
+    rb_ragged = [resblock_case(B, H, ci, co, torch.bfloat16, 21 + i, device, timed=False)
+                 for B in (3, 1025) for i, (H, ci, co) in enumerate(RESBLOCK_SHAPES)]
+    rb_ragged += [resblock_case(3, H, ci, co, torch.float32, 41 + i, device, timed=False)
+                  for i, (H, ci, co) in enumerate([(9, 64, 64), (4, 64, 128), (2, 256, 128)])]
     for c in rb_cases + [rb_f32] + rb_ragged:
         print(json.dumps({"resblock_case": c}), flush=True)
     rb_forward = {k: per_launch(rb_cases, k) * RESBLOCKS_PER_FORWARD
-                  for k in ("ms", "plain_ms", "module_ms", "bound_ms")}
+                  for k in ("ms", "warm_ms", "kernel_ms", "plain_ms", "module_ms", "bound_ms")}
     emit("kernel_resblock", t0, cases=len(rb_cases) + 1 + len(rb_ragged),
-         per_forward_at_b1024=rb_forward)
+         per_forward_at_b1024=rb_forward,
+         modeled_weight_bytes_per_forward=per_launch(rb_cases, "modeled_weight_bytes")
+         * RESBLOCKS_PER_FORWARD)
 
     t0 = time.perf_counter()
     core_cases = [attn_core_case(1024, 81, 64, torch.float32, True, 30, device, timed=True),
@@ -987,6 +1065,15 @@ def main() -> int:
         "bound_ms": main_case["bound_ms"],
         "bound_by": main_case["bound_by"],
         "library_ms": None,
+        "timing": "CUDA-graph slopes; cold: x rotates over more than twice the L2; warm_ms: "
+                  "the same x each call; ms: the wrapper call the model makes, kernel_ms: the "
+                  "kernel alone, its parameters prepared once",
+        "body": main_case["body"],
+        "warm_ms": main_case["warm_ms"],
+        "kernel_ms": main_case["kernel_ms"],
+        "share_of_bound": main_case["share_of_bound"],
+        "b4096": {k: train_case[k] for k in ("ms", "kernel_ms", "warm_ms", "plain_ms",
+                                             "bound_ms")},
         "max_err_f32": f32_case["max_abs_err"],
         "max_err_bf16": main_case["max_abs_err"],
         "kernel_us": main_case["ms"] * 1e3,
@@ -1024,6 +1111,12 @@ def main() -> int:
         "bound_by": "operations" if all(c["bound_by"] == "operations" for c in rb_cases)
                     else "bytes",
         "library_ms": None,
+        "timing": "CUDA-graph slopes; cold: x and tembv rotate over more than twice the L2; "
+                  "warm_ms: the same inputs each call; ms: the wrapper call the model makes "
+                  "(casts and re-lays the weights each call), kernel_ms: the kernel alone, "
+                  "its parameters prepared once",
+        "warm_ms": per_launch(rb_cases, "warm_ms"),
+        "kernel_ms": per_launch(rb_cases, "kernel_ms"),
         "module_ms": per_launch(rb_cases, "module_ms"),
         "max_err_f32": rb_f32["max_abs_err"],
         "max_err_bf16": max(c["max_abs_err"] for c in rb_cases),

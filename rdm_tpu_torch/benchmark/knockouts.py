@@ -1,30 +1,46 @@
-"""What bounds the attention core and the channels-first dots: each kernel
-built again with one part knocked out, and timed cold beside the whole one.
+"""What bounds the hand-written tensor-core kernels: each kernel built again
+with one part knocked out, and timed cold beside the whole one.
 
     python -m rdm_tpu_torch.benchmark.knockouts
 
 It needs the card and ``nvcc``.  Each variant is ``csrc/`` copied into
 ``rdm_tpu_torch/_build/knockouts/<variant>/`` with one source edit; all of
 them build at once (one ``nvcc`` each) and are called through the same C
-interface as ``ops.attention.attention_core`` and ``ops.micro_cf.cf_dots``.
-Times are cold, as ``scripts/micro_cf.py`` takes them: the slope over CUDA
-graphs of 50 and 500 calls, inputs rotating over more than twice the L2.
-The shapes are the flagship attention's (B 1024, L 81, C 64, bfloat16, both
-softmax settings) and the TPU script's dots (C 64, N 20,736, K 64 and 192).
-A knocked-out variant computes wrong values: only its time means anything.
+interface as the package's wrappers (``ops.attention.attention_core``,
+``ops.micro_cf.cf_dots``; the fused resblock and attention forward through
+the launchers their wrappers build, bound to the variant's library).
+Times are cold, as
+``scripts/micro_cf.py`` takes them: the slope over CUDA graphs of 50 and
+500 calls, inputs rotating over more than twice the L2.  The shapes are
+the flagship attention's (B 1024, L 81, C 64, bfloat16, both softmax
+settings for the core), the TPU script's dots (C 64, N 20,736, K 64 and
+192) and the flagship's eight resblock shapes at B 1024, bfloat16.  A
+knocked-out variant computes wrong values: only its time means anything.
 
 Variants:
 * attention core: ``whole``; ``no_exp`` (the softmax's exps skipped);
   ``load_store`` (the TMA ring, the staging and the stores, no products and
   no softmax), the floor of moving the 42.5 MB through this kernel;
 * dots: ``whole``; ``no_products`` (no wgmma); ``no_w`` (w neither loaded
-  nor waited for).
+  nor waited for);
+* fused resblock (bfloat16): ``whole``; ``no_products`` (no wgmma; the A
+  fragments are still loaded); ``no_groupnorm`` (no GroupNorm: neither the
+  statistics nor the normalisation and SiLU passes); ``no_ring``
+  (no weight stage loaded or waited for); ``mma_sync`` (not a knock-out:
+  the products on mma.sync, each warp loading its B fragments by ldmatrix,
+  instead of wgmma; its error against the plain version is printed beside
+  ``whole``'s);
+* fused attention forward (bfloat16): ``whole``; ``no_products`` (no NIN
+  mma.sync, and no attention: neither products nor softmax);
+  ``no_attention`` (the NINs run, the attention does not); ``no_staging``
+  (the weights not staged into shared memory).
 
 The edits match the sources' text; one that no longer matches raises and
 names itself.  The last line printed is one JSON object of all the times.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import json
 import os
@@ -34,12 +50,18 @@ import subprocess
 import torch
 
 from ..ops import _build
+from ..ops import attention as attn_ops
 from ..ops import micro_cf
+from ..ops import resblock as rb_ops
 from ..scripts.micro_cf import cold_us, describe, randn
 
 OUT = os.path.join(_build.BUILD_DIR, "knockouts")
 B, L, C = 1024, 81, 64
 N = 81 * 256
+# (H, C_in, C_out) of the flagship NCSN++'s 17 resblocks, and how many a
+# forward has of each
+FLAGSHIP_BLOCKS = {(9, 64, 64): 2, (4, 64, 128): 1, (4, 128, 128): 1, (2, 128, 128): 4,
+                   (2, 256, 128): 3, (4, 256, 128): 3, (9, 192, 64): 1, (9, 128, 64): 2}
 
 # (source file, text, replacement) per variant
 EDITS = {
@@ -56,13 +78,53 @@ EDITS = {
     "dots_no_w": ("micro_cf.cu", "      mbar_wait(wbar + t, 0);",
                   "      if (K < 0) mbar_wait(wbar + t, 0);"),
 }
+EDITS.update({
+    "resblock_whole": ("fused_resblock.cu", None, None),
+    "resblock_no_products": (
+        "fused_resblock.cu",
+        "            wgmma_rs<NT>(acc[mt], a[k16][mt], sw128_desc(stage + n0 * 128 + 32 * k16, 16, 1024));",
+        "            if (kc < 0) wgmma_rs<NT>(acc[mt], a[k16][mt], sw128_desc(stage + n0 * 128 + 32 * k16, 16, 1024));"),
+    "resblock_no_groupnorm": ("fused_resblock.cu", "  for (int base = 0; base < pairs * P; base += nthreads) {",
+                              "  for (int base = 0; base < 0; base += nthreads) {"),
+    "resblock_no_ring": ("fused_resblock.cu",
+                         "      mbar_wait(full + slot, resident ? 0 : rp.fill & 1);",
+                         "      if (kc < 0) mbar_wait(full + slot, resident ? 0 : rp.fill & 1);"),
+    "resblock_mma_sync": ("fused_resblock.cu", "constexpr bool kWgmma = true;",
+                          "constexpr bool kWgmma = false;"),
+    "attn_whole": ("fused_attn_block.cu", None, None),
+    "attn_no_products": ("fused_attn_block.cu",
+                         "      mma_bf16(acc[2 * j], a[kk], b[j][0], b[j][1]);\n"
+                         "      mma_bf16(acc[2 * j + 1], a[kk], b[j][2], b[j][3]);",
+                         "      if (lane < 0) mma_bf16(acc[2 * j], a[kk], b[j][0], b[j][1]);\n"
+                         "      if (lane < 0) mma_bf16(acc[2 * j + 1], a[kk], b[j][2], b[j][3]);"),
+    "attn_no_attention": ("fused_attn_block.cu",
+                          "    attn_rows16<NT, 4, false>(qp, kp, vp, r0, L, scale, acc);",
+                          "    for (int n = 0; n < 8; ++n) acc[n][0] = acc[n][1] = acc[n][2] = "
+                          "acc[n][3] = 0.f;"),
+    "attn_no_staging": ("fused_attn_block.cu",
+                        "      if (i < kItems)\n#pragma unroll",
+                        "      if (i < 0)\n#pragma unroll"),
+})
+# further edits of four variants: the dots load no w, the resblock's
+# producer loads nothing, its normalisation and SiLU passes are skipped, the
+# attention forward skips attn_rows16 (its products and softmax)
+NO_RING_LOAD = ("    if (lane == 0) {\n      const unsigned char* src",
+                "    if (lane == 0 && B < 0) {\n      const unsigned char* src")
+NO_NORM = ("  for (int i = tid; i < G::M * chunks; i += nthreads) {",
+           "  for (int i = tid; i < 0; i += nthreads) {")
+NO_ATTENTION = ("    attn_rows16<NT, 4, false>(qp, kp, vp, r0, L, scale, acc);",
+                "    for (int n = 0; n < 8; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;")
+# the source each variant's library is built from, by prefix
+MAIN_SOURCE = {"core": "attention_core.cu", "dots": "micro_cf.cu",
+               "resblock": "fused_resblock.cu", "attn": "fused_attn_block.cu"}
 NO_W_LOAD = ("      for (int t = 0; t < taps; ++t) {\n        mbar_expect_tx",
              "      for (int t = 0; t < 0; ++t) {\n        mbar_expect_tx")
 
 
 def _edit(src: str, old: str, new: str, name: str) -> str:
-    if old not in src:
-        raise RuntimeError(f"knockout {name}: the source no longer has {old!r}")
+    if src.count(old) != 1:
+        raise RuntimeError(f"knockout {name}: the source has {old!r} "
+                           f"{src.count(old)} times, not once")
     return src.replace(old, new)
 
 
@@ -73,8 +135,11 @@ def edited_source(name: str):
         src = f.read()
     if old is not None:
         src = _edit(src, old, new, name)
-    if name == "dots_no_w":
-        src = _edit(src, *NO_W_LOAD, name)
+    more = {"dots_no_w": [NO_W_LOAD], "resblock_no_ring": [NO_RING_LOAD],
+            "resblock_no_groupnorm": [NO_NORM],
+            "attn_no_products": [NO_ATTENTION]}
+    for old_text, new_text in more.get(name, []):
+        src = _edit(src, old_text, new_text, name)
     return fname, src
 
 
@@ -88,7 +153,7 @@ def build_variants() -> dict:
         fname, src = edited_source(name)
         with open(os.path.join(d, fname), "w") as f:
             f.write(src)
-        main = "attention_core.cu" if name.startswith("core") else "micro_cf.cu"
+        main = MAIN_SOURCE[name.split("_")[0]]
         lib = os.path.join(d, "lib.so")
         jobs[name] = (lib, subprocess.Popen([_build.find_nvcc(), *_build.NVCC_FLAGS, "-o", lib,
                                              os.path.join(d, main)],
@@ -133,6 +198,80 @@ def dots_fn(lib, w, K: int):
     return fn
 
 
+@contextlib.contextmanager
+def bound_to(lib):
+    """Inside, the package's wrappers load ``lib`` (a variant built from the
+    same C interface) in place of their own library."""
+    real = _build.library
+
+    def library(name, fn_name, argtypes, extra=()):
+        for fname, args, res in [(fn_name, argtypes, ctypes.c_int), *extra]:
+            getattr(lib, fname).argtypes = args
+            getattr(lib, fname).restype = res
+        return lib
+
+    _build.library = library
+    try:
+        yield
+    finally:
+        _build.library = real
+
+
+def resblock_times(libs, device) -> dict:
+    """Cold us of each resblock variant at the flagship's eight shapes (B
+    1024), and the mean per launch over the 17 blocks of a forward; for
+    ``whole`` and ``mma_sync`` also the largest error against the plain
+    version in bf16 steps of the output's largest magnitude."""
+    times = {}
+    per_forward = sum(FLAGSHIP_BLOCKS.values())
+    for name in ("resblock_whole", "resblock_mma_sync", "resblock_no_products",
+                 "resblock_no_groupnorm", "resblock_no_ring"):
+        mean = 0.0
+        for (H, ci, co), count in FLAGSHIP_BLOCKS.items():
+            g = torch.Generator(device=device).manual_seed(H + ci + co)
+            f = lambda *shape: torch.randn(shape, generator=g, device=device)
+            params = [1 + 0.1 * f(ci), 0.1 * f(ci), f(co, ci, 3, 3) / (9 * ci) ** 0.5,
+                      0.1 * f(co), 1 + 0.1 * f(co), 0.1 * f(co), f(co, co, 3, 3) / (9 * co) ** 0.5,
+                      0.1 * f(co)]
+            params += [f(ci, co) / ci ** 0.5, 0.1 * f(co)] if ci != co else [None, None]
+            kw = dict(groups0=min(ci // 4, 32), groups1=min(co // 4, 32))
+            with bound_to(libs[name]):
+                launch = rb_ops._launcher(*params, H=H, dtype=torch.bfloat16, **kw)
+            make = lambda i: (randn((B, ci, H, H), 2 * i, device), randn((B, co), 2 * i + 1, device))
+            us = cold_us(lambda t: launch(*t), make, 2 * B * (ci * H * H + co), device)
+            times[f"{name} ({H},{ci},{co})"] = us
+            mean += us * count / per_forward
+            err = ""
+            if name in ("resblock_whole", "resblock_mma_sync"):
+                x, tembv = make(0)
+                ref = rb_ops.fused_resblock_reference(x, tembv, *params, **kw).float()
+                steps = float((launch(x, tembv).float() - ref).abs().max()
+                              / (2.0 ** -8 * max(1.0, float(ref.abs().max()))))
+                times[f"{name} ({H},{ci},{co}) err_bf16_steps"] = steps
+                err = f", {steps:.2f} bf16 steps from plain"
+            print(f"resblock ({H},{ci},{co}) {name[9:]:<12s}: cold {us:.2f} us{err}", flush=True)
+        times[f"{name} mean"] = mean
+        print(f"resblock mean per launch {name[9:]:<12s}: cold {mean:.2f} us", flush=True)
+    return times
+
+
+def attn_times(libs, device) -> dict:
+    """Cold us of each attention-forward variant at B 1024, C 64, L 81."""
+    times = {}
+    g = torch.Generator(device=device).manual_seed(5)
+    f = lambda *shape: torch.randn(shape, generator=g, device=device)
+    params = [1 + 0.1 * f(C), 0.1 * f(C)]
+    for _ in range(4):
+        params += [f(C, C) / C ** 0.5, 0.1 * f(C)]
+    for name in ("attn_whole", "attn_no_products", "attn_no_attention", "attn_no_staging"):
+        with bound_to(libs[name]):
+            launch = attn_ops._launcher(*params, C=C, L=L, dtype=torch.bfloat16, groups=16)
+        us = cold_us(launch, lambda i: randn((B, C, 9, 9), i, device), 2 * B * C * L, device)
+        times[name] = us
+        print(f"attention forward {name[5:]:<12s}: cold {us:.2f} us", flush=True)
+    return times
+
+
 def main() -> dict:
     if not torch.cuda.is_available():
         raise SystemExit("knockouts: needs a CUDA card")
@@ -164,6 +303,8 @@ def main() -> dict:
             us = cold_us(dots_fn(libs[name], w, K), make_x, 2 * K * N, device)
             times[f"{name} K={K}"] = us
             print(f"dots K={K} {name[5:]:<12s}: cold {us:.2f} us", flush=True)
+    times.update(resblock_times(libs, device))
+    times.update(attn_times(libs, device))
     print(json.dumps({"knockouts_us": times}), flush=True)
     return times
 

@@ -158,14 +158,6 @@ constexpr int kConsumers = 3;                 // consumer warpgroups, taking til
 constexpr int kOutStage = kConsumers * 4 * 16 * 128;   // 16 rows x 64 bf16 for each consumer warp
 constexpr int kDotsThreads = kConsumers * 128 + 32;    // and one producer warp
 
-// wgmma shared-memory descriptor of a 128-byte-swizzled operand: start
-// address, leading and stride byte offsets (16-byte units), layout 1 (128B).
-__device__ __forceinline__ uint64_t sw128_desc(const void* p, uint32_t lbo, uint32_t sbo) {
-  return static_cast<uint64_t>((smem_u32(p) & 0x3FFFF) >> 4) |
-         (static_cast<uint64_t>((lbo >> 4) & 0x3FFF) << 16) |
-         (static_cast<uint64_t>((sbo >> 4) & 0x3FFF) << 32) | (1ull << 62);
-}
-
 // d (64 x 64 float, the warpgroup's registers) += a (64 x 16, K-major) b (16 x 64,
 // N-major: imm-trans-b 1), both bf16 from shared memory.
 __device__ __forceinline__ void wgmma_64x64x16(float (&d)[32], uint64_t da, uint64_t db) {

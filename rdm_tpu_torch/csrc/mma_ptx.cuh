@@ -1,8 +1,9 @@
 // PTX helpers of the tensor-core kernels: shared-memory addresses and bf16
-// packing (attn_mma.cuh, tma.cuh, micro_cf.cu), ldmatrix fragment loads and
-// mma.sync.m16n8k16 in bfloat16 with a float32 sum (attn_mma.cuh, for
-// attention_core.cu).  Everything sits in an unnamed namespace, so each
-// translation unit gets its own copy.
+// packing (attn_mma.cuh, tma.cuh, micro_cf.cu), ldmatrix fragment loads,
+// mma.sync.m16n8k16 in bfloat16 with a float32 sum (attn_mma.cuh,
+// fused_resblock.cu, fused_attn_block.cu) and the wgmma descriptor of a
+// 128-byte-swizzled operand (micro_cf.cu, fused_resblock.cu).  Everything
+// sits in an unnamed namespace, so each translation unit gets its own copy.
 #pragma once
 
 #include <cstdint>
@@ -43,6 +44,14 @@ __device__ __forceinline__ void mma_bf16(float (&d)[4], const unsigned (&a)[4], 
       "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// wgmma shared-memory descriptor of a 128-byte-swizzled operand: start
+// address, leading and stride byte offsets (16-byte units), layout 1 (128B).
+__device__ __forceinline__ uint64_t sw128_desc(const void* p, uint32_t lbo, uint32_t sbo) {
+  return static_cast<uint64_t>((smem_u32(p) & 0x3FFFF) >> 4) |
+         (static_cast<uint64_t>((lbo >> 4) & 0x3FFF) << 16) |
+         (static_cast<uint64_t>((sbo >> 4) & 0x3FFF) << 32) | (1ull << 62);
 }
 
 // Two floats rounded to bfloat16 (nearest even), packed with lo in the low

@@ -1,6 +1,8 @@
-// Hopper's asynchronous copies (attention_core.cu, micro_cf.cu): mbarriers,
-// TMA loads of tensor-map boxes into shared memory, and the host side that
-// encodes a bf16 tensor map with the 128-byte swizzle.  The encoder is the
+// Hopper's asynchronous copies (attention_core.cu, micro_cf.cu,
+// fused_resblock.cu, fused_attn_block.cu): mbarriers, TMA loads of
+// tensor-map boxes and bulk copies of contiguous runs between device and
+// shared memory, named barriers, and the host side that encodes a bf16
+// tensor map with the 128-byte swizzle.  The encoder is the
 // driver's cuTensorMapEncodeTiled, taken through the runtime's driver entry
 // point, so a library needs no -lcuda (cuda.h gives the types only).
 // Everything sits in an unnamed namespace, so each translation unit gets its
@@ -76,6 +78,41 @@ __device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map, i
       "[%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(smem_u32(dst)),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2)
       : "memory");
+}
+
+// A contiguous run of `bytes` (a multiple of 16; both addresses 16-byte
+// aligned) from device memory into shared memory by the bulk-copy engine;
+// its bytes count against the barrier's expected transaction.
+__device__ __forceinline__ void bulk_load(void* dst, const void* src, unsigned bytes,
+                                          uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n"
+      ::"r"(smem_u32(dst)), "l"(reinterpret_cast<uint64_t>(src)), "r"(bytes), "r"(smem_u32(bar))
+      : "memory");
+}
+
+// The other way, shared to device memory, as one bulk group of this thread;
+// bulk_wait_read() returns once every group of the thread has read its
+// shared memory, bulk_wait() once every group has landed.
+__device__ __forceinline__ void bulk_store(void* dst, const void* src, unsigned bytes) {
+  asm volatile("cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], %2;\n"
+               ::"l"(reinterpret_cast<uint64_t>(dst)), "r"(smem_u32(src)), "r"(bytes)
+               : "memory");
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void bulk_wait() {
+  asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
+}
+
+// A barrier among `threads` threads (whole warps) of the block, other than
+// __syncthreads' barrier 0.
+__device__ __forceinline__ void named_sync(int id, int threads) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
 }
 
 using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,

@@ -20,8 +20,12 @@ The forward kernel replaces the TPU kernel
 shape (B = 1024, L = 81, C = 64, bf16) it must move 21.2 MB (x in, out out)
 and do about 4.4 GFLOP, so device memory bounds it (about 6.3 us at
 3.35 TB/s, against 4.5 us at 989 TFLOP/s).  Its design keeps every
-intermediate of one sample in shared memory, so device memory sees x, out
-and the weights once; see the source for the layout.  The backward kernel
+intermediate of one sample on the chip, so device memory sees x, out and
+the weights once.  In bfloat16 at C 64 and L <= 96 (the flagship's every
+attention block) it runs on the tensor cores with the weights staged once
+per block and the samples arriving through a TMA ring; every other shape
+and float32 take its scalar body (``attn_body``; see the source for both
+layouts).  The backward kernel
 replaces ``_fused_block_bwd_kernel`` of the same file; operations bound it
 (see its source).
 
@@ -54,6 +58,9 @@ MAX_TOKENS = 128
 CORE_MAX_CHANNELS = 128
 # ring stages of each consumer group of the bfloat16 attention-core kernel
 CORE_STAGES_PER_GROUP = 2
+# the tensor-core body of the bfloat16 forward kernel: C and the most tokens
+TC_CHANNELS = 64
+TC_MAX_TOKENS = 96
 GN_EPS = 1e-6
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -194,6 +201,14 @@ def rows_per_chunk(C: int, L: int) -> int:
     return min(L, rows)
 
 
+def attn_body(C: int, L: int, dtype: torch.dtype) -> str:
+    """Which body of ``csrc/fused_attn_block.cu`` the forward kernel runs for
+    a shape, fixed by the shape: ``"tensor_cores"`` (bfloat16, C 64, L <= 96)
+    or ``"scalar"`` (every other shape, and float32)."""
+    tc = dtype == torch.bfloat16 and C == TC_CHANNELS and L <= TC_MAX_TOKENS
+    return "tensor_cores" if tc else "scalar"
+
+
 def check_activations(name, x):
     """Raise unless ``x`` is a contiguous NCHW float32 or bfloat16 CUDA
     tensor, which every kernel of the package reads."""
@@ -209,27 +224,82 @@ def check_activations(name, x):
 
 def _checked_params(name, x, params):
     """Check ``x`` and the ten parameters for a kernel and return ``(B, C, L,
-    params)`` with the parameters in the working type, contiguous, and
-    16-byte aligned (the kernels read weight rows with 16-byte loads)."""
+    params)`` with the parameters as ``_cast_params`` gives them."""
     check_activations(name, x)
     B, C, H, W = x.shape
     L = H * W
+    _check_width(name, C, L)
+    return B, C, L, _cast_params(name, params, C, x.dtype, x.device)
+
+
+def _check_width(name, C, L):
     if C not in SUPPORTED_CHANNELS:
         raise ValueError(f"{name}: unsupported C={C}")
     if L > MAX_TOKENS:
         raise ValueError(f"{name}: {L} tokens exceed {MAX_TOKENS}")
+
+
+def _cast_params(name, params, C, dtype, device):
+    """The ten parameters in ``dtype``, contiguous, and 16-byte aligned (the
+    kernels read weight rows with 16-byte loads); raises unless they lie on
+    ``device`` with the sizes of a block of width C."""
     out = []
     for p, shape in zip(params, _param_shapes(C)):
-        if p.device != x.device or p.numel() != math.prod(shape):
+        if p.device != device or p.numel() != math.prod(shape):
             raise ValueError(f"{name}: parameter on another device or "
                              f"of the wrong size ({tuple(p.shape)} vs {shape})")
-        p = p.reshape(shape).to(x.dtype).contiguous()
+        p = p.reshape(shape).to(dtype).contiguous()
         out.append(p if p.data_ptr() % 16 == 0 else p.clone())
-    return B, C, L, out
+    return out
 
 
 def _param_shapes(C):
     return ((C,), (C,), (C, C), (C,), (C, C), (C,), (C, C), (C,), (C, C), (C,))
+
+
+def _launcher(gn_scale, gn_bias, wq, bq, wk, bk, wv, bv, wp, bp, *, C: int, L: int,
+              dtype: torch.dtype, groups: int, skip_rescale: bool = True):
+    """The forward kernel with its parameters prepared for CUDA tensors:
+    returns ``launch(x)``, which checks NCHW ``x`` (C channels, L tokens,
+    ``dtype``) and launches the kernel on it.  ``fused_attn_block`` builds
+    one each call and counts the launch; the timing tools keep one to time
+    the kernel without the per-call casts."""
+    name = "fused_attn_block"
+    device = wq.device
+    if device.type != "cuda" or dtype not in _DTYPE_CODES:
+        raise ValueError(f"{name}: unsupported device {device} or dtype {dtype}")
+    _check_width(name, C, L)
+    if C % groups != 0:
+        raise ValueError(f"{name}: C={C} is not divisible by groups={groups}")
+    params = _cast_params(name, (gn_scale, gn_bias, wq, bq, wk, bk, wv, bv, wp, bp), C, dtype,
+                          device)
+    ptrs = [p.data_ptr() for p in params]
+    R = rows_per_chunk(C, L)
+    lib = _build.library("fused_attn_block", "rdm_fused_attn_block",
+                         [ctypes.c_void_p] * 12 + [ctypes.c_int] * 6
+                         + [ctypes.c_float] * 3 + [ctypes.c_void_p])
+
+    def launch(x):
+        check_activations(name, x)
+        B, c, H, W = x.shape
+        if c != C or H * W != L or x.dtype != dtype or x.device != device:
+            raise ValueError(f"{name}: x {tuple(x.shape)} {x.dtype} on {x.device} does not "
+                             f"fit the block (C {C}, L {L}, {dtype} on {device})")
+        if x.data_ptr() % 16:        # the tensor-core body copies whole samples in bulk
+            x = x.clone()
+        out = torch.empty_like(x)
+        if B == 0:
+            return out
+        keep = params                # noqa: F841 (the pointers stay valid)
+        with torch.cuda.device(device):
+            err = lib.rdm_fused_attn_block(
+                x.data_ptr(), out.data_ptr(), *ptrs, B, C, L, groups, R, _DTYPE_CODES[dtype],
+                GN_EPS, float(C) ** -0.5, _rescale(skip_rescale),
+                torch.cuda.current_stream(device).cuda_stream)
+        _build.raise_on(lib, err, name)
+        return out
+
+    return launch
 
 
 def fused_attn_block(x, gn_scale, gn_bias, wq, bq, wk, bk, wv, bv, wp, bp,
@@ -238,28 +308,18 @@ def fused_attn_block(x, gn_scale, gn_bias, wq, bq, wk, bk, wv, bv, wp, bp,
 
     CPU tensors take the plain version.  CUDA tensors launch the kernel; it
     takes float32 or bfloat16, C in {64, 128} divisible by ``groups`` and
-    at most 128 tokens, contiguous, and raises on anything else.
+    at most 128 tokens, contiguous, and raises on anything else.  Which
+    body runs is fixed by the shape (``attn_body``).
     """
     raw = (gn_scale, gn_bias, wq, bq, wk, bk, wv, bv, wp, bp)
     if x.device.type == "cpu":
         return fused_attn_block_reference(x, *raw, groups=groups, skip_rescale=skip_rescale)
-    B, C, L, params = _checked_params("fused_attn_block", x, raw)
-    if C % groups != 0:
-        raise ValueError(f"fused_attn_block: C={C} is not divisible by groups={groups}")
-    out = torch.empty_like(x)
-    if B == 0:
-        return out
-    lib = _build.library("fused_attn_block", "rdm_fused_attn_block",
-                   [ctypes.c_void_p] * 12 + [ctypes.c_int] * 6
-                   + [ctypes.c_float] * 3 + [ctypes.c_void_p])
-    with torch.cuda.device(x.device):
-        err = lib.rdm_fused_attn_block(
-            x.data_ptr(), out.data_ptr(), *(p.data_ptr() for p in params),
-            B, C, L, groups, rows_per_chunk(C, L), _DTYPE_CODES[x.dtype],
-            GN_EPS, float(C) ** -0.5, _rescale(skip_rescale),
-            torch.cuda.current_stream(x.device).cuda_stream)
-    _build.raise_on(lib, err, "fused_attn_block")
-    fused_attn_block.launches += 1
+    check_activations("fused_attn_block", x)
+    B, C, H, W = x.shape
+    out = _launcher(*raw, C=C, L=H * W, dtype=x.dtype, groups=groups,
+                    skip_rescale=skip_rescale)(x)
+    if B > 0:
+        fused_attn_block.launches += 1
     return out
 
 

@@ -32,11 +32,21 @@ rounding points in the working type T:
 
 Parameters use the module's layouts: convolution weights (C_out, C_in, 3,
 3), the NIN weight (C_in, C_out), one-dimensional scales and biases.
+
+In bfloat16 the kernel runs each convolution as an implicit GEMM on the
+tensor cores; the host hands it its weights and its 3x3 shift in its own
+layouts: ``weight_panels`` (the weights as the stages its ring streams) and
+``gather_table`` (each token row's neighbour row per tap, or the zero row).
+The kernel's geometry and ring live in its source alone; ``resblock_plan``
+asks the built library for them.
 """
 from __future__ import annotations
 
 import ctypes
+import functools
+from typing import NamedTuple
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -47,6 +57,9 @@ from .attention import GN_EPS, _DTYPE_CODES, _acc_dtype, _rescale, check_activat
 KERNEL_SHAPES = ((9, 64), (4, 128), (2, 128))
 KERNEL_C_IN = (64, 128, 192, 256)
 MAX_GROUPS = 32
+PANEL_K = 64            # input channels of one weight stage
+_ARGTYPES = [ctypes.c_void_p] * 15 + [ctypes.c_int] * 7 + [ctypes.c_float] * 2 + [ctypes.c_void_p]
+_PLAN_FN = ("rdm_fused_resblock_plan", [ctypes.c_int] * 3 + [ctypes.c_void_p], ctypes.c_int)
 
 
 def kernel_takes(H: int, W: int, c_in: int, c_out: int) -> bool:
@@ -125,45 +138,189 @@ def resblock_jnp_twin(x, tembv, gn0_w, gn0_b, conv0_w, conv0_b, gn1_w, gn1_b,
     return (xs + h) * round_to(_rescale(skip_rescale), dt)
 
 
-def _kernel_args(x, tembv, params, name):
-    """Check the inputs for the kernel and return ``(B, H, C_in, C_out,
-    tembv, params)``: tembv and the parameters in the working type,
-    contiguous and 16-byte aligned, the convolution weights as (9, C_in,
-    C_out) with tap k = (dy + 1) * 3 + (dx + 1), and None for an absent
-    NIN."""
-    check_activations(name, x)
-    B, c_in, H, W = x.shape
-    gn0_w, gn0_b, conv0_w, conv0_b, gn1_w, gn1_b, conv1_w, conv1_b, nin_w, nin_b = params
+class ResblockPlan(NamedTuple):
+    """Launch plan of the bfloat16 kernel for one block shape, as its source
+    computes it (``csrc/fused_resblock.cu``: tc_plan)."""
+    samples: int        # samples a block holds at once (a group)
+    rows: int           # their token rows, padded to whole tiles; row `rows` is zero
+    weight_stages: int  # stages of C_out x 64 bf16 weights a group consumes
+    stages: int         # ring stages in shared memory
+    stage_bytes: int
+    smem_bytes: int
+
+    @property
+    def resident(self) -> bool:
+        """Every stage fits: each block loads the weights once."""
+        return self.stages == self.weight_stages
+
+
+def _library():
+    return _build.library("fused_resblock", "rdm_fused_resblock", _ARGTYPES, extra=[_PLAN_FN])
+
+
+def _plan(lib, H: int, c_in: int, c_out: int) -> ResblockPlan:
+    out = (ctypes.c_int * len(ResblockPlan._fields))()
+    _build.raise_on(lib, lib.rdm_fused_resblock_plan(H, c_in, c_out, out), "fused_resblock plan")
+    return ResblockPlan(*out)
+
+
+def resblock_plan(H: int, c_in: int, c_out: int) -> ResblockPlan:
+    """The bfloat16 kernel's plan for a block shape the kernel takes, from
+    the built library (it needs ``nvcc``)."""
+    if not kernel_takes(H, H, c_in, c_out):
+        raise ValueError(f"fused_resblock: no kernel plan for H={H}, C_in={c_in}, C_out={c_out}")
+    return _plan(_library(), H, c_in, c_out)
+
+
+def gather_table_np(H: int, samples: int, rows: int) -> np.ndarray:
+    """(9, rows) int16: for row r of a group (sample r // L, token r % L at
+    y, x) and tap t = (dy + 1) * 3 + (dx + 1), the row of the token at
+    (y + dy, x + dx) of the same sample, or ``rows`` (the zero row) where
+    that lies outside the image or r lies past the group's samples."""
+    L = H * H
+    r = np.arange(rows)
+    y, x = (r % L) // H, r % H
+    table = np.full((9, rows), rows, np.int16)
+    for t in range(9):
+        yy, xx = y + t // 3 - 1, x + t % 3 - 1
+        inside = (r < samples * L) & (yy >= 0) & (yy < H) & (xx >= 0) & (xx < H)
+        table[t, inside] = (r - r % L + yy * H + xx)[inside]
+    return table
+
+
+@functools.lru_cache(maxsize=None)
+def gather_table(H: int, samples: int, rows: int, device: torch.device) -> torch.Tensor:
+    """``gather_table_np`` on ``device``, made once."""
+    return torch.from_numpy(gather_table_np(H, samples, rows)).to(device)
+
+
+def _panel_layout(conv0_w, conv1_w, nin_w=None):
+    """weight_panels' permutation, on tensors of any type (see there)."""
     c_out = conv0_w.shape[0]
-    if not kernel_takes(H, W, c_in, c_out):
-        raise ValueError(f"{name}: unsupported shape H={H}, W={W}, C_in={c_in}, "
+
+    def stages(w_taps):               # (taps, C_out, C_in) -> (taps * C_in / 64, C_out, 64)
+        taps, _, c_in = w_taps.shape
+        return (w_taps.reshape(taps, c_out, c_in // PANEL_K, PANEL_K).transpose(1, 2)
+                .reshape(-1, c_out, PANEL_K))
+
+    parts = [] if nin_w is None else [stages(nin_w.t()[None])]
+    parts += [stages(w.permute(2, 3, 0, 1).reshape(9, c_out, w.shape[1])) for w in (conv0_w, conv1_w)]
+    panels = torch.cat(parts).reshape(-1, c_out, 8, 8)
+    n = torch.arange(c_out, device=panels.device)
+    slot = torch.arange(8, device=panels.device)
+    return panels[:, n[:, None], slot[None, :] ^ (n[:, None] % 8)].reshape(-1, c_out, PANEL_K)
+
+
+@functools.lru_cache(maxsize=None)
+def _panel_index(c_in: int, c_out: int, device: torch.device) -> torch.Tensor:
+    """For each element of the panels, its index in conv0_w, conv1_w and
+    nin_w flattened one after the other."""
+    n0, n1 = 9 * c_out * c_in, 9 * c_out * c_out
+    pos = torch.arange(n0 + n1 + (c_in * c_out if c_in != c_out else 0))
+    nin = pos[n0 + n1:].reshape(c_in, c_out) if c_in != c_out else None
+    return _panel_layout(pos[:n0].reshape(c_out, c_in, 3, 3),
+                         pos[n0:n0 + n1].reshape(c_out, c_out, 3, 3), nin).to(device)
+
+
+def weight_panels(conv0_w, conv1_w, nin_w=None):
+    """The weights as the bfloat16 kernel's ring streams them, in the
+    weights' type: (stages, C_out, 64), the NIN's C_in / 64 stages, then
+    conv0's 9 C_in / 64 and conv1's 9 C_out / 64, each convolution tap-major
+    (tap (dy + 1) * 3 + (dx + 1)) and then by 64 input channels.  A stage
+    holds for each output channel n its 64 input channels in eight 16-byte
+    chunks, chunk j at slot j ^ (n % 8) (the B operand of mma.sync, which
+    ldmatrix then reads free of bank conflicts).  One gather through an
+    index made once per shape."""
+    c_out, c_in = conv0_w.shape[:2]
+    flat = [w.reshape(-1) for w in (conv0_w, conv1_w, nin_w) if w is not None]
+    return torch.cat(flat)[_panel_index(c_in, c_out, conv0_w.device)]
+
+
+def _check_params(params, H, c_in, device, name):
+    """Raise unless the ten parameters (None for an absent NIN) fit a block
+    shape the kernel takes, on ``device``; return C_out."""
+    c_out = params[2].shape[0]
+    if not kernel_takes(H, H, c_in, c_out):
+        raise ValueError(f"{name}: unsupported shape H={H}, W={H}, C_in={c_in}, "
                          f"C_out={c_out}; the kernel takes H = W with (H, C_out) in "
                          f"{KERNEL_SHAPES} and C_in in {KERNEL_C_IN}")
+    nin_w, nin_b = params[8], params[9]
     if (nin_w is None) != (c_in == c_out) or (nin_w is None) != (nin_b is None):
         raise ValueError(f"{name}: a NIN shortcut is needed exactly when C_in != C_out")
     shapes = [(c_in,), (c_in,), (c_out, c_in, 3, 3), (c_out,), (c_out,), (c_out,),
               (c_out, c_out, 3, 3), (c_out,), (c_in, c_out), (c_out,)]
-    if tembv.shape != (B, c_out) or tembv.device != x.device:
-        raise ValueError(f"{name}: tembv of shape {tuple(tembv.shape)} on {tembv.device} "
-                         f"does not match ({B}, {c_out}) on {x.device}")
-    out = []
     for p, shape in zip(params, shapes):
-        if p is None:
-            out.append(None)
-            continue
-        if p.device != x.device or tuple(p.shape) != shape:
+        if p is not None and (p.device != device or tuple(p.shape) != shape):
             raise ValueError(f"{name}: parameter of shape {tuple(p.shape)} on {p.device}, "
-                             f"expected {shape} on {x.device}")
-        p = p.to(x.dtype)
-        if p.dim() == 4:
-            p = p.permute(2, 3, 1, 0).reshape(9, shape[1], shape[0])
-        p = p.contiguous()
-        out.append(p if p.data_ptr() % 16 == 0 else p.clone())
-    return B, H, c_in, c_out, tembv.to(x.dtype).contiguous(), out
+                             f"expected {shape} on {device}")
+    return c_out
 
 
 def _groups_ok(C, groups):
     return 1 <= groups <= MAX_GROUPS and C % groups == 0
+
+
+def _launcher(gn0_w, gn0_b, conv0_w, conv0_b, gn1_w, gn1_b, conv1_w, conv1_b, nin_w=None,
+              nin_b=None, *, H: int, dtype: torch.dtype, groups0: int, groups1: int,
+              skip_rescale: bool = True):
+    """The kernel with its parameters prepared for CUDA tensors: returns
+    ``launch(x, tembv)``, which checks NCHW ``x`` and ``tembv`` (B, C_out)
+    and launches the kernel on them.  The parameters are cast to ``dtype``:
+    float32 takes the convolution weights as (9, C_in, C_out) with tap k =
+    (dy + 1) * 3 + (dx + 1); bfloat16 takes ``weight_panels`` and the gather
+    table of ``resblock_plan``.  ``fused_resblock`` builds one each call
+    and counts the launch; the timing tools keep one to time the kernel
+    without the per-call preparation."""
+    name = "fused_resblock"
+    raw = [gn0_w, gn0_b, conv0_w, conv0_b, gn1_w, gn1_b, conv1_w, conv1_b, nin_w, nin_b]
+    device, c_in = conv0_w.device, conv0_w.shape[1]
+    if device.type != "cuda" or dtype not in _DTYPE_CODES:
+        raise ValueError(f"{name}: unsupported device {device} or dtype {dtype}")
+    c_out = _check_params(raw, H, c_in, device, name)
+    if not (_groups_ok(c_in, groups0) and _groups_ok(c_out, groups1)):
+        raise ValueError(f"{name}: groups {groups0}, {groups1} do not divide "
+                         f"C_in={c_in}, C_out={c_out} or exceed {MAX_GROUPS}")
+    lib = _library()
+    cast = [None if p is None else p.to(dtype) for p in raw]
+    panels, table = None, None
+    if dtype == torch.bfloat16:
+        panels = weight_panels(cast[2], cast[6], cast[8])
+        cast[2] = cast[6] = cast[8] = None
+        plan = _plan(lib, H, c_in, c_out)
+        table = gather_table(H, plan.samples, plan.rows, device)
+    else:
+        cast[2], cast[6] = (w.permute(2, 3, 1, 0).reshape(9, w.shape[1], w.shape[0])
+                            for w in (cast[2], cast[6]))
+    args = []
+    for p in cast + [panels, table]:
+        p = None if p is None else p.contiguous()
+        args.append(None if p is None else p if p.data_ptr() % 16 == 0 else p.clone())
+    ptrs = [None if p is None else p.data_ptr() for p in args]
+
+    def launch(x, tembv):
+        check_activations(name, x)
+        B = x.shape[0]
+        if (x.shape[1:] != (c_in, H, H) or x.dtype != dtype or x.device != device
+                or tembv.shape != (B, c_out) or tembv.device != device):
+            raise ValueError(f"{name}: x {tuple(x.shape)} {x.dtype} on {x.device} and tembv "
+                             f"{tuple(tembv.shape)} do not fit the block ({c_in}, {H}, {H}) "
+                             f"-> {c_out}, {dtype} on {device}")
+        tembv = tembv.to(dtype).contiguous()
+        if tembv.data_ptr() % 16:   # read in 16-byte loads
+            tembv = tembv.clone()
+        out = torch.empty((B, c_out, H, H), dtype=dtype, device=device)
+        if B == 0:
+            return out
+        keep = args                     # noqa: F841 (the pointers stay valid)
+        with torch.cuda.device(device):
+            err = lib.rdm_fused_resblock(
+                x.data_ptr(), tembv.data_ptr(), out.data_ptr(), *ptrs, B, H, c_in, c_out,
+                groups0, groups1, _DTYPE_CODES[dtype], GN_EPS,
+                _rescale(skip_rescale), torch.cuda.current_stream(device).cuda_stream)
+        _build.raise_on(lib, err, name)
+        return out
+
+    return launch
 
 
 def fused_resblock(x, tembv, gn0_w, gn0_b, conv0_w, conv0_b, gn1_w, gn1_b,
@@ -174,30 +331,19 @@ def fused_resblock(x, tembv, gn0_w, gn0_b, conv0_w, conv0_b, gn1_w, gn1_b,
     CPU tensors take the plain version.  CUDA tensors launch the kernel; it
     takes float32 or bfloat16, the shapes of ``kernel_takes`` (every block
     of the flagship NCSN++), any batch, at most 32 groups, contiguous x, and
-    raises on anything else.
+    raises on anything else.  bfloat16 runs the tensor-core body, float32
+    the scalar one.
     """
     raw = (gn0_w, gn0_b, conv0_w, conv0_b, gn1_w, gn1_b, conv1_w, conv1_b, nin_w, nin_b)
     kw = dict(groups0=groups0, groups1=groups1, skip_rescale=skip_rescale)
     if x.device.type == "cpu":
         return fused_resblock_reference(x, tembv, *raw, **kw)
-    B, H, c_in, c_out, tembv, params = _kernel_args(x, tembv, raw, "fused_resblock")
-    if not (_groups_ok(c_in, groups0) and _groups_ok(c_out, groups1)):
-        raise ValueError(f"fused_resblock: groups {groups0}, {groups1} do not divide "
-                         f"C_in={c_in}, C_out={c_out} or exceed {MAX_GROUPS}")
-    out = torch.empty((B, c_out, H, H), dtype=x.dtype, device=x.device)
-    if B == 0:
-        return out
-    lib = _build.library("fused_resblock", "rdm_fused_resblock",
-                   [ctypes.c_void_p] * 13 + [ctypes.c_int] * 7
-                   + [ctypes.c_float] * 2 + [ctypes.c_void_p])
-    ptr = lambda t: None if t is None else t.data_ptr()
-    with torch.cuda.device(x.device):
-        err = lib.rdm_fused_resblock(
-            x.data_ptr(), tembv.data_ptr(), out.data_ptr(), *(ptr(p) for p in params),
-            B, H, c_in, c_out, groups0, groups1, _DTYPE_CODES[x.dtype],
-            GN_EPS, _rescale(skip_rescale), torch.cuda.current_stream(x.device).cuda_stream)
-    _build.raise_on(lib, err, "fused_resblock")
-    fused_resblock.launches += 1
+    check_activations("fused_resblock", x)
+    if x.shape[2] != x.shape[3]:
+        raise ValueError(f"fused_resblock: unsupported shape H={x.shape[2]}, W={x.shape[3]}")
+    out = _launcher(*raw, H=x.shape[2], dtype=x.dtype, **kw)(x, tembv)
+    if x.shape[0] > 0:
+        fused_resblock.launches += 1
     return out
 
 

@@ -53,6 +53,7 @@ from ..ops import micro_cf
 C = 64
 L = micro_cf.L_TOKENS
 K1, K2 = 50, 500
+KS = (K1, K2)
 L2_BYTES = 50e6
 # H100 SXM data-sheet peaks: HBM bytes/s and dense bf16 tensor-core FLOP/s
 PEAK_BYTES = 3.35e12
@@ -104,9 +105,11 @@ def _run_us(body, k, device, repeats=REPEATS):
     return float(np.median(times))
 
 
-def slope_us(body, device) -> float:
-    """(t(K2) - t(K1)) / (K2 - K1) in microseconds per call."""
-    return (_run_us(body, K2, device) - _run_us(body, K1, device)) / (K2 - K1)
+def slope_us(body, device, ks=KS) -> float:
+    """(t(K2) - t(K1)) / (K2 - K1) in microseconds per call (other counts
+    ``ks`` for slow calls)."""
+    k1, k2 = ks
+    return (_run_us(body, k2, device) - _run_us(body, k1, device)) / (k2 - k1)
 
 
 def chained_us(fn, x, device) -> float:
@@ -119,12 +122,12 @@ def chained_us(fn, x, device) -> float:
     return slope_us(body, device)
 
 
-def cold_us(fn, make_input, nbytes_input, device) -> float:
+def cold_us(fn, make_input, nbytes_input, device, ks=KS) -> float:
     """Per call of ``fn`` with its input rotating over buffers of more than
     twice the L2 (``make_input(i)`` makes buffer i) and each call's output
     kept, so that every call reads and writes device memory."""
     bufs = [make_input(i) for i in range(math.ceil(2 * L2_BYTES / nbytes_input) + 1)]
-    return slope_us(lambda k: [fn(bufs[i % len(bufs)]) for i in range(k)], device)
+    return slope_us(lambda k: [fn(bufs[i % len(bufs)]) for i in range(k)], device, ks)
 
 
 def randn(shape, seed, device):
