@@ -19,7 +19,13 @@ Phases, each printing one JSON line with its elapsed seconds:
               measured)
 4. kernel_bwd the attention backward kernel against the plain backward on the
               same seeded x, g and parameters, each against its stated
-              tolerance, two runs bit for bit, timed beside its bound
+              tolerance, two runs bit for bit (bfloat16 at B 4096, 1024,
+              4097, 3 and 1 and at L 49 and 96 through the tensor-core body,
+              C 128, L 128 and float32 through the scalar one; the library's
+              plan names the body); at B 4096 and 1024 timed cold and warm
+              as CUDA-graph slopes, the wrapper and the kernel alone
+              (parameters prepared once), beside its bound and the plain
+              version
 5. kernel_resblock  the fused resblock kernel against its plain version at
               the eight block shapes of the flagship at batch 1024, 3 and
               1025 in bfloat16 (the tensor-core body), one float32 case at
@@ -163,20 +169,6 @@ def check(cond: bool, msg: str) -> None:
         raise AssertionError(msg)
 
 
-def cuda_time_ms(fn, iters: int, warmup: int = 3) -> float:
-    for _ in range(warmup):
-        fn()
-    start = torch.cuda.Event(enable_timing=True)
-    stop = torch.cuda.Event(enable_timing=True)
-    torch.cuda.synchronize()
-    start.record()
-    for _ in range(iters):
-        fn()
-    stop.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(stop) / iters
-
-
 def ks_statistic(a: np.ndarray, b: np.ndarray) -> float:
     """Two-sample Kolmogorov-Smirnov statistic sup |F_a - F_b|."""
     a, b = np.sort(a), np.sort(b)
@@ -313,7 +305,11 @@ def attn_bwd_case(B, C, L, groups, dtype, seed, device, timed):
     worst = max(errs, key=lambda n: errs[n][0] / errs[n][1])
     p_err, p_scale = errs[worst]
     p_tol = (1e-4 if f32 else BF16_STEP) * p_scale
+    plan = attn_ops.bwd_plan(C, L, dtype)
+    check(plan.body == attn_ops.attn_body(C, L, dtype), f"backward body {plan}")
     res = {"B": B, "C": C, "L": L, "groups": groups, "dtype": str(dtype).split(".")[-1],
+           "body": plan.body, "threads": plan.threads, "stages": plan.stages,
+           "smem_bytes": plan.smem_bytes,
            "dx_max_abs_err": dx_err, "dx_tol": dx_tol, "worst_param": worst,
            "param_max_abs_err": p_err, "param_tol": p_tol, "bitwise_repeatable": True}
     check(dx_err <= dx_tol, f"backward dx disagrees with the plain version: {res}")
@@ -321,10 +317,29 @@ def attn_bwd_case(B, C, L, groups, dtype, seed, device, timed):
         tol = (1e-4 if f32 else BF16_STEP) * scale
         check(err <= tol, f"backward d{name} disagrees with the plain version: {res}")
     if timed:
-        res["ms"] = cuda_time_ms(lambda: attn_ops.fused_attn_block_bwd(x, g, *params, **kw), 20)
-        res["plain_ms"] = cuda_time_ms(
-            lambda: attn_ops.fused_attn_block_bwd_reference(x, g, *params, **kw), 5)
+        # CUDA-graph slopes as attn_case takes them, over fewer calls (each
+        # graph keeps every call's dx): cold, x and g rotate over more than
+        # twice the L2 (the time compared with the bound); warm, the same x
+        # and g each call.  ms is the wrapper call the model makes (it casts
+        # the ten parameters every call); kernel_ms the kernel alone, its
+        # parameters prepared once.
+        launch = attn_ops._bwd_launcher(*params, C=C, L=L, dtype=dtype, **kw)
+        wrapper = lambda t: attn_ops.fused_attn_block_bwd(*t, *params, **kw)
+        gen = torch.Generator(device=device)
+        make = lambda i: tuple(torch.randn(x.shape, generator=gen.manual_seed(200 + 2 * i + j),
+                                           device=device).to(dtype) for j in range(2))
+        nbytes = 2 * x.numel() * x.element_size()
+        ks = (5, 50) if plan.body == "tensor_cores" else (2, 6)
+        fns = {"": wrapper, "kernel_": lambda t: launch(*t),
+               "plain_": lambda t: attn_ops.fused_attn_block_bwd_reference(*t, *params, **kw)}
+        for key, fn in fns.items():
+            res[key + "ms"] = micro_cf_script.cold_us(
+                fn, make, nbytes, device, (2, 6) if key == "plain_" else ks) / 1e3
+            if key != "plain_":
+                res[key + "warm_ms"] = micro_cf_script.slope_us(
+                    lambda n, fn=fn: [fn((x, g)) for _ in range(n)], device, ks) / 1e3
         res["bound_ms"], res["bound_by"] = attn_bwd_bound_ms(B, C, L, dtype)
+        res["share_of_bound"] = res["bound_ms"] / res["ms"]
     return res
 
 
@@ -919,10 +934,16 @@ def main() -> int:
         bwd_cases.append(attn_bwd_case(1024, 128, 81, 32, dtype, 5, device, timed=False))
         bwd_cases.append(attn_bwd_case(3, 64, 81, 16, dtype, 6, device, timed=False))
         bwd_cases.append(attn_bwd_case(64, 128, 128, 32, dtype, 7, device, timed=False))
+    # the tensor-core body also at B 1024, at batches no slot count divides,
+    # at one sample, and at L 49 (four warps a block) and 96 (one stage)
+    for B, L, seed in ((1024, 81, 10), (4097, 81, 11), (1, 81, 12), (300, 49, 13), (130, 96, 14)):
+        bwd_cases.append(attn_bwd_case(B, 64, L, 16, torch.bfloat16, seed, device,
+                                       timed=B == 1024))
     for c in bwd_cases:
         print(json.dumps({"attn_bwd_case": c}), flush=True)
     emit("kernel_bwd", t0, cases=len(bwd_cases))
     bwd_main = next(c for c in bwd_cases if c["B"] == 4096 and c["dtype"] == "bfloat16")
+    bwd_1024 = next(c for c in bwd_cases if c["B"] == 1024 and c["C"] == 64)
     bwd_f32 = next(c for c in bwd_cases if c["B"] == 4096 and c["dtype"] == "float32")
 
     t0 = time.perf_counter()
@@ -1092,6 +1113,18 @@ def main() -> int:
         "bound_ms": bwd_main["bound_ms"],
         "bound_by": bwd_main["bound_by"],
         "library_ms": None,
+        "timing": "CUDA-graph slopes; cold: x and g rotate over more than twice the L2; "
+                  "warm_*: the same x and g each call; ms: the wrapper call the model makes, "
+                  "kernel_ms: the kernel alone, its parameters prepared once",
+        "body": bwd_main["body"],
+        "warm_ms": bwd_main["warm_ms"],
+        "kernel_ms": bwd_main["kernel_ms"],
+        "kernel_warm_ms": bwd_main["kernel_warm_ms"],
+        "share_of_bound": bwd_main["share_of_bound"],
+        "b1024": {k: bwd_1024[k] for k in ("ms", "kernel_ms", "warm_ms", "kernel_warm_ms",
+                                            "plain_ms", "bound_ms")},
+        "f32": {k: bwd_f32[k] for k in ("body", "ms", "kernel_ms", "plain_ms", "bound_ms",
+                                        "bound_by")},
         "max_err_f32": max(bwd_f32["dx_max_abs_err"], bwd_f32["param_max_abs_err"]),
         "max_err_bf16": max(bwd_main["dx_max_abs_err"], bwd_main["param_max_abs_err"]),
         "kernel_us": bwd_main["ms"] * 1e3,

@@ -13,7 +13,7 @@ Times are cold, as
 ``scripts/micro_cf.py`` takes them: the slope over CUDA graphs of 50 and
 500 calls, inputs rotating over more than twice the L2.  The shapes are
 the flagship attention's (B 1024, L 81, C 64, bfloat16, both softmax
-settings for the core), the TPU script's dots (C 64, N 20,736, K 64 and
+settings for the core; the backward at B 4096), the TPU script's dots (C 64, N 20,736, K 64 and
 192) and the flagship's eight resblock shapes at B 1024, bfloat16.  A
 knocked-out variant computes wrong values: only its time means anything.
 
@@ -33,7 +33,14 @@ Variants:
 * fused attention forward (bfloat16): ``whole``; ``no_products`` (no NIN
   mma.sync, and no attention: neither products nor softmax);
   ``no_attention`` (the NINs run, the attention does not); ``no_staging``
-  (the weights not staged into shared memory).
+  (the weights not staged into shared memory);
+* fused attention backward (bfloat16, tensor-core body, at the training
+  batch B 4096): ``whole`` (with its error against the plain version);
+  ``no_products`` (each mma.sync replaced by an integer fold of its
+  operands into one float: the operands are still loaded and built); ``no_weight_grads`` (the weight and bias gradient products and
+  their accumulation skipped); ``load_store`` (everything between a
+  sample's arrival and its dx store cut out: the TMA loads, the bulk
+  stores, the weight staging and the slot writes are left).
 
 The edits match the sources' text; one that no longer matches raises and
 names itself.  The last line printed is one JSON object of all the times.
@@ -105,6 +112,19 @@ EDITS.update({
                         "      if (i < kItems)\n#pragma unroll",
                         "      if (i < 0)\n#pragma unroll"),
 })
+EDITS.update({
+    "bwd_whole": ("fused_attn_block_bwd.cu", None, None),
+    "bwd_no_products": ("fused_attn_block_bwd.cu", "  mma_bf16(d, a, b0, b1);",
+                        "  d[0] += __uint_as_float((a[0] ^ a[1] ^ a[2] ^ a[3] ^ b0 ^ b1) & 0xffu);"),
+    "bwd_no_weight_grads": ("fused_attn_block_bwd.cu",
+                            "    for (int u = w; u < kTcUnits; u += NT) {",
+                            "    for (int u = w; u < 0; u += NT) {"),
+    "bwd_load_store": ("fused_attn_block_bwd.cu",
+                       "    // 0. GroupNorm statistics: group gi is cg * L contiguous values; a",
+                       ""),
+})
+# a variant that cuts its source from its edit's text up to this text
+CUT_TO = {"bwd_load_store": "    fence_proxy_async();             // the bulk store reads these bytes"}
 # further edits of four variants: the dots load no w, the resblock's
 # producer loads nothing, its normalisation and SiLU passes are skipped, the
 # attention forward skips attn_rows16 (its products and softmax)
@@ -116,7 +136,8 @@ NO_ATTENTION = ("    attn_rows16<NT, 4, false>(qp, kp, vp, r0, L, scale, acc);",
                 "    for (int n = 0; n < 8; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;")
 # the source each variant's library is built from, by prefix
 MAIN_SOURCE = {"core": "attention_core.cu", "dots": "micro_cf.cu",
-               "resblock": "fused_resblock.cu", "attn": "fused_attn_block.cu"}
+               "resblock": "fused_resblock.cu", "attn": "fused_attn_block.cu",
+               "bwd": "fused_attn_block_bwd.cu"}
 NO_W_LOAD = ("      for (int t = 0; t < taps; ++t) {\n        mbar_expect_tx",
              "      for (int t = 0; t < 0; ++t) {\n        mbar_expect_tx")
 
@@ -133,7 +154,12 @@ def edited_source(name: str):
     fname, old, new = EDITS[name]
     with open(os.path.join(_build.CSRC_DIR, fname)) as f:
         src = f.read()
-    if old is not None:
+    if name in CUT_TO:
+        _edit(src, old, new, name)
+        start = src.index(old)
+        _edit(src[start:], CUT_TO[name], "", name)
+        src = src[:start] + src[src.index(CUT_TO[name], start):]
+    elif old is not None:
         src = _edit(src, old, new, name)
     more = {"dots_no_w": [NO_W_LOAD], "resblock_no_ring": [NO_RING_LOAD],
             "resblock_no_groupnorm": [NO_NORM],
@@ -144,13 +170,15 @@ def edited_source(name: str):
 
 
 def build_variants() -> dict:
-    """Build every variant at once; return its library path by name."""
+    """Build every variant at once; return its library path by name.  Every
+    edit is made before the first nvcc starts, so one that no longer applies
+    leaves no compiler running."""
+    edited = {name: edited_source(name) for name in EDITS}
     jobs = {}
-    for name in EDITS:
+    for name, (fname, src) in edited.items():
         d = os.path.join(OUT, name)
         shutil.rmtree(d, ignore_errors=True)
         shutil.copytree(_build.CSRC_DIR, d)
-        fname, src = edited_source(name)
         with open(os.path.join(d, fname), "w") as f:
             f.write(src)
         main = MAIN_SOURCE[name.split("_")[0]]
@@ -272,6 +300,38 @@ def attn_times(libs, device) -> dict:
     return times
 
 
+def bwd_times(libs, device) -> dict:
+    """Cold us of each backward variant at B 4096, C 64, L 81 (the kernel
+    alone, parameters prepared once), and the whole one's largest errors
+    against the plain version in bf16 steps of each output's scale."""
+    times = {}
+    Bt = 4096
+    g = torch.Generator(device=device).manual_seed(6)
+    f = lambda *shape: torch.randn(shape, generator=g, device=device)
+    params = [1 + 0.1 * f(C), 0.1 * f(C)]
+    for _ in range(4):
+        params += [f(C, C) / C ** 0.5, 0.1 * f(C)]
+    make = lambda i: (randn((Bt, C, 9, 9), 2 * i, device), randn((Bt, C, 9, 9), 2 * i + 1, device))
+    for name in ("bwd_whole", "bwd_no_products", "bwd_no_weight_grads", "bwd_load_store"):
+        with bound_to(libs[name]):
+            launch = attn_ops._bwd_launcher(*params, C=C, L=L, dtype=torch.bfloat16, groups=16)
+        us = cold_us(lambda t: launch(*t), make, 2 * 2 * Bt * C * L, device)
+        times[name] = us
+        err = ""
+        if name == "bwd_whole":
+            x, gg = make(0)
+            dx, grads = launch(x, gg)
+            ref = attn_ops.fused_attn_block_bwd_reference(x, gg, *params, groups=16)
+            flat = torch.cat([r.flatten() for r in ref[1:]])
+            steps = max(float((dx.float() - ref[0].float()).abs().max())
+                        / (2.0 ** -8 * max(1.0, float(ref[0].float().abs().max()))),
+                        float((grads - flat).abs().max()) / (2.0 ** -8 * float(flat.abs().max())))
+            times["bwd_whole err_bf16_steps"] = steps
+            err = f", {steps:.2f} bf16 steps from plain"
+        print(f"attention backward {name[4:]:<15s}: cold {us:.2f} us{err}", flush=True)
+    return times
+
+
 def main() -> dict:
     if not torch.cuda.is_available():
         raise SystemExit("knockouts: needs a CUDA card")
@@ -305,6 +365,7 @@ def main() -> dict:
             print(f"dots K={K} {name[5:]:<12s}: cold {us:.2f} us", flush=True)
     times.update(resblock_times(libs, device))
     times.update(attn_times(libs, device))
+    times.update(bwd_times(libs, device))
     print(json.dumps({"knockouts_us": times}), flush=True)
     return times
 

@@ -26,8 +26,11 @@ attention block) it runs on the tensor cores with the weights staged once
 per block and the samples arriving through a TMA ring; every other shape
 and float32 take its scalar body (``attn_body``; see the source for both
 layouts).  The backward kernel
-replaces ``_fused_block_bwd_kernel`` of the same file; operations bound it
-(see its source).
+replaces ``_fused_block_bwd_kernel`` of the same file; operations bound it.
+It takes the same body for a shape: in bfloat16 at C 64 and L <= 96 its 17
+products a sample run on the tensor cores, one block of warps per gradient
+slot stages the weights once and keeps float32 weight and bias gradients on
+the chip for all of its samples (``bwd_plan``; see its source).
 
 ``attention_core`` launches ``csrc/attention_core.cu`` on CUDA tensors
 and runs ``attention_core_reference`` on CPU tensors.  It replaces the TPU
@@ -202,11 +205,30 @@ def rows_per_chunk(C: int, L: int) -> int:
 
 
 def attn_body(C: int, L: int, dtype: torch.dtype) -> str:
-    """Which body of ``csrc/fused_attn_block.cu`` the forward kernel runs for
-    a shape, fixed by the shape: ``"tensor_cores"`` (bfloat16, C 64, L <= 96)
-    or ``"scalar"`` (every other shape, and float32)."""
+    """Which body of ``csrc/fused_attn_block.cu`` and of
+    ``csrc/fused_attn_block_bwd.cu`` the forward and the backward kernel run
+    for a shape, fixed by the shape: ``"tensor_cores"`` (bfloat16, C 64,
+    L <= 96) or ``"scalar"`` (every other shape, and float32)."""
     tc = dtype == torch.bfloat16 and C == TC_CHANNELS and L <= TC_MAX_TOKENS
     return "tensor_cores" if tc else "scalar"
+
+
+class BwdPlan(NamedTuple):
+    """Launch plan of the backward kernel, as ``fused_attn_block_bwd.cu``
+    computes it (``rdm_fused_attn_block_bwd_plan``)."""
+    body: str          # "tensor_cores" or "scalar"
+    threads: int       # a block: 32 per 16 token rows (tensor cores), else 256
+    stages: int        # x and g stages of the tensor-core body's ring (0: scalar)
+    smem_bytes: int    # dynamic shared memory of a block
+
+
+def bwd_plan(C: int, L: int, dtype: torch.dtype) -> BwdPlan:
+    """The built backward library's plan for a shape (needs ``nvcc``)."""
+    out = (ctypes.c_int * 4)()
+    lib = _bwd_library()
+    _build.raise_on(lib, lib.rdm_fused_attn_block_bwd_plan(C, L, _DTYPE_CODES[dtype], out),
+                    "fused_attn_block_bwd plan")
+    return BwdPlan("tensor_cores" if out[0] else "scalar", out[1], out[2], out[3])
 
 
 def check_activations(name, x):
@@ -220,16 +242,6 @@ def check_activations(name, x):
         raise ValueError(f"{name}: unsupported dtype {x.dtype}")
     if not x.is_contiguous():
         raise ValueError(f"{name}: x must be contiguous")
-
-
-def _checked_params(name, x, params):
-    """Check ``x`` and the ten parameters for a kernel and return ``(B, C, L,
-    params)`` with the parameters as ``_cast_params`` gives them."""
-    check_activations(name, x)
-    B, C, H, W = x.shape
-    L = H * W
-    _check_width(name, C, L)
-    return B, C, L, _cast_params(name, params, C, x.dtype, x.device)
 
 
 def _check_width(name, C, L):
@@ -248,7 +260,8 @@ def _cast_params(name, params, C, dtype, device):
         if p.device != device or p.numel() != math.prod(shape):
             raise ValueError(f"{name}: parameter on another device or "
                              f"of the wrong size ({tuple(p.shape)} vs {shape})")
-        p = p.reshape(shape).to(dtype).contiguous()
+        # one copy at most: a transposed view is cast and laid out together
+        p = p.reshape(shape).to(dtype, memory_format=torch.contiguous_format).contiguous()
         out.append(p if p.data_ptr() % 16 == 0 else p.clone())
     return out
 
@@ -328,10 +341,76 @@ fused_attn_block.launches = 0
 
 def _bwd_library():
     return _build.library("fused_attn_block_bwd", "rdm_fused_attn_block_bwd",
-                    [ctypes.c_void_p] * 18 + [ctypes.c_int] * 5
-                    + [ctypes.c_float] * 3 + [ctypes.c_void_p],
-                    extra=[("rdm_fused_attn_block_bwd_workspace",
-                            [ctypes.c_int] * 4, ctypes.c_longlong)])
+                          [ctypes.c_void_p] * 18 + [ctypes.c_int] * 5
+                          + [ctypes.c_float] * 3 + [ctypes.c_void_p],
+                          extra=[("rdm_fused_attn_block_bwd_workspace",
+                                  [ctypes.c_int] * 4, ctypes.c_longlong),
+                                 ("rdm_fused_attn_block_bwd_plan",
+                                  [ctypes.c_int] * 3 + [ctypes.c_void_p], ctypes.c_int)])
+
+
+def _bwd_args(raw, C: int, L: int, dtype: torch.dtype, device) -> list:
+    """The parameters the backward kernel reads, in its C order: gamma,
+    beta, Wq, bq, Wk, bk, Wv, bv, Wp^T, bp cast to ``dtype`` (Wp^T by the
+    copy that casts it), and for the scalar body also Wq^T, Wk^T, Wv^T."""
+    wp = raw[8]
+    wp_t = wp.reshape(C, C).t() if wp.numel() == C * C else wp
+    params = _cast_params("fused_attn_block_bwd", (*raw[:8], wp_t, raw[9]), C, dtype, device)
+    if attn_body(C, L, dtype) == "scalar":
+        params += [params[i].t().contiguous() for i in (2, 4, 6)]
+    return params
+
+
+def _bwd_launcher(gn_scale, gn_bias, wq, bq, wk, bk, wv, bv, wp, bp, *, C: int, L: int,
+                  dtype: torch.dtype, groups: int, skip_rescale: bool = True):
+    """The backward kernel with its parameters prepared for CUDA tensors:
+    returns ``launch(x, g)``, which checks NCHW ``x`` and ``g`` (C channels,
+    L tokens, ``dtype``) and returns ``(dx, grads)``, the ten float32
+    parameter gradients packed in parameter order.  ``fused_attn_block_bwd``
+    builds one each call and counts the launch; the timing tools keep one to
+    time the kernel without the per-call casts.  Wp arrives as Wp^T, cast
+    and transposed by one copy; the scalar body also reads Wq^T, Wk^T, Wv^T,
+    the tensor-core body stages the weights once and transposes them itself
+    (``attn_body``)."""
+    name = "fused_attn_block_bwd"
+    device = wq.device
+    if device.type != "cuda" or dtype not in _DTYPE_CODES:
+        raise ValueError(f"{name}: unsupported device {device} or dtype {dtype}")
+    _check_width(name, C, L)
+    if C % groups != 0:
+        raise ValueError(f"{name}: C={C} is not divisible by groups={groups}")
+    params = _bwd_args((gn_scale, gn_bias, wq, bq, wk, bk, wv, bv, wp, bp), C, L, dtype, device)
+    ptrs = [p.data_ptr() for p in params] + [None] * (13 - len(params))
+    lib = _bwd_library()
+
+    def launch(x, g):
+        check_activations(name, x)
+        B, c, H, W = x.shape
+        if c != C or H * W != L or x.dtype != dtype or x.device != device:
+            raise ValueError(f"{name}: x {tuple(x.shape)} {x.dtype} on {x.device} does not "
+                             f"fit the block (C {C}, L {L}, {dtype} on {device})")
+        if g.shape != x.shape or g.device != x.device:
+            raise ValueError(f"{name}: g of shape {tuple(g.shape)} on {g.device} "
+                             f"does not match x {tuple(x.shape)} on {x.device}")
+        g = g.to(dtype).contiguous()
+        x, g = (t if t.data_ptr() % 16 == 0 else t.clone() for t in (x, g))   # bulk copies
+        dx = torch.empty_like(x)
+        grads = torch.empty(4 * C * C + 6 * C, dtype=torch.float32, device=device)
+        if B == 0:
+            return dx, grads.zero_()
+        workspace = torch.empty(lib.rdm_fused_attn_block_bwd_workspace(B, C, L, groups),
+                                dtype=torch.float32, device=device)
+        keep = params                # noqa: F841 (the pointers stay valid)
+        with torch.cuda.device(device):
+            err = lib.rdm_fused_attn_block_bwd(
+                x.data_ptr(), g.data_ptr(), dx.data_ptr(), *ptrs, grads.data_ptr(),
+                workspace.data_ptr(), B, C, L, groups, _DTYPE_CODES[dtype], GN_EPS,
+                float(C) ** -0.5, _rescale(skip_rescale),
+                torch.cuda.current_stream(device).cuda_stream)
+        _build.raise_on(lib, err, name)
+        return dx, grads
+
+    return launch
 
 
 def fused_attn_block_bwd(x, g, gn_scale, gn_bias, wq, bq, wk, bk, wv, bv, wp, bp,
@@ -342,40 +421,20 @@ def fused_attn_block_bwd(x, g, gn_scale, gn_bias, wq, bq, wk, bk, wv, bv, wp, bp
     parameters.
 
     CPU tensors take the plain version.  CUDA tensors launch the kernel
-    (with the same limits as the forward's) and raise on anything else.
-    The parameter gradients are sums in a fixed order, so two runs on the
-    same inputs agree bit for bit.
+    (with the same limits as the forward's, and the same body for a shape:
+    ``attn_body``) and raise on anything else.  The parameter gradients are
+    sums in a fixed order, so two runs on the same inputs agree bit for bit.
     """
     raw = (gn_scale, gn_bias, wq, bq, wk, bk, wv, bv, wp, bp)
     if x.device.type == "cpu":
         return fused_attn_block_bwd_reference(x, g, *raw, groups=groups,
                                               skip_rescale=skip_rescale)
-    B, C, L, params = _checked_params("fused_attn_block_bwd", x, raw)
-    if C % groups != 0:
-        raise ValueError(f"fused_attn_block_bwd: C={C} is not divisible by groups={groups}")
-    if g.shape != x.shape or g.device != x.device:
-        raise ValueError(f"fused_attn_block_bwd: g of shape {tuple(g.shape)} on {g.device} "
-                         f"does not match x {tuple(x.shape)} on {x.device}")
-    g = g.to(x.dtype).contiguous()
-    # the kernel reads the weights of do, dh transposed
-    wt = [params[i].t().contiguous() for i in (2, 4, 6, 8)]
-    args = params[:8] + [wt[3], params[9]] + wt[:3]
-    dx = torch.empty_like(x)
-    grads = torch.empty(4 * C * C + 6 * C, dtype=torch.float32, device=x.device)
+    check_activations("fused_attn_block_bwd", x)
+    B, C, H, W = x.shape
+    dx, grads = _bwd_launcher(*raw, C=C, L=H * W, dtype=x.dtype, groups=groups,
+                              skip_rescale=skip_rescale)(x, g)
     if B > 0:
-        lib = _bwd_library()
-        n_ws = lib.rdm_fused_attn_block_bwd_workspace(B, C, L, groups)
-        workspace = torch.empty(n_ws, dtype=torch.float32, device=x.device)
-        with torch.cuda.device(x.device):
-            err = lib.rdm_fused_attn_block_bwd(
-                x.data_ptr(), g.data_ptr(), dx.data_ptr(), *(a.data_ptr() for a in args),
-                grads.data_ptr(), workspace.data_ptr(), B, C, L, groups,
-                _DTYPE_CODES[x.dtype], GN_EPS, float(C) ** -0.5, _rescale(skip_rescale),
-                torch.cuda.current_stream(x.device).cuda_stream)
-        _build.raise_on(lib, err, "fused_attn_block_bwd")
         fused_attn_block_bwd.launches += 1
-    else:
-        grads.zero_()
     out, offset = [], 0
     for p, shape in zip(raw, _param_shapes(C)):
         n = math.prod(shape)

@@ -4,8 +4,11 @@ CPU: the plain backward ``fused_attn_block_bwd_reference`` (which the
 wrapper and ``FusedAttnBlockFn`` run for CPU tensors) against the JAX custom
 VJP of ``fused_attn_block`` (Pallas kernels in interpret mode), against
 autograd of the plain forward, and ``torch.autograd.gradcheck`` of the
-Function in float64.  Card (marker ``gpu``): the CUDA backward kernel
-against the plain backward, and two runs against each other.
+Function in float64; a plain model of the tensor-core body's tiling (tokens
+padded to 16 rows a warp, gradients summed per slot) against the plain
+backward and the JAX VJP, with the padded rows' values exactly zero.  Card
+(marker ``gpu``): the CUDA backward kernel against the plain backward, and
+two runs against each other.
 """
 import math
 import os
@@ -209,6 +212,112 @@ def test_module_gradients_reach_every_parameter():
     assert x.grad is not None and float(x.grad.abs().sum()) > 0
     for name, prm in blk.named_parameters():
         assert prm.grad is not None and prm.grad.dtype == torch.float32, name
+
+
+# ---------------------------------------------------------------------------
+# The padding argument of the tensor-core backward body
+
+def kernel_tiling_bwd(x, g, params, groups, n_slots, skip_rescale=True):
+    """A plain PyTorch model of how ``csrc/fused_attn_block_bwd.cu``'s
+    tensor-core body tiles the backward: each sample's tokens padded to ROWS =
+    32 * ceil(L / 32) (16 rows a warp, an even number of warps) with h and gs
+    zero on the padded rows and the padded keys masked to -inf; the weight
+    and bias gradients contracted over all ROWS rows, sample by sample, into
+    ``n_slots`` slots (slot s takes samples s, s + n_slots, ...) summed in
+    slot order.  Returns the gradients in the order of
+    ``fused_attn_block_bwd_reference``, and the values the kernel relies on
+    being exactly zero: p at the padded keys, and do, dp, ds, dq, dk, dv and
+    dh on the padded rows."""
+    dt = x.dtype
+    B, C, H, W = x.shape
+    L, cg = H * W, C // groups
+    R = 32 * -(-L // 32)
+    f32 = torch.float32
+    T = lambda t: t.to(dt).to(f32)
+    gamma, beta, wq, bq, wk, bk, wv, bv, wp, bp = (torch.as_tensor(a).to(dt).to(f32)
+                                                   for a in params)
+    rs = attn_ops._rescale(skip_rescale)
+    rs_t = attn_ops.round_to(rs, dt)
+    scale, inv_n = float(C) ** -0.5, 1.0 / (cg * L)
+    shapes = [(C,), (C,), (C, C), (C,), (C, C), (C,), (C, C), (C,), (C, C), (C,)]
+    slots = [[torch.zeros(s, dtype=f32) for s in shapes] for _ in range(min(B, n_slots))]
+    dxs, zeros = [], []
+    for b in range(B):
+        xg = x[b].reshape(groups, cg * L).to(f32)
+        mu = xg.sum(-1, keepdim=True) * inv_n
+        inv = torch.rsqrt((xg * xg).sum(-1, keepdim=True) * inv_n - mu * mu + attn_ops.GN_EPS)
+        xhat = ((xg - mu) * inv).reshape(C, L).t()                        # (L, C)
+        gt = g[b].to(dt).reshape(C, L).t().to(f32)
+        h, gs = torch.zeros(R, C), torch.zeros(R, C)
+        h[:L] = T(xhat * gamma + beta)
+        gs[:L] = T(gt * rs_t)
+        nin = lambda t, w, bias: T(T(t @ w) + bias)
+        q, k, v = nin(h, wq, bq), nin(h, wk, bk), nin(h, wv, bv)
+        s = (q @ k.t()) * scale
+        s[:, L:] = -math.inf
+        p = torch.exp(s - s.amax(-1, keepdim=True))
+        p = p / p.sum(-1, keepdim=True)
+        pt = T(p)
+        o = T(pt @ v)
+        do = T(gs @ wp.t())
+        dp = do @ v.t()
+        ds = T(p * (dp - (dp * p).sum(-1, keepdim=True)) * scale)
+        dq, dk, dv = T(ds @ k), T(ds.t() @ q), T(pt.t() @ do)
+        dh = dq @ wq.t() + dk @ wk.t() + dv @ wv.t()
+        zeros += [p[:, L:], do[L:], dp[L:], ds[L:], ds[:, L:], dq[L:], dk[L:], dv[L:], dh[L:]]
+        dhr = dh[:L]
+        dxhat = (dhr * gamma).t().reshape(groups, cg * L)
+        xh = xhat.t().reshape(groups, cg * L)
+        m1 = dxhat.sum(-1, keepdim=True) * inv_n
+        m2 = (dxhat * xh).sum(-1, keepdim=True) * inv_n
+        dxs.append(((inv * (dxhat - m1 - xh * m2)).reshape(C, L) + gt.t() * rs).to(dt))
+        parts = [(dhr * xhat).sum(0), dhr.sum(0), h.t() @ dq, dq.sum(0), h.t() @ dk, dk.sum(0),
+                 h.t() @ dv, dv.sum(0), o.t() @ gs, gs.sum(0)]
+        for acc, part in zip(slots[b % n_slots], parts):
+            acc += part
+    grads = [sum(slot[i] for slot in slots) for i in range(10)]
+    return [torch.stack(dxs).reshape(B, C, H, W)] + grads, zeros
+
+
+def _tiling_grads(x, p, g, groups, dtype, n_slots=3):
+    ours, zeros = kernel_tiling_bwd(nchw(x, dtype), nchw(g, dtype), [p[k] for k in ORDER],
+                                    groups, n_slots)
+    for z in zeros:
+        assert torch.equal(z, torch.zeros_like(z))
+    return [ours[0].float().numpy().transpose(0, 2, 3, 1)] + [a.numpy() for a in ours[1:]]
+
+
+@pytest.mark.parametrize("B,H,W", [(5, 9, 9), (3, 7, 7), (4, 8, 12)])
+def test_kernel_tiling_matches_plain_and_jax_f32(B, H, W):
+    """Padded rows add exactly nothing: the model of the kernel's tiling
+    (81 tokens padded to 96, 49 to 64; 96 unpadded) gives the unpadded plain
+    backward's gradients and the JAX VJP's, up to float32 summation order."""
+    x, p, g = make_inputs(B, 64, H, W, seed=20 + B)
+    ours = _tiling_grads(x, p, g, 16, torch.float32)
+    plain = port_bwd(x, p, g, 16, torch.float32)
+    theirs = [np.asarray(a) for a in jax_vjp(x, p, g, 16, jnp.float32)]
+    for name, a, b, c in zip(("dx",) + ORDER, ours, plain, theirs):
+        # padded rows only add zeros; matmuls over 96 instead of 81 terms and
+        # the slot order change only the float32 summation order
+        scale = max(1.0, float(np.abs(b).max()))
+        assert np.abs(a - b).max() <= 1e-5 * scale, (name, np.abs(a - b).max())
+        assert np.abs(a - c).max() <= 1e-5 * scale, (name, np.abs(a - c).max())
+
+
+@pytest.mark.parametrize("B,C,groups", [c for c in CASES if c[1] == 64])
+def test_kernel_tiling_matches_jax_vjp_bf16(jax_bf16_grads, B, C, groups):
+    """The same model in bfloat16 (the body's only type) against the JAX VJP,
+    with the tolerances of ``test_plain_bwd_matches_jax_vjp_bf16``."""
+    x, p, g = make_inputs(B, C, 9, 9, seed=B + C + 1)
+    ours = _tiling_grads(x, p, g, groups, torch.bfloat16)
+    for i, name in enumerate(("dx",) + ORDER):
+        theirs = jax_bf16_grads[f"{B}_{C}_{i}"]
+        err = np.abs(ours[i] - theirs)
+        scale = max(1.0, float(np.abs(theirs).max()))
+        if name == "dx":
+            assert err.max() <= 4 * BF16_STEP * scale, err.max()
+        else:
+            assert err.max() <= BF16_STEP * scale, (name, err.max(), scale)
 
 
 # ---------------------------------------------------------------------------
