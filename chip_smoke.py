@@ -8,7 +8,8 @@ Phases, each printing one JSON line with its elapsed seconds:
 1. env        torch/CUDA versions, the card, nvidia-smi's name and power limit
 2. build      nvcc builds every CUDA source of the sampling and training paths,
               one nvcc per source, all at once, with each one's ptxas
-              register and spill lines
+              register and spill lines under the (mangled) name of their
+              kernel
 3. kernel     the attention kernel against its plain PyTorch version on the
               same seeded inputs, with the stated tolerance (bfloat16 at
               B 1024, 1025, 3 and 4096 through the tensor-core body, C 128
@@ -78,7 +79,9 @@ Phases, each printing one JSON line with its elapsed seconds:
               sums in another order), also at N = 64 x 132 x 3 + 8 and
               64 x 132 x 10 + 8 (more tiles than three a block, ragged), and
               the roll sum's library yardstick
-              (one F.conv1d) within the same; then the entry point
+              (one F.conv1d) within the same; the roll sum's general body
+              (a second shift table) bit for bit; the copy floor (a cold
+              copy of the same bytes) beside each; then the entry point
               python -m rdm_tpu_torch.scripts.micro_cf once, in process, as
               its path, with its chained and cold times, bounds and library
               times, and the plain versions' cold times beside them
@@ -793,6 +796,7 @@ def micro_cf_cases(device) -> dict:
     times (inputs rotating over more than twice the L2, as the script's)."""
     C, N = MICRO_C, micro_cf.L_TOKENS * MICRO_TB
     rnd, cold_us = micro_cf_script.randn, micro_cf_script.cold_us
+    floor = micro_cf_script.copy_floor_us(2 * 2 * C * N, device)
     out = {}
     for key, shape in (("transpose_nc_to_cn", (N, C)), ("transpose_cn_to_nc", (C, N))):
         x = rnd(shape, 40, device)
@@ -800,15 +804,17 @@ def micro_cf_cases(device) -> dict:
         torch.cuda.synchronize()
         check(torch.equal(y, ref), f"{key}: the kernel differs from its plain version")
         out[key] = {"shape": list(shape), "max_abs_err": float((y.float() - ref.float()).abs().max()),
-                    "tol": 0.0, "plain_cold_us": cold_us(micro_cf.cf_transpose_reference,
-                                                         lambda i: rnd(shape, 41 + i, device),
-                                                         2 * C * N, device)}
+                    "tol": 0.0, "plan": micro_cf.transpose_plan(*shape)._asdict(),
+                    "plain_cold_us": cold_us(micro_cf.cf_transpose_reference,
+                                             lambda i: rnd(shape, 41 + i, device), 2 * C * N, device),
+                    "copy_floor_us": floor}
     x = rnd((C, N), 42, device)
     y, ref = micro_cf.cf_masked_roll_sum(x), micro_cf.cf_masked_roll_sum_reference(x)
     conv = micro_cf_script.roll_sum_conv1d(x)
     lib = conv(x).float()
     torch.cuda.synchronize()
-    check(torch.equal(y, ref), "roll sum: the kernel differs from its plain version")
+    check(torch.equal(y.view(torch.int16), ref.view(torch.int16)),
+          "roll sum: the kernel differs from its plain version")
     # The library yardstick sums the same n = 8 exact terms in another order
     # and rounds once: within one bf16 step plus the float32 allowance
     # 2 n u sum|terms| <= 2 n u n max|x|.
@@ -819,12 +825,23 @@ def micro_cf_cases(device) -> dict:
           f"roll sum: F.conv1d differs from the plain version by {float(lib_err.max())}")
     make = lambda i: rnd((C, N), 43 + i, device)
     out["roll"] = {"shape": [C, N], "max_abs_err": float((y.float() - ref.float()).abs().max()),
-                   "tol": 0.0,
+                   "tol": 0.0, "body": micro_cf.roll_sum_body(micro_cf.L_TOKENS, micro_cf.SHIFTS),
+                   "plan": micro_cf.roll_sum_plan(C, N)._asdict(), "copy_floor_us": floor,
                    "plain_cold_us": cold_us(micro_cf.cf_masked_roll_sum_reference, make,
                                             2 * C * N, device),
                    "library": "F.conv1d", "library_cold_us": cold_us(conv, make, 2 * C * N, device),
                    "library_max_abs_err": float(lib_err.max()),
                    "library_bit_equal_share": float((lib == ref.float()).float().mean())}
+    check(out["roll"]["body"] == "script", f"roll sum: the script's table took {out['roll']['body']}")
+    second = (-16, -3, 2, 16)
+    y = micro_cf.cf_masked_roll_sum(x, micro_cf.L_TOKENS, second)
+    ref = micro_cf.cf_masked_roll_sum_reference(x, micro_cf.L_TOKENS, second)
+    torch.cuda.synchronize()
+    check(torch.equal(y.view(torch.int16), ref.view(torch.int16)),
+          "roll sum, second table: the kernel differs from its plain version")
+    out["roll_second_table"] = {"shape": [C, N], "shifts": list(second), "tol": 0.0,
+                                "body": micro_cf.roll_sum_body(micro_cf.L_TOKENS, second),
+                                "max_abs_err": float((y.float() - ref.float()).abs().max())}
     # the script's N (324 tiles: 2 or 3 a block), then more than 3 tiles a
     # block with a ragged last tile, and 10 or 11 tiles a block (ring stages
     # reused often)
@@ -853,6 +870,8 @@ def micro_cf_cases(device) -> dict:
             continue
         res["plain_cold_us"] = cold_us(lambda xx: micro_cf.cf_dots_reference(w, xx, K),
                                        lambda i: rnd((K, N), 46 + i, device), 2 * K * N, device)
+        res["copy_floor_us"] = micro_cf_script.copy_floor_us(2 * (taps * C * K + K * N + C * N),
+                                                             device)
         out[f"dots_k{K}"] = res
     return out
 
@@ -872,6 +891,7 @@ def micro_cf_entry(name, source_line, mcf, wrapper, case, timing):
             "plain_ms": case["plain_cold_us"] / 1e3, "bound_ms": timing["bound_us"] / 1e3,
             "bound_by": timing["bound_by"],
             "library_ms": timing["library_us"] / 1e3,
+            "copy_floor_ms": timing["copy_floor_us"] / 1e3,
             "chained_ms": timing["chained_us"] / 1e3,
             "share_of_bound": timing["bound_us"] / timing["cold_us"],
             "path": "python -m rdm_tpu_torch.scripts.micro_cf (in process)",
@@ -903,7 +923,8 @@ def main() -> int:
     ptxas = {}
     for name, lib in zip(SOURCES, libs):
         with open(lib[:-3] + ".log") as f:
-            ptxas[name] = [ln.strip() for ln in f if "registers" in ln or "spill" in ln]
+            ptxas[name] = [ln.strip() for ln in f
+                           if "Function properties" in ln or "registers" in ln or "spill" in ln]
     emit("build", t0, libraries=libs, ptxas=ptxas)
 
     t0 = time.perf_counter()
@@ -1071,8 +1092,8 @@ def main() -> int:
     dots = {K: micro_cf_entry(f"cf_dots K={K}", 111, mcf, "cf_dots",
                               mcf_cases[f"dots_k{K}"], mcf[f"dots_k{K}"]) for K in (64, 192)}
     dots[64]["k192"] = {k: dots[192][k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
-                                                   "bound_by", "library_ms", "chained_ms",
-                                                   "share_of_bound")}
+                                                   "bound_by", "library_ms", "copy_floor_ms",
+                                                   "chained_ms", "share_of_bound")}
 
     kernels = [{
         "name": "fused_attn_block",

@@ -14,7 +14,8 @@ Times are cold, as
 500 calls, inputs rotating over more than twice the L2.  The shapes are
 the flagship attention's (B 1024, L 81, C 64, bfloat16, both softmax
 settings for the core; the backward at B 4096), the TPU script's dots (C 64, N 20,736, K 64 and
-192) and the flagship's eight resblock shapes at B 1024, bfloat16.  A
+192), transposes and roll sum (C 64, N 20,736) and the flagship's eight
+resblock shapes at B 1024, bfloat16.  A
 knocked-out variant computes wrong values: only its time means anything.
 
 Variants:
@@ -23,6 +24,11 @@ Variants:
   no softmax), the floor of moving the 42.5 MB through this kernel;
 * dots: ``whole``; ``no_products`` (no wgmma); ``no_w`` (w neither loaded
   nor waited for);
+* transpose (both directions): ``whole``; ``copy`` (the ldmatrix/stmatrix
+  transposition replaced by a straight copy of the tile between the same
+  stages: the same TMA loads and stores);
+* roll sum: ``whole``; ``no_taps`` (each thread stores its own chunk: the
+  loads, the staging and the stores, no taps);
 * fused resblock (bfloat16): ``whole``; ``no_products`` (no wgmma; the A
   fragments are still loaded); ``no_groupnorm`` (no GroupNorm: neither the
   statistics nor the normalisation and SiLU passes); ``no_ring``
@@ -84,6 +90,15 @@ EDITS = {
                          "        if (K < 0) wgmma_64x64x16(acc, da, db);"),
     "dots_no_w": ("micro_cf.cu", "      mbar_wait(wbar + t, 0);",
                   "      if (K < 0) mbar_wait(wbar + t, 0);"),
+    "transpose_whole": ("micro_cf.cu", None, None),
+    "transpose_copy": ("micro_cf.cu", "    transpose_tile<T, T>(in, out, lane);",
+                       "    for (int c = lane; c < T * T / 8; c += 32)\n"
+                       "      reinterpret_cast<uint4*>(out)[c] = reinterpret_cast<const uint4*>(in)[c];"),
+    "roll_whole": ("micro_cf.cu", None, None),
+    "roll_no_taps": ("micro_cf.cu",
+                     "  y[g] = make_uint4(pack_bf16_rn(acc[0], acc[1]), pack_bf16_rn(acc[2], acc[3]),\n"
+                     "                    pack_bf16_rn(acc[4], acc[5]), pack_bf16_rn(acc[6], acc[7]));",
+                     "  y[g] = v;"),
 }
 EDITS.update({
     "resblock_whole": ("fused_resblock.cu", None, None),
@@ -135,7 +150,8 @@ NO_NORM = ("  for (int i = tid; i < G::M * chunks; i += nthreads) {",
 NO_ATTENTION = ("    attn_rows16<NT, 4, false>(qp, kp, vp, r0, L, scale, acc);",
                 "    for (int n = 0; n < 8; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;")
 # the source each variant's library is built from, by prefix
-MAIN_SOURCE = {"core": "attention_core.cu", "dots": "micro_cf.cu",
+MAIN_SOURCE = {"core": "attention_core.cu", "dots": "micro_cf.cu", "transpose": "micro_cf.cu",
+               "roll": "micro_cf.cu",
                "resblock": "fused_resblock.cu", "attn": "fused_attn_block.cu",
                "bwd": "fused_attn_block_bwd.cu"}
 NO_W_LOAD = ("      for (int t = 0; t < taps; ++t) {\n        mbar_expect_tx",
@@ -363,6 +379,19 @@ def main() -> dict:
             us = cold_us(dots_fn(libs[name], w, K), make_x, 2 * K * N, device)
             times[f"{name} K={K}"] = us
             print(f"dots K={K} {name[5:]:<12s}: cold {us:.2f} us", flush=True)
+    for name in ("transpose_whole", "transpose_copy"):
+        for key, shape in (("nc_to_cn", (N, C)), ("cn_to_nc", (C, N))):
+            with bound_to(libs[name]):
+                us = cold_us(micro_cf.cf_transpose, lambda i: randn(shape, 1 + i, device),
+                             2 * N * C, device)
+            times[f"{name} {key}"] = us
+            print(f"transpose {key} {name[10:]:<6s}: cold {us:.2f} us", flush=True)
+    for name in ("roll_whole", "roll_no_taps"):
+        with bound_to(libs[name]):
+            us = cold_us(micro_cf.cf_masked_roll_sum, lambda i: randn((C, N), 1 + i, device),
+                         2 * N * C, device)
+        times[name] = us
+        print(f"roll sum {name[5:]:<8s}: cold {us:.2f} us", flush=True)
     times.update(resblock_times(libs, device))
     times.update(attn_times(libs, device))
     times.update(bwd_times(libs, device))

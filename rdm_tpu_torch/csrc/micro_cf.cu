@@ -13,18 +13,34 @@
 // K 192) and write 2.65 MB, 1.61 us and 3.19 us, against 1.55 us of
 // operations (1.53 GFLOP) at the bf16 tensor-core peak: device memory bounds
 // all three.  Every working set is 5-11 MB, so a run that feeds each call
-// the previous output stays in the 50 MB L2 and can beat that bound.
+// the previous output stays in the 50 MB L2 and can beat that bound.  A
+// cold device-to-device copy of the same bytes (scripts/micro_cf.py:
+// copy_floor_us) is the practical floor of the transposes and the roll
+// sum: they move their bytes once and do little else.
 //
 // Design.
-// * Transpose: a 64 x 64 tile per block through shared memory, 16-byte
-//   loads and stores.  The tile is 64 rows of eight 16-byte chunks; chunk k
-//   of row r sits at slot k ^ (r / 8 % 8), so the stores of one row and the
-//   2-byte column reads of the write-back both fall on distinct banks.
-// * Roll sum: a block takes one row and a span of 2,048 lanes; it stages
-//   the span and two 16-byte chunks on each side (a halo of 16 lanes) as
-//   float in shared memory, then each thread sums the shifted taps of
-//   lanes t, t + 256, ... in the order of the shifts, so neighbouring
-//   threads read neighbouring words.
+// * Transpose: a warp per 32 x 32 tile (1,296 tiles at the script's
+//   shapes), two warps a block (648 blocks, 4 or 5 an SM, all resident at
+//   once).  The lanes load the tile's 2 KB with 16-byte loads into the
+//   warp's stage in shared memory, the warp transposes it with
+//   ldmatrix.x4.trans and stmatrix.x4 (8 x 8 blocks, no 2-byte accesses,
+//   no bank conflicts under the swizzle) and the lanes store it with
+//   16-byte stores; only __syncwarp orders a warp, no block barrier.  (64
+//   x 32 tiles moved by TMA through a ring per warp, one block per SM, ran
+//   slower cold, with or without the transposition: what costs is moving
+//   the tiles, not transposing them.)
+// * Roll sum: one thread per 16-byte chunk of 8 lanes of the flattened
+//   array, 256 a block (648 blocks, 4 or 5 an SM, all resident at once).
+//   Each warp stages its 32 chunks and two on either side in shared memory
+//   as bf16, with no block barrier on the data; each thread reads its
+//   neighbours with 16-byte reads, converts the 40 lanes to float once,
+//   adds the taps in the order of the shifts in registers and stores its
+//   chunk once.  The script's table and L = 81 have a body of their own:
+//   the 64 keep-bits of a chunk come from one 8-byte mask per position
+//   (81 in shared memory, as two 32-bit words), which ptxas tests with
+//   R2P, seven predicates an instruction, instead of 64 compares.  Any
+//   other table runs the same arithmetic with the masks compared term by
+//   term and each tap chosen by a switch on its shift.
 // * Dots: one persistent block per SM (at most one per 64-column tile)
 //   walks the output tiles b, b + gridDim.x, ... (324 tiles at N 20,736: 2
 //   or 3 a block).  The earlier kernel gave each of 162 blocks one 128-column
@@ -43,6 +59,7 @@
 //   16-byte coalesced stores while the other warpgroups' products and the
 //   producer's loads run.
 #include <cstdint>
+#include <utility>
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -54,96 +71,250 @@ namespace {
 
 using bf16 = __nv_bfloat16;
 
-constexpr int kThreads = 256;
 constexpr int kSmemLimit = 232448;   // shared memory one block may use on sm_90
 
 // ---------------------------------------------------------------------------
-// transpose
+// transpose: a 32 x 32 tile a warp, 16-byte loads and stores, ldmatrix.trans + stmatrix
 
-constexpr int kTile = 64;            // a 64 x 64 tile: 64 rows of 8 chunks
+constexpr int kTransposeTile = 32;   // rows and columns of a tile: 64-byte rows
+constexpr int kTransposeWarps = 2;   // warps a block, a tile each
 
-__device__ __forceinline__ int swizzled(int r, int k) { return r * 8 + (k ^ ((r >> 3) & 7)); }
+// Byte offset o of a tile whose rows are kSpan bytes (64 or 128), with the
+// 16-byte chunks of each 128-byte line permuted by the line's place in a
+// group of 8 (or 4) lines, so that 8 rows read or written at one chunk
+// column fall on distinct bank groups.
+template <int kSpan>
+__device__ __forceinline__ int swizzled(int o) {
+  return o ^ (((o >> 7) & (kSpan / 16 - 1)) << 4);
+}
 
-// y (S x R) = x (R x S)^T; R and S are multiples of 8.
-__global__ void __launch_bounds__(kThreads)
-transpose_kernel(const bf16* __restrict__ x, bf16* __restrict__ y, int R, int S) {
-  __shared__ uint4 tile[kTile * 8];
-  const int r0 = blockIdx.x * kTile;
-  const int s0 = blockIdx.y * kTile;
-  for (int q = threadIdx.x; q < kTile * 8; q += kThreads) {
-    const int r = q >> 3, k = q & 7;
-    uint4 v = make_uint4(0u, 0u, 0u, 0u);
-    if (r0 + r < R && s0 + 8 * k < S)
-      v = __ldg(reinterpret_cast<const uint4*>(x + static_cast<size_t>(r0 + r) * S + s0 + 8 * k));
-    tile[swizzled(r, k)] = v;
-  }
-  __syncthreads();
-  const uint16_t* t16 = reinterpret_cast<const uint16_t*>(tile);
-  for (int q = threadIdx.x; q < kTile * 8; q += kThreads) {
-    const int c = q >> 3, m = q & 7;     // output row s0 + c, its lanes r0 + 8m .. r0 + 8m + 7
-    if (s0 + c >= S || r0 + 8 * m >= R) continue;
-    uint32_t packed[4];
+// One TR x TS tile of x (rows of TS values) into the TS x TR tile of y in
+// shared memory: each ldmatrix.x4.trans reads four 8 x 8 blocks, block
+// (a, b) of x coming back as the fragment of its transpose, and
+// stmatrix.x4 writes that as block (b, a) of y.  Lane l gives the address
+// of row l % 8 of block 4 q + l / 8; both sides' eight rows fall on
+// distinct 16-byte bank groups under the swizzle.
+template <int TR, int TS>
+__device__ __forceinline__ void transpose_tile(const unsigned char* in, unsigned char* out,
+                                               int lane) {
+  constexpr int kOps = TR * TS / 256, kBlocksPerRow = TS / 8;
+  unsigned r[kOps][4];
+  const int i = lane & 7;
 #pragma unroll
-    for (int j = 0; j < 8; j += 2) {
-      const uint32_t lo = t16[swizzled(8 * m + j, c >> 3) * 8 + (c & 7)];
-      const uint32_t hi = t16[swizzled(8 * m + j + 1, c >> 3) * 8 + (c & 7)];
-      packed[j / 2] = lo | (hi << 16);
+  for (int q = 0; q < kOps; ++q) {
+    const int blk = 4 * q + (lane >> 3), a = blk / kBlocksPerRow, b = blk % kBlocksPerRow;
+    ldmatrix_x4_trans(r[q], in + swizzled<2 * TS>((8 * a + i) * 2 * TS + 16 * b));
+  }
+#pragma unroll
+  for (int q = 0; q < kOps; ++q) {
+    const int blk = 4 * q + (lane >> 3), a = blk / kBlocksPerRow, b = blk % kBlocksPerRow;
+    stmatrix_x4(r[q], out + swizzled<2 * TR>((8 * b + i) * 2 * TR + 16 * a));
+  }
+}
+
+// y (S x R) = x (R x S)^T in 32 x 32 tiles; tile t covers x's rows from
+// 32 (t / tiles_s) and columns from 32 (t % tiles_s).  Each warp works
+// alone on tiles t = w gridDim.x + b, t + 2 gridDim.x, ... (w its warp in
+// block b; ops/micro_cf.py: transpose_plan gives one tile a warp): its
+// lanes load the tile's 128 16-byte chunks (zeros past the edge) into the
+// warp's input stage, the warp transposes it into its output stage, and
+// the lanes store the 128 chunks of y's tile that lie inside y.  (Written
+// as a loop even for one tile a warp: the same body after an early return
+// ran slower cold at the script's shapes.)
+__global__ void __launch_bounds__(32 * kTransposeWarps)
+transpose_kernel(const bf16* __restrict__ x, bf16* __restrict__ y, int R, int S) {
+  constexpr int T = kTransposeTile, kBytes = T * T * 2, kChunks = T * T / 8, kRow = T / 8;
+  __shared__ __align__(1024) unsigned char smem[kTransposeWarps][2][kBytes];
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int tiles_s = (S + T - 1) / T, tiles = (R + T - 1) / T * tiles_s;
+  unsigned char* in = smem[warp][0];
+  unsigned char* out = smem[warp][1];
+  for (int t = warp * gridDim.x + blockIdx.x; t < tiles; t += kTransposeWarps * gridDim.x) {
+    const int r0 = T * (t / tiles_s), c0 = T * (t % tiles_s);
+    uint4 v[kChunks / 32];
+#pragma unroll
+    for (int it = 0; it < kChunks / 32; ++it) {
+      const int q = 32 * it + lane, row = q / kRow, col = c0 + 8 * (q % kRow);
+      const bf16* src = x + static_cast<size_t>(r0 + row) * S + col;
+      v[it] = r0 + row < R && col < S ? __ldg(reinterpret_cast<const uint4*>(src))
+                                      : make_uint4(0u, 0u, 0u, 0u);
     }
-    *reinterpret_cast<uint4*>(y + static_cast<size_t>(s0 + c) * R + r0 + 8 * m) =
-        make_uint4(packed[0], packed[1], packed[2], packed[3]);
+#pragma unroll
+    for (int it = 0; it < kChunks / 32; ++it)
+      *reinterpret_cast<uint4*>(in + swizzled<2 * T>(16 * (32 * it + lane))) = v[it];
+    __syncwarp();
+    transpose_tile<T, T>(in, out, lane);
+    __syncwarp();
+#pragma unroll
+    for (int it = 0; it < kChunks / 32; ++it) {
+      const int q = 32 * it + lane, row = q / kRow, col = r0 + 8 * (q % kRow);
+      if (c0 + row < S && col < R)
+        *reinterpret_cast<uint4*>(y + static_cast<size_t>(c0 + row) * R + col) =
+            *reinterpret_cast<const uint4*>(out + swizzled<2 * T>(16 * q));
+    }
+    __syncwarp();                      // the stages are free for the warp's next tile
   }
 }
 
 // ---------------------------------------------------------------------------
-// masked lane-roll sum
+// masked lane-roll sum: one thread per 16-byte chunk
 
-constexpr int kSpan = 8 * kThreads;  // lanes a block sums
-constexpr int kHalo = 16;            // lanes staged on each side of the span
+constexpr int kRollThreads = 256;
+constexpr int kMaxShift = 16;        // a tap reaches at most two chunks to either side
 constexpr int kMaxShifts = 16;
+constexpr int kScriptL = 81;         // the script's sample and table, the specialised body's
+constexpr int kScriptShifts[8] = {-10, -9, -8, -1, 1, 8, 9, 10};
 
 struct Shifts {
   int n;
   int s[kMaxShifts];
 };
 
-// y[c, n] = bf16(sum_j [0 <= n % L + s_j < L] x[c, n + s_j]) in float32, in
-// the order of the shifts, starting from 0; |s_j| <= kHalo, N % 8 == 0.
-__global__ void __launch_bounds__(kThreads)
-roll_sum_kernel(const bf16* __restrict__ x, bf16* __restrict__ y, int N, int L, Shifts sh) {
-  __shared__ __align__(16) float win[kSpan + 2 * kHalo];
-  const int n0 = blockIdx.x * kSpan;
-  const bf16* row = x + static_cast<size_t>(blockIdx.y) * N;
-  const int chunks = N / 8;
-  for (int q = threadIdx.x; q < (kSpan + 2 * kHalo) / 8; q += kThreads) {
-    const int k = (n0 - kHalo) / 8 + q;
-    uint4 v = make_uint4(0u, 0u, 0u, 0u);
-    if (k >= 0 && k < chunks) v = __ldg(reinterpret_cast<const uint4*>(row) + k);
-    const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&v);
-    float4* dst = reinterpret_cast<float4*>(win + 8 * q);
-    const float2 a = __bfloat1622float2(h[0]), b = __bfloat1622float2(h[1]);
-    const float2 c = __bfloat1622float2(h[2]), d = __bfloat1622float2(h[3]);
-    dst[0] = make_float4(a.x, a.y, b.x, b.y);
-    dst[1] = make_float4(c.x, c.y, d.x, d.y);
+// For each position p0 in [0, 81) of a chunk's first lane, bit 8 (k % 4) + j
+// of word k / 4 is set where lane j keeps tap k of the script's table (the
+// launcher fills it).  Two 32-bit words, so that each tap's byte is tested
+// in place.
+struct ScriptMasks {
+  uint2 m[kScriptL];
+};
+
+// Tap S of a chunk's eight lanes: w holds lanes 8g - 16 .. 8g + 23 as
+// float, p[j] is lane j's position in its sample of L lanes; lane j's term
+// is kept where p[j] + S stays in [0, L).
+template <int S>
+__device__ __forceinline__ void add_tap(float (&acc)[8], const float (&w)[40], const int (&p)[8],
+                                        int L) {
+#pragma unroll
+  for (int j = 0; j < 8; ++j)
+    if (S > 0 ? p[j] < L - S : p[j] >= -S) acc[j] += w[16 + j + S];
+}
+
+// Tap S for the eight lanes, each kept where its bit 8 B + j of `mask`
+// is set: bit tests of one register, which ptxas turns into R2P (seven
+// predicates at once).
+template <int S, int B>
+__device__ __forceinline__ void add_masked_tap(float (&acc)[8], const float (&w)[40],
+                                               unsigned mask) {
+#pragma unroll
+  for (int j = 0; j < 8; ++j)
+    if (mask & (1u << (8 * B + j))) acc[j] += w[16 + j + S];
+}
+
+// The script's eight taps in its order, tap K kept by byte K % 4 of word
+// K / 4 of `mask`.
+template <int... K>
+__device__ __forceinline__ void script_taps(float (&acc)[8], const float (&w)[40], uint2 mask,
+                                            std::integer_sequence<int, K...>) {
+  (add_masked_tap<kScriptShifts[K], K % 4>(acc, w, K < 4 ? mask.x : mask.y), ...);
+}
+
+// The two bfloat16 values of a 32-bit word as floats, exactly: a bfloat16
+// is the upper half of the float of the same value.
+__device__ __forceinline__ float2 bf16x2_to_float2(unsigned u) {
+  return make_float2(__uint_as_float(u << 16), __uint_as_float(u & 0xffff0000u));
+}
+
+__device__ __forceinline__ unsigned pack_bf16_rn(float lo, float hi) {
+  const __nv_bfloat162 h = __float22bfloat162_rn(make_float2(lo, hi));
+  return *reinterpret_cast<const unsigned*>(&h);
+}
+
+// y = the masked roll sum of x, both C x N and read as chunks of 8 lanes of
+// the flattened array (N % L == 0, so a row ends where a sample does and a
+// tap that crosses it is masked).  The thread of chunk g loads it, and
+// lanes 0-3 of each warp the two chunks on either side of the warp's 32
+// (zeros past the array), into the warp's own stage in shared memory; after
+// a __syncwarp (no block barrier waits on the data) each thread reads the
+// two chunks on either side of its own with 16-byte reads, converts the
+// lanes to float once (by bit placement), adds the taps in the order of
+// the shifts from 0.0 and writes its chunk, rounded once, with one 16-byte
+// store.
+// kScript: L = 81 and the script's table; lane j keeps tap k where its bit
+// of the mask of its chunk's position p0 = 8g mod 81 is set, the 81
+// masks copied to shared memory at the block's start (one barrier, before
+// anything waits on the data).  Otherwise L and the shifts are arguments:
+// lane j's position follows from p0 = 8g mod L, each term is tested, and
+// each tap goes through a switch on its shift, the same for every thread.
+template <bool kScript>
+__global__ void __launch_bounds__(kRollThreads)
+roll_sum_kernel(const uint4* __restrict__ x, uint4* __restrict__ y, int chunks, int L,
+                Shifts sh, ScriptMasks masks) {
+  __shared__ uint4 stage[kRollThreads / 32][36];
+  __shared__ uint2 mask_of[kScript ? kScriptL : 1];
+  const int tid = threadIdx.x, lane = tid & 31, g = blockIdx.x * kRollThreads + tid;
+  const uint4 zero = make_uint4(0u, 0u, 0u, 0u);
+  const uint4 v = g < chunks ? __ldg(x + g) : zero;
+  uint4 halo = zero;
+  if (lane < 4) {
+    // lanes 0-1: the warp's first chunk - 2, - 1; lanes 2-3: its first + 32, + 33
+    const int h = lane < 2 ? g - 2 : g + 30;
+    if (h >= 0 && h < chunks) halo = __ldg(x + h);
   }
-  __syncthreads();
-  bf16* out = y + static_cast<size_t>(blockIdx.y) * N;
-  const int step = kThreads % L;     // the position in the sample moves by this per lane stride
-  int p = (n0 + threadIdx.x) % L;
+  if constexpr (kScript) {
+    if (tid < kScriptL) mask_of[tid] = masks.m[tid];
+    __syncthreads();
+  }
+  uint4* st = stage[tid >> 5];
+  st[lane + 2] = v;
+  if (lane < 4) st[lane < 2 ? lane : 32 + lane] = halo;
+  __syncwarp();
+  if (g >= chunks) return;
+  const uint4 c[5] = {st[lane], st[lane + 1], v, st[lane + 3], st[lane + 4]};
+  float w[40];
 #pragma unroll
-  for (int i = 0; i < 8; ++i, p = p + step >= L ? p + step - L : p + step) {
-    const int local = threadIdx.x + i * kThreads;
-    const int n = n0 + local;
-    if (n >= N) break;
-    float acc = 0.0f;
+  for (int m = 0; m < 5; ++m) {
+    const unsigned words[4] = {c[m].x, c[m].y, c[m].z, c[m].w};
 #pragma unroll
-    for (int j = 0; j < kMaxShifts; ++j) {
-      if (j < sh.n) {
-        const int s = sh.s[j];
-        if (p + s >= 0 && p + s < L) acc += win[kHalo + local + s];
+    for (int h = 0; h < 4; ++h) {
+      const float2 f = bf16x2_to_float2(words[h]);
+      w[8 * m + 2 * h] = f.x;
+      w[8 * m + 2 * h + 1] = f.y;
+    }
+  }
+  float acc[8];
+#pragma unroll
+  for (int j = 0; j < 8; ++j) acc[j] = 0.0f;
+  if constexpr (kScript) {
+    script_taps(acc, w, mask_of[8 * (g % kScriptL) % kScriptL],
+                std::make_integer_sequence<int, 8>());
+  } else {
+    int p[8];
+    p[0] = 8 * (g % L) % L;
+#pragma unroll
+    for (int j = 1; j < 8; ++j) p[j] = p[j - 1] + 1 == L ? 0 : p[j - 1] + 1;
+#pragma unroll 1
+    for (int n = 0; n < sh.n; ++n) {
+      switch (sh.s[n]) {
+#define RDM_TAP(S) \
+  case S:          \
+    add_tap<S>(acc, w, p, L); \
+    break;
+        RDM_TAP(-16) RDM_TAP(-15) RDM_TAP(-14) RDM_TAP(-13) RDM_TAP(-12) RDM_TAP(-11)
+        RDM_TAP(-10) RDM_TAP(-9) RDM_TAP(-8) RDM_TAP(-7) RDM_TAP(-6) RDM_TAP(-5) RDM_TAP(-4)
+        RDM_TAP(-3) RDM_TAP(-2) RDM_TAP(-1) RDM_TAP(0) RDM_TAP(1) RDM_TAP(2) RDM_TAP(3)
+        RDM_TAP(4) RDM_TAP(5) RDM_TAP(6) RDM_TAP(7) RDM_TAP(8) RDM_TAP(9) RDM_TAP(10)
+        RDM_TAP(11) RDM_TAP(12) RDM_TAP(13) RDM_TAP(14) RDM_TAP(15) RDM_TAP(16)
+#undef RDM_TAP
       }
     }
-    out[n] = __float2bfloat16(acc);
   }
+  y[g] = make_uint4(pack_bf16_rn(acc[0], acc[1]), pack_bf16_rn(acc[2], acc[3]),
+                    pack_bf16_rn(acc[4], acc[5]), pack_bf16_rn(acc[6], acc[7]));
+}
+
+// The masks of the script's body (see ScriptMasks), made once.
+const ScriptMasks& script_masks() {
+  static const ScriptMasks masks = [] {
+    ScriptMasks t{};
+    for (int p0 = 0; p0 < kScriptL; ++p0)
+      for (int k = 0; k < 8; ++k)
+        for (int j = 0; j < 8; ++j) {
+          const int q = (p0 + j) % kScriptL + kScriptShifts[k];
+          if (q >= 0 && q < kScriptL) (k < 4 ? t.m[p0].x : t.m[p0].y) |= 1u << (8 * (k % 4) + j);
+        }
+    return t;
+  }();
+  return masks;
 }
 
 // ---------------------------------------------------------------------------
@@ -306,31 +477,47 @@ int dots_smem_needed(int taps, int K, int stages) {
 
 extern "C" {
 
-// x (R x S) and y (S x R) are row-major bfloat16.  Returns a cudaError_t.
-int rdm_cf_transpose(const void* x, void* y, int R, int S, void* stream) {
-  if (R < 1 || S < 1 || R % 8 != 0 || S % 8 != 0 || (S + kTile - 1) / kTile > 65535)
+// x (R x S) and y (S x R) are row-major bfloat16 starting on 16-byte
+// boundaries; tile, warps and blocks are the plan of ops/micro_cf.py:
+// transpose_plan (any number of blocks covers the tiles).  Returns a
+// cudaError_t.
+int rdm_cf_transpose(const void* x, void* y, int R, int S, int tile, int warps, int blocks,
+                     void* stream) {
+  const long long tiles = static_cast<long long>((R + kTransposeTile - 1) / kTransposeTile) *
+                          ((S + kTransposeTile - 1) / kTransposeTile);
+  if (R < 1 || S < 1 || R % 8 != 0 || S % 8 != 0 || tile != kTransposeTile ||
+      warps != kTransposeWarps || blocks < 1 || tiles > 0x3fffffffLL)
     return static_cast<int>(cudaErrorInvalidValue);
-  const dim3 grid((R + kTile - 1) / kTile, (S + kTile - 1) / kTile);
-  transpose_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+  transpose_kernel<<<blocks, 32 * kTransposeWarps, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const bf16*>(x), static_cast<bf16*>(y), R, S);
   return static_cast<int>(cudaGetLastError());
 }
 
-// x and y are (C x N) row-major bfloat16; shifts holds n_shifts values.
+// x and y are (C x N) row-major bfloat16 starting on 16-byte boundaries;
+// shifts holds n_shifts values; script_body and blocks are what
+// ops/micro_cf.py's roll_sum_body and roll_sum_plan give: the launch is
+// refused where they do not match the arguments.
 int rdm_cf_masked_roll_sum(const void* x, void* y, int C, int N, int L, const int* shifts,
-                           int n_shifts, void* stream) {
-  if (C < 1 || C > 65535 || N < 8 || N % 8 != 0 || L < 1 || n_shifts < 0 ||
-      n_shifts > kMaxShifts)
+                           int n_shifts, int script_body, int blocks, void* stream) {
+  const long long chunks = static_cast<long long>(C) * (N / 8);
+  if (C < 1 || N < 8 || N % 8 != 0 || L < 1 || N % L != 0 || n_shifts < 0 ||
+      n_shifts > kMaxShifts || chunks > 0x7fffffffLL - kRollThreads ||
+      blocks != (chunks + kRollThreads - 1) / kRollThreads)
     return static_cast<int>(cudaErrorInvalidValue);
   Shifts sh{};
   sh.n = n_shifts;
+  bool script = L == kScriptL && n_shifts == 8;
   for (int j = 0; j < n_shifts; ++j) {
-    if (shifts[j] < -kHalo || shifts[j] > kHalo) return static_cast<int>(cudaErrorInvalidValue);
+    if (shifts[j] < -kMaxShift || shifts[j] > kMaxShift)
+      return static_cast<int>(cudaErrorInvalidValue);
     sh.s[j] = shifts[j];
+    script = script && shifts[j] == kScriptShifts[j];
   }
-  const dim3 grid((N + kSpan - 1) / kSpan, C);
-  roll_sum_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const bf16*>(x), static_cast<bf16*>(y), N, L, sh);
+  if ((script_body != 0) != script) return static_cast<int>(cudaErrorInvalidValue);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const auto kernel = script ? roll_sum_kernel<true> : roll_sum_kernel<false>;
+  kernel<<<blocks, kRollThreads, 0, st>>>(static_cast<const uint4*>(x), static_cast<uint4*>(y),
+                                          static_cast<int>(chunks), L, sh, script_masks());
   return static_cast<int>(cudaGetLastError());
 }
 

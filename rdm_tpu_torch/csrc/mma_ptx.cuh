@@ -1,5 +1,6 @@
 // PTX helpers of the tensor-core kernels: shared-memory addresses and bf16
-// packing (attn_mma.cuh, tma.cuh, micro_cf.cu), ldmatrix fragment loads,
+// packing (attn_mma.cuh, tma.cuh, micro_cf.cu), ldmatrix fragment loads and
+// stmatrix fragment stores (micro_cf.cu's transpose),
 // mma.sync.m16n8k16 in bfloat16 with a float32 sum (attn_mma.cuh,
 // fused_resblock.cu, fused_attn_block.cu) and the wgmma descriptor of a
 // 128-byte-swizzled operand (micro_cf.cu, fused_resblock.cu).  Everything
@@ -31,6 +32,16 @@ __device__ __forceinline__ void ldmatrix_x4_trans(unsigned (&r)[4], const void* 
   asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
                : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
                : "r"(smem_u32(p))
+               : "memory");
+}
+
+// The other way: four 8 x 8 bf16 matrices from the fragment layout (lane l
+// holds row l / 4, columns 2 (l % 4) + {0, 1} of each) into shared memory,
+// lane l giving the address of row l % 8 of matrix l / 8.  After
+// ldmatrix_x4_trans it writes each matrix transposed.
+__device__ __forceinline__ void stmatrix_x4(const unsigned (&r)[4], void* p) {
+  asm volatile("stmatrix.sync.aligned.m8n8.x4.shared.b16 [%0], {%1, %2, %3, %4};\n"
+               ::"r"(smem_u32(p)), "r"(r[0]), "r"(r[1]), "r"(r[2]), "r"(r[3])
                : "memory");
 }
 

@@ -7,12 +7,15 @@ axis last, bfloat16.
 
 * ``cf_transpose(x)``: (R, S) -> (S, R), exact.  It serves both kernels of
   the script's transpose pair (:49 maps (N, C) -> (C, N), :56 maps
-  (C, N) -> (N, C)).
+  (C, N) -> (N, C)).  Its kernel takes a 32 x 32 tile a warp
+  (``transpose_plan``).
 * ``cf_masked_roll_sum(x, L, shifts)`` on (C, N):
   ``out[c, n] = bf16(sum_s [0 <= n % L + s < L] * f32(x[c, n + s]))``, the
   sum in float32 in the order of ``shifts``, starting from 0.0 (the
   script's :69-82).  The mask tests only the position in the flattened
   L-token sample, so a +-1 tap wraps across image rows, as in the script.
+  Its kernel takes one 16-byte chunk a thread (``roll_sum_plan``), with a
+  body of its own for the script's table (``roll_sum_body``).
 * ``cf_dots(w, x, K)`` with w (taps, C, K) and x (>= K, N):
   ``out = bf16(sum_t f32(w[t] @ x[:K]))`` of shape (C, N), every tap
   multiplying the same ``x[:K]`` (the script's :97-104: a throughput
@@ -35,9 +38,12 @@ from . import _build
 
 L_TOKENS = 81
 SHIFTS = (-10, -9, -8, -1, 1, 8, 9, 10)
-# the kernel's halo: shifts reach at most two 16-byte chunks past a span
+# a tap reaches at most two 16-byte chunks to either side of its own
 MAX_SHIFT = 16
 MAX_SHIFTS = 16
+ROLL_THREADS = 256      # chunks a block of the roll sum, one a thread
+TRANSPOSE_TILE = 32     # rows and columns of x in a tile of the transpose
+TRANSPOSE_WARPS = 2     # warps a block of the transpose, a tile each
 DOTS_ROWS = 64          # C: the rows of w and of the output
 DOTS_TILE = 64          # output columns of a tile
 DOTS_MAX_K = 256        # a TMA box of the x tile has at most 256 rows
@@ -73,6 +79,46 @@ def dots_plan(taps: int, K: int):
         return None
     stages = DOTS_CONSUMERS * per_consumer
     return DotsPlan(stages, fixed + stages * tile)
+
+
+class TransposePlan(NamedTuple):
+    """Launch plan of the transpose kernel (``csrc/micro_cf.cu``:
+    rdm_cf_transpose): warp w of block b takes tiles w * blocks + b,
+    then every warps * blocks further on."""
+    tile: int               # rows and columns of x in a tile
+    warps: int              # warps a block
+    blocks: int
+
+
+def transpose_tiles(R: int, S: int) -> int:
+    return -(-R // TRANSPOSE_TILE) * -(-S // TRANSPOSE_TILE)
+
+
+def transpose_plan(R: int, S: int) -> TransposePlan:
+    """Enough blocks of ``TRANSPOSE_WARPS`` warps for a tile a warp."""
+    return TransposePlan(TRANSPOSE_TILE, TRANSPOSE_WARPS,
+                         -(-transpose_tiles(R, S) // TRANSPOSE_WARPS))
+
+
+class RollSumPlan(NamedTuple):
+    """Launch plan of the roll-sum kernel: one thread per 16-byte chunk."""
+    threads: int            # a block's threads, one per chunk
+    blocks: int
+    chunks: int             # C * N / 8
+
+
+def roll_sum_plan(C: int, N: int) -> RollSumPlan:
+    """Blocks of ``ROLL_THREADS`` chunks over all C * N / 8 of them; only
+    the last block may be partial."""
+    chunks = C * (N // _CHUNK)
+    return RollSumPlan(ROLL_THREADS, -(-chunks // ROLL_THREADS), chunks)
+
+
+def roll_sum_body(L: int, shifts) -> str:
+    """The body the roll-sum kernel runs for these arguments: ``"script"``,
+    L and the shifts as constants, for the script's L = 81 and table;
+    ``"general"`` for any other."""
+    return "script" if L == L_TOKENS and tuple(shifts) == SHIFTS else "general"
 
 
 # ---------------------------------------------------------------------------
@@ -151,17 +197,24 @@ def cf_transpose(x):
     R, S = x.shape
     if R % _CHUNK or S % _CHUNK:
         raise ValueError(f"cf_transpose: R={R} and S={S} must be multiples of {_CHUNK}")
-    if -(-S // 64) > 65535:
-        raise ValueError(f"cf_transpose: S={S} exceeds the kernel's grid")
-    out = torch.empty((S, R), dtype=x.dtype, device=x.device)
     if x.numel() == 0:
-        return out
-    lib = _build.library("micro_cf", "rdm_cf_transpose",
-                   [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
-    with torch.cuda.device(x.device):
-        err = lib.rdm_cf_transpose(x.data_ptr(), out.data_ptr(), R, S, _stream(x))
-    _build.raise_on(lib, err, "cf_transpose")
+        return torch.empty((S, R), dtype=x.dtype, device=x.device)
+    out = _launch_transpose(x, transpose_plan(R, S))
     cf_transpose.launches += 1
+    return out
+
+
+def _launch_transpose(x, plan: TransposePlan):
+    """The transpose kernel on contiguous bfloat16 (R, S) ``x`` on a card,
+    R and S multiples of 8, with the given plan (the card tests also hand
+    it other plans)."""
+    R, S = x.shape
+    out = torch.empty((S, R), dtype=x.dtype, device=x.device)
+    lib = _build.library("micro_cf", "rdm_cf_transpose",
+                   [ctypes.c_void_p, ctypes.c_void_p] + [ctypes.c_int] * 5 + [ctypes.c_void_p])
+    with torch.cuda.device(x.device):
+        err = lib.rdm_cf_transpose(x.data_ptr(), out.data_ptr(), R, S, *plan, _stream(x))
+    _build.raise_on(lib, err, "cf_transpose")
     return out
 
 
@@ -189,13 +242,17 @@ def cf_masked_roll_sum(x, L: int = L_TOKENS, shifts=SHIFTS):
     out = torch.empty_like(x)
     if x.numel() == 0:
         return out
+    plan = roll_sum_plan(C, N)
+    if plan.chunks > 2 ** 31 - 1 - ROLL_THREADS:
+        raise ValueError(f"cf_masked_roll_sum: C={C}, N={N} exceed the kernel's grid")
     lib = _build.library("micro_cf", "rdm_cf_masked_roll_sum",
                    [ctypes.c_void_p, ctypes.c_void_p] + [ctypes.c_int] * 3
-                   + [ctypes.POINTER(ctypes.c_int), ctypes.c_int, ctypes.c_void_p])
+                   + [ctypes.POINTER(ctypes.c_int)] + [ctypes.c_int] * 3 + [ctypes.c_void_p])
     table = (ctypes.c_int * max(1, len(shifts)))(*shifts)
     with torch.cuda.device(x.device):
         err = lib.rdm_cf_masked_roll_sum(x.data_ptr(), out.data_ptr(), C, N, L, table,
-                                         len(shifts), _stream(x))
+                                         len(shifts), int(roll_sum_body(L, shifts) == "script"),
+                                         plan.blocks, _stream(x))
     _build.raise_on(lib, err, "cf_masked_roll_sum")
     cf_masked_roll_sum.launches += 1
     return out

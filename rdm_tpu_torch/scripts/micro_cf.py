@@ -15,8 +15,9 @@ card also the bound (H100 SXM data-sheet peaks: 3.35 TB/s, 989 TFLOP/s
 bf16), the share of it reached, and the time of one PyTorch call that
 computes the same function: cuBLAS for the dots, ``x.t().contiguous()`` for
 the transposes, and for the roll sum one ``F.conv1d`` with a filter of ones
-at the shifts (``roll_sum_conv1d``).  These yardsticks are timed here only;
-``ops.micro_cf`` never calls them.
+at the shifts (``roll_sum_conv1d``); and beside each kernel the copy floor,
+a cold device-to-device copy of the same bytes (``copy_floor_us``).  These
+yardsticks are timed here only; ``ops.micro_cf`` never calls them.
 
 Timing on the card.  *Chained*: the GPU form of the TPU script's slope.
 Each call consumes the previous output, as its scan carry does; K1 = 50 and
@@ -39,6 +40,7 @@ times the replays of its graph).
 from __future__ import annotations
 
 import argparse
+import functools
 import math
 import subprocess
 import time
@@ -130,6 +132,17 @@ def cold_us(fn, make_input, nbytes_input, device, ks=KS) -> float:
     return slope_us(lambda k: [fn(bufs[i % len(bufs)]) for i in range(k)], device, ks)
 
 
+@functools.lru_cache(maxsize=None)
+def copy_floor_us(nbytes: float, device) -> float:
+    """Per call of ``out.copy_(x)`` into a fresh ``out``, cold (as
+    ``cold_us``), for a bfloat16 ``x`` of nbytes / 4 values: it reads and
+    writes as many bytes as a kernel that moves ``nbytes`` in all.  Timed
+    once per byte count and device in a process."""
+    n = int(nbytes // 4)
+    return cold_us(lambda x: torch.empty_like(x).copy_(x), lambda i: randn((n,), 200 + i, device),
+                   nbytes / 2, device)
+
+
 def randn(shape, seed, device):
     gen = torch.Generator(device=device).manual_seed(seed)
     return torch.randn(shape, generator=gen, device=device).to(torch.bfloat16)
@@ -149,13 +162,14 @@ def roll_sum_conv1d(x, L=L, shifts=micro_cf.SHIFTS):
     return lambda y: F.conv1d(y.view(C * N // L, 1, L), w, padding=m).view(C, N)
 
 
-def _card_fields(nbytes, flops, cold, library):
+def _card_fields(nbytes, flops, cold, library, device):
     """The card's numbers of a line: bytes and operations it must move and
-    do, its bound, the cold time and its share of the bound, and the
-    library call's cold time."""
+    do, its bound, the cold time and its share of the bound, the library
+    call's cold time and the copy floor of the same bytes."""
     b, by = bound_us(nbytes, flops)
     return dict(bytes=nbytes, flops=flops, bound_us=b, bound_by=by, cold_us=cold,
-                share_of_bound=b / cold, library_us=library)
+                share_of_bound=b / cold, library_us=library,
+                copy_floor_us=copy_floor_us(nbytes, device))
 
 
 def _fmt(r, name):
@@ -171,6 +185,8 @@ def _fmt(r, name):
                  f"{100 * r['share_of_bound']:.1f} % of it")
     if "library" in r and "library_us" in r:
         line += f"; {r['library']}: {r['library_us']:.2f} us"
+    if "copy_floor_us" in r:
+        line += f"; copy of the same bytes {r['copy_floor_us']:.2f} us"
     return line
 
 
@@ -184,7 +200,8 @@ def bench_xla_conv(tb, device):
     r = dict(chained_us=chained_us(fn, make(0), device), flops=2 * 9 * C * C * L * tb)
     if device.type == "cuda":
         nbytes = 2 * (2 * tb * C * L + 9 * C * C)
-        r.update(_card_fields(nbytes, r["flops"], cold_us(fn, make, 2 * tb * C * L, device), None))
+        r.update(_card_fields(nbytes, r["flops"], cold_us(fn, make, 2 * tb * C * L, device), None,
+                              device))
     print(_fmt(r, f"cuDNN conv3x3 NHWC (TB={tb}):"), flush=True)
     return r
 
@@ -212,7 +229,7 @@ def bench_dots(K, tb, device):
         w2 = w.permute(1, 0, 2).reshape(C, taps * K)
         lib = cold_us(lambda xr: torch.matmul(w2, xr), lambda i: make(i)[:K].repeat(taps, 1),
                       2 * taps * K * N, device)
-        r.update(_card_fields(nbytes, flops, cold, lib))
+        r.update(_card_fields(nbytes, flops, cold, lib, device))
     print(_fmt(r, f"{taps} dots (C={C},K={K})@(K,N={N}):"), flush=True)
     return r
 
@@ -226,7 +243,7 @@ def bench_roll(tb, device):
     if device.type == "cuda":
         nbytes = 2 * 2 * C * N
         lib = cold_us(roll_sum_conv1d(make(0)), make, nbytes / 2, device)
-        r.update(_card_fields(nbytes, 0.0, cold_us(fn, make, nbytes / 2, device), lib))
+        r.update(_card_fields(nbytes, 0.0, cold_us(fn, make, nbytes / 2, device), lib, device))
     print(_fmt(r, "8 masked lane-rolls (C,N):"), flush=True)
     return r
 
@@ -243,7 +260,7 @@ def bench_transpose(tb, device):
         nbytes = 2 * C * N
         lib = lambda y: y.t().contiguous().t().contiguous()
         r.update(_card_fields(2 * 2 * nbytes, 0.0, cold_us(fn, make_nc, nbytes, device),
-                              cold_us(lib, make_nc, nbytes, device)))
+                              cold_us(lib, make_nc, nbytes, device), device))
         make_cn = lambda i: randn((C, N), 100 + i, device)
         for key, make in (("nc_to_cn", make_nc), ("cn_to_nc", make_cn)):
             e = dict(cold_us=cold_us(micro_cf.cf_transpose, make, nbytes, device),
@@ -252,12 +269,14 @@ def bench_transpose(tb, device):
                      library_us=cold_us(lambda y: y.t().contiguous(), make, nbytes, device))
             e["bound_us"], e["bound_by"] = bound_us(2 * nbytes)
             e["share_of_bound"] = e["bound_us"] / e["cold_us"]
+            e["copy_floor_us"] = copy_floor_us(2 * nbytes, device)
             each[key] = e
     print(_fmt(r, "transpose pair (N,C)<->(C,N):"), flush=True)
     for key, e in each.items():
         print(f"  one way {key}: cold {e['cold_us']:.2f} us, chained {e['chained_us']:.2f} us, "
               f"bound {e['bound_us']:.2f} us ({100 * e['share_of_bound']:.1f} %), "
-              f"x.t().contiguous() {e['library_us']:.2f} us", flush=True)
+              f"x.t().contiguous() {e['library_us']:.2f} us, "
+              f"copy of the same bytes {e['copy_floor_us']:.2f} us", flush=True)
     r["one_way"] = each
     return r
 

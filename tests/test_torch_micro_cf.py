@@ -8,8 +8,11 @@ inside it, is kept, and ``jax.random.normal`` returns this test's
 numpy-seeded arrays, so both sides see the same inputs.  The plain
 versions, which the wrappers run for CPU tensors, must match: the
 transposes and the roll sum bit for bit, the dots within one bf16 step.
+The kernels' plans and index arithmetic are held as plain models: the
+transpose's tile walk against ``x.t()``, the roll sum's per-chunk body
+against its plain version, bit for bit.
 Card (marker ``gpu``): each CUDA kernel against its plain version at the
-script's full size (N = 20,736).
+script's full size (N = 20,736) and at the plans' edges.
 """
 import functools
 import importlib.util
@@ -209,6 +212,135 @@ def test_dots_plan():
     assert micro_cf.dots_plan(3, 272) is None
 
 
+# ---------------------------------------------------------------------------
+# The kernels' plans and index arithmetic, as plain models
+
+SECOND_TABLE = (-16, -3, 2, 16)
+H100_SMS = 132
+
+
+def script_masks_model():
+    """The script body's keep-bits (``csrc/micro_cf.cu``: script_masks): for
+    each position p0 of a chunk's first lane, bit 8 k + j is set where lane
+    j, at position (p0 + j) mod 81, keeps tap k of the script's table."""
+    masks = np.zeros(81, np.uint64)
+    for p0 in range(81):
+        for k, s in enumerate(micro_cf.SHIFTS):
+            for j in range(8):
+                if 0 <= (p0 + j) % 81 + s < 81:
+                    masks[p0] |= np.uint64(1 << (8 * k + j))
+    return masks
+
+
+def roll_sum_chunk_model(x, L, shifts):
+    """The roll-sum kernel's per-chunk body (``csrc/micro_cf.cu``:
+    roll_sum_kernel) in numpy: chunk g of the flattened (C, N) array reads
+    chunks g - 2 .. g + 2 (zeros past the array), its first lane's position
+    is p0 = 8 (g mod L) mod L, and the taps are added in float32 in the
+    order of the shifts from 0.0 where kept: by the bits of p0's mask in
+    the script's body, else where lane j's position (p0 + j wrapping at L)
+    plus the shift stays in [0, L)."""
+    flat = x.float().numpy().reshape(-1)
+    g = np.arange(flat.size // 8)
+    padded = np.concatenate([np.zeros(16, np.float32), flat, np.zeros(16, np.float32)])
+    window = padded[8 * g[:, None] + np.arange(40)]          # lanes 8g - 16 .. 8g + 23
+    p0 = 8 * (g % L) % L
+    if micro_cf.roll_sum_body(L, shifts) == "script":
+        bits = script_masks_model()[p0]
+        keeps = [((bits[:, None] >> np.uint64(8 * k) >> np.arange(8, dtype=np.uint64))
+                  & np.uint64(1)).astype(bool) for k in range(8)]
+    else:
+        p = np.empty((g.size, 8), np.int64)
+        p[:, 0] = p0
+        for j in range(1, 8):
+            p[:, j] = np.where(p[:, j - 1] + 1 == L, 0, p[:, j - 1] + 1)
+        keeps = [p < L - s if s > 0 else p >= -s for s in shifts]
+    acc = np.zeros((g.size, 8), np.float32)
+    for s, keep in zip(shifts, keeps):
+        acc = np.where(keep, acc + window[:, 16 + s:24 + s], acc)
+    return torch.from_numpy(acc.reshape(x.shape)).to(torch.bfloat16)
+
+
+@pytest.mark.parametrize("shifts", [micro_cf.SHIFTS, SECOND_TABLE], ids=["script", "second"])
+@pytest.mark.parametrize("N", [648, 20736, 81 * 56])
+def test_roll_sum_chunk_model_is_the_plain_version_bit_for_bit(N, shifts):
+    x = to_bf16(bf16_array((C, N), 7))
+    ours = roll_sum_chunk_model(x, L, shifts)
+    ref = micro_cf.cf_masked_roll_sum_reference(x, L, shifts)
+    assert torch.equal(ours.view(torch.int16), ref.view(torch.int16))
+
+
+def test_script_masks_keep_every_tap_inside_a_sample():
+    """54 of the 81 positions keep all 64 terms (p0 in [10, 63]); the 7 whose
+    chunk crosses into the next sample (p0 >= 74) keep the right taps of the
+    lanes before the crossing only and the left taps after it."""
+    masks = script_masks_model()
+    full = [p0 for p0 in range(81) if masks[p0] == np.uint64(2 ** 64 - 1)]
+    assert full == list(range(10, 64))
+    for p0 in range(74, 81):
+        w = 81 - p0                                       # lanes j < w end the sample
+        for j in range(8):
+            byte = [int(masks[p0]) >> (8 * k + j) & 1 for k in range(8)]
+            assert byte[:3] == ([1, 1, 1] if j < w else [0, 0, 0])
+            assert byte[5:] == ([0, 0, 0] if j < w else [1, 1, 1])
+
+
+def transpose_walk(R, S, plan):
+    """(block, warp, row, column) of every tile the transpose kernel moves
+    (``csrc/micro_cf.cu``: transpose_kernel): warp w of block b takes tiles
+    t = w * blocks + b, t + warps * blocks, ..., tile t at x's rows from
+    32 (t // tiles_s) and columns from 32 (t % tiles_s)."""
+    tiles_s = -(-S // plan.tile)
+    tiles = micro_cf.transpose_tiles(R, S)
+    for b in range(plan.blocks):
+        for w in range(plan.warps):
+            for t in range(w * plan.blocks + b, tiles, plan.warps * plan.blocks):
+                yield b, w, plan.tile * (t // tiles_s), plan.tile * (t % tiles_s)
+
+
+@pytest.mark.parametrize("shape", [(20736, 64), (64, 20736), (8, 24), (200, 72)])
+def test_transpose_plan_covers_every_element_once(shape):
+    R, S = shape
+    plan = micro_cf.transpose_plan(R, S)
+    # a tile a warp
+    assert plan.blocks * plan.warps >= micro_cf.transpose_tiles(R, S) > (plan.blocks - 1) * plan.warps
+    x = np.arange(R * S, dtype=np.int64).reshape(R, S)
+    y = np.full((S, R), -1, np.int64)
+    count = np.zeros((S, R), np.int64)
+    for b, w, r0, c0 in transpose_walk(R, S, plan):
+        assert 0 <= b < plan.blocks and 0 <= w < plan.warps
+        t = plan.tile
+        # the chunks the lanes store: those inside y
+        y[c0:c0 + t, r0:r0 + t] = x[r0:r0 + t, c0:c0 + t].T
+        count[c0:c0 + t, r0:r0 + t] += 1
+    assert (count == 1).all()
+    np.testing.assert_array_equal(y, x.T)
+
+
+@pytest.mark.parametrize("shape", [(20736, 64), (64, 20736)])
+def test_transpose_plan_shares_the_script_tiles_evenly(shape):
+    """At the script's shapes all 648 blocks are resident at once (4 or 5
+    an SM, dealt round robin): no SM holds more than 1.1x the mean share of
+    the 1,296 tiles."""
+    plan = micro_cf.transpose_plan(*shape)
+    per_sm = np.zeros(H100_SMS, np.int64)
+    for b, _, _, _ in transpose_walk(*shape, plan):
+        per_sm[b % H100_SMS] += 1
+    assert plan == (32, 2, 648) and per_sm.sum() == 1296
+    assert plan.blocks <= 32 * H100_SMS          # 32 resident blocks an SM at most
+    assert per_sm.max() <= 1.1 * per_sm.mean()
+
+
+def test_roll_sum_plan_and_body():
+    assert micro_cf.roll_sum_plan(64, 20736) == (256, 648, 165888)
+    assert micro_cf.roll_sum_plan(3, 648) == (256, 1, 243)         # a partial block
+    assert micro_cf.roll_sum_body(81, micro_cf.SHIFTS) == "script"
+    assert micro_cf.roll_sum_body(81, list(micro_cf.SHIFTS)) == "script"
+    for L_, shifts in [(81, SECOND_TABLE), (80, micro_cf.SHIFTS), (81, micro_cf.SHIFTS[:-1]),
+                       (81, micro_cf.SHIFTS[::-1]), (3, micro_cf.SHIFTS)]:
+        assert micro_cf.roll_sum_body(L_, shifts) == "general"
+
+
 def test_knockout_variants_still_apply_to_the_sources():
     """``benchmark/knockouts.py`` edits the kernel sources by their text; each
     edit must still find its text, so that the tool keeps measuring what it
@@ -239,7 +371,11 @@ def card_randn(shape, seed, device):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("shape", [(20736, 64), (64, 20736), (8, 24), (200, 72)])
+# the script's two shapes, a single tile, a few; a ragged last tile either
+# way; 5,282 tiles (20 blocks an SM); 8 x 131 rows
+# of 40
+@pytest.mark.parametrize("shape", [(20736, 64), (64, 20736), (8, 24), (200, 72),
+                                   (20744, 64), (64, 20744), (84488, 64), (8 * 131, 40)])
 def test_transpose_kernel_is_exact(cuda_device, shape):
     x = card_randn(shape, 0, cuda_device)
     before = micro_cf.cf_transpose.launches
@@ -250,14 +386,57 @@ def test_transpose_kernel_is_exact(cuda_device, shape):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("N", [20736, 648, 81 * 56])
+@pytest.mark.parametrize("shape", [(200, 72), (20736, 64)])
+def test_transpose_kernel_plans(cuda_device, shape):
+    """The launcher takes the tile and warps it was built for and any number
+    of blocks: fewer blocks than tiles send each warp round its tiles."""
+    x = card_randn(shape, 9, cuda_device)
+    plan = micro_cf.transpose_plan(*shape)
+    for bad in (plan._replace(tile=64), plan._replace(warps=4), plan._replace(blocks=0)):
+        with pytest.raises(RuntimeError, match="invalid argument"):
+            micro_cf._launch_transpose(x, bad)
+    for blocks in (plan.blocks, 1, 3, plan.blocks // 2 + 1):
+        out = micro_cf._launch_transpose(x, plan._replace(blocks=blocks))
+        torch.cuda.synchronize()
+        assert torch.equal(out, micro_cf.cf_transpose_reference(x)), blocks
+
+
+@pytest.mark.gpu
+# the script's N; one row of 81 chunks; 81 x 56; 8 x 243
+@pytest.mark.parametrize("N", [20736, 648, 81 * 56, 8 * 243])
 def test_roll_sum_kernel_is_exact(cuda_device, N):
     x = card_randn((64, N), 1, cuda_device)
+    assert micro_cf.roll_sum_body(micro_cf.L_TOKENS, micro_cf.SHIFTS) == "script"
     before = micro_cf.cf_masked_roll_sum.launches
     out = micro_cf.cf_masked_roll_sum(x)
     torch.cuda.synchronize()
     assert micro_cf.cf_masked_roll_sum.launches == before + 1
-    assert torch.equal(out, micro_cf.cf_masked_roll_sum_reference(x))
+    assert torch.equal(out.view(torch.int16), micro_cf.cf_masked_roll_sum_reference(x).view(torch.int16))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("C_, N", [(3, 648), (5, 20736), (1, 648)])
+def test_roll_sum_kernel_partial_blocks(cuda_device, C_, N):
+    """Row counts whose chunks end inside a block of 648."""
+    x = card_randn((C_, N), 3, cuda_device)
+    for shifts in (micro_cf.SHIFTS, SECOND_TABLE):
+        out = micro_cf.cf_masked_roll_sum(x, micro_cf.L_TOKENS, shifts)
+        torch.cuda.synchronize()
+        ref = micro_cf.cf_masked_roll_sum_reference(x, micro_cf.L_TOKENS, shifts)
+        assert torch.equal(out.view(torch.int16), ref.view(torch.int16))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("L_, shifts, N", [(81, SECOND_TABLE, 20736), (81, SECOND_TABLE, 8 * 243),
+                                           (81, micro_cf.SHIFTS[::-1], 648), (3, SECOND_TABLE, 24),
+                                           (9, (0, 4, -4, 16), 72 * 5)])
+def test_roll_sum_general_body_is_exact(cuda_device, L_, shifts, N):
+    x = card_randn((64, N), 2, cuda_device)
+    assert micro_cf.roll_sum_body(L_, shifts) == "general"
+    out = micro_cf.cf_masked_roll_sum(x, L_, shifts)
+    torch.cuda.synchronize()
+    ref = micro_cf.cf_masked_roll_sum_reference(x, L_, shifts)
+    assert torch.equal(out.view(torch.int16), ref.view(torch.int16))
 
 
 @pytest.mark.gpu
