@@ -59,7 +59,30 @@ Phases, each printing one JSON line with its elapsed seconds:
               block's plain version (the kernel takes none of its shapes); one
               forward on the card runs and launches the resblock kernel 0 times
 11. cfg       guided sampling (w = 0.1) at batch 256 with N = 100
-12. train     the flagship run trains on the card: checkpoint_10.pth with its
+12. ode       the flagship samples 1024 trajectories at batch 1024 with the
+              probability-flow ODE (Dormand-Prince, rtol = atol = 1e-5, one
+              step size for the batch) through generate_raw_samples: NFE
+              (the model's forwards, counted by a hook) under 7 x 20,000,
+              5 attention-kernel launches per NFE and no resblock launch,
+              samples finite in the unit cube, and through the port's
+              inverse pipeline a max per-dimension KS under 0.11 against the
+              JAX package's ODE samples of the same checkpoint
+              (benchmark_results/flagship_ode_1024, physical units); NFE,
+              wall s, trajectories/s, the clip rate and the samples' sha256
+13. ode_resblock  the same with model.resblock_pallas on: 17 resblock-kernel
+              launches per NFE beside the attention kernel's 5
+14. oracle_native  the port's native CR3BP oracle (its own C++ copy, built
+              with g++ at first use) grades the 1024 in-tree round-2 physical
+              samples (8 basin hops, optimal mode): feasible 1012 +- 3 and
+              certified optimal 990 +- 3, the JAX package's counts; wall s,
+              the host's cores and s per sample (a host number, not a card one)
+15. run_benchmark  python -m rdm_tpu_torch.run_benchmark --benchmark_type both
+              --num_samples 1024 --batch_size 1024 --sampling_method ode
+              --oracle_backend native as a subprocess into a temporary
+              directory: both JSON and both summary.txt files, no NaN or inf,
+              and a feasible ratio of the port's own ODE samples of at least
+              0.965 (the JAX ODE record 0.982 less 3 binomial standard errors)
+16. train     the flagship run trains on the card: checkpoint_10.pth with its
               weights, EMA and Adam state, its training set resident on the
               card, batch 4096, bfloat16, the attention kernels forward and
               backward.  One step with the kernels against one through the
@@ -68,10 +91,10 @@ Phases, each printing one JSON line with its elapsed seconds:
               logged range; the EMA evaluation loss at batch 16384, also with
               the resblock kernel (17 launches); a checkpoint round trip; ms
               per step
-13. run_train python -m rdm_tpu_torch.run_train for four steps at batch 4096
+17. run_train python -m rdm_tpu_torch.run_train for four steps at batch 4096
               from a temporary directory: log lines, a checkpoint the port
               restores, snapshot samples (NHWC)
-14. kernel_micro_cf  the channels-first kernels of csrc/micro_cf.cu at the
+18. kernel_micro_cf  the channels-first kernels of csrc/micro_cf.cu at the
               TPU script's shapes (C 64, N 20,736 = 81 x 256, bfloat16), each
               against its plain version on the same seeded inputs: both
               transposes and the roll sum bit for bit, the dots at K 64 and
@@ -85,8 +108,9 @@ Phases, each printing one JSON line with its elapsed seconds:
               python -m rdm_tpu_torch.scripts.micro_cf once, in process, as
               its path, with its chained and cold times, bounds and library
               times, and the plain versions' cold times beside them
-15. kernels   one line {"kernels": [...]} with each kernel's launches on its
-              path (sampling for the forward kernels, training for the
+19. kernels   one line {"kernels": [...]} with each kernel's launches on its
+              path (sampling for the forward kernels, with the ODE path's
+              count beside the attention forward's; training for the
               backward, one entry-point call for the attention core, the
               micro_cf script for its three kernels: the wrappers' counts,
               and beside them the kernel runs of the script's CUDA-graph
@@ -111,6 +135,7 @@ import numpy as np
 import torch
 
 import rdm_tpu_torch
+from rdm_tpu_torch.benchmark import GTOHaloBenchmarker
 from rdm_tpu_torch.benchmark.common import (LoadedModel, generate_raw_samples,
                                             load_training_run)
 from rdm_tpu_torch.config import ConfigDict, load_config
@@ -121,6 +146,7 @@ from rdm_tpu_torch.ops import _build
 from rdm_tpu_torch.ops import attention as attn_ops
 from rdm_tpu_torch.ops import micro_cf
 from rdm_tpu_torch.ops import resblock as rb_ops
+from rdm_tpu_torch.physics.oracle import evaluate_warmstarts_native
 from rdm_tpu_torch.scripts import micro_cf as micro_cf_script
 from rdm_tpu_torch.sde import RVESDE, get_sde
 from rdm_tpu_torch.training import checkpoints
@@ -133,6 +159,17 @@ FLAGSHIP_RUN = os.path.join(ROOT, "Training Runs", "2026.08.17_184657")
 JAX_SAMPLES = os.path.join(ROOT, "benchmark_results", "round2_flagship_1024",
                            "ml_statistics", "generated_samples.npy")
 GOLDEN = os.path.join(ROOT, "tests", "golden", "ncsnpp_golden.npz")
+# the JAX package's ODE samples of the flagship (physical units, 1024 x 67)
+JAX_ODE_SAMPLES = os.path.join(ROOT, "benchmark_results", "flagship_ode_1024", "gto_halo",
+                               "generated_samples.npy")
+ROUND2_PHYSICAL = os.path.join(ROOT, "benchmark_results", "round2_flagship_1024", "gto_halo",
+                               "generated_samples.npy")
+# the JAX package's native grading of ROUND2_PHYSICAL (8 hops, optimal mode)
+ORACLE_FEASIBLE, ORACLE_OPTIMAL, ORACLE_SLACK = 1012, 990, 3
+ODE_MAX_NFE = 7 * 20_000
+# the JAX ODE record's feasible ratio, 0.982 (flagship_ode_1024), less three
+# binomial standard errors at n = 1024
+ODE_FEASIBLE_MIN = 0.965
 
 # H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, dense bf16 tensor-core
 # FLOP/s, float32 FLOP/s outside the tensor cores.
@@ -708,6 +745,116 @@ def flagship_sampling(run, model_overrides, t0) -> dict:
                 std_gap_per_dim=[round(float(v), 5) for v in std_gap])
 
 
+def ode_phase(model_overrides) -> dict:
+    """The flagship (the run's config with ``model_overrides``) samples 1024
+    trajectories with the probability-flow ODE through
+    ``generate_raw_samples``; a forward hook counts the model's evaluations
+    (NFE), and every kernel count is set to 0 just before."""
+    t0 = time.perf_counter()
+    lm = LoadedModel(FLAGSHIP_RUN, model_overrides=model_overrides)
+    load_s = time.perf_counter() - t0
+    lm.cfg.sampling.method = "ode"
+    forwards = []
+    hook = lm.model.register_forward_pre_hook(lambda module, inputs: forwards.append(1))
+    attn_ops.fused_attn_block.launches = 0
+    rb_ops.fused_resblock.launches = 0
+    samples, times = generate_raw_samples(lm, 1024, 1024, guidance_weight=0.0, seed=0)
+    launches = attn_ops.fused_attn_block.launches
+    rb_launches = rb_ops.fused_resblock.launches
+    hook.remove()
+    nfe = len(forwards)
+    check(0 < nfe < ODE_MAX_NFE and nfe % 7 == 0, f"ODE NFE {nfe}")
+    check(launches == ATTN_BLOCKS_PER_FORWARD * nfe,
+          f"ODE sampling launched the attention kernel {launches} times for NFE {nfe}")
+    rb_per_forward = RESBLOCKS_PER_FORWARD if model_overrides.get("resblock_pallas") else 0
+    check(rb_launches == rb_per_forward * nfe,
+          f"ODE sampling launched the resblock kernel {rb_launches} times for NFE {nfe}")
+    check(samples.shape == (1024, 67) and bool(np.isfinite(samples).all()),
+          "ODE samples are not finite (1024, 67)")
+    check(float(samples.min()) >= 0.0 and float(samples.max()) <= 1.0,
+          "ODE samples leave the unit cube")
+    bench = GTOHaloBenchmarker.__new__(GTOHaloBenchmarker)
+    bench.lm = lm
+    bench.total_spherical_clips = bench.total_spherical_elements = 0
+    physical = bench._inverse_pipeline(samples)
+    ref = np.load(JAX_ODE_SAMPLES)
+    check(ref.shape == (1024, 67), f"JAX ODE samples {ref.shape}")
+    ks = np.array([ks_statistic(physical[:, d], ref[:, d]) for d in range(67)])
+    check(float(ks.max()) < KS_LIMIT, f"ODE max per-dimension KS {ks.max()} >= {KS_LIMIT}")
+    return dict(overrides=model_overrides, nfe=nfe, jax_nfe_at_batch_256=658, launches=launches,
+                resblock_launches=rb_launches, wall_s=sum(times), load_s=load_s,
+                trajectories_per_second=samples.shape[0] / sum(times),
+                ms_per_nfe=sum(times) / nfe * 1e3,
+                clip_rate=bench.total_spherical_clips / bench.total_spherical_elements,
+                clips=bench.total_spherical_clips,
+                samples_sha256=hashlib.sha256(samples.tobytes()).hexdigest(),
+                ks_max=float(ks.max()), ks_argmax=int(ks.argmax()), ks_mean=float(ks.mean()),
+                ks_limit=KS_LIMIT, ks_per_dim=[round(float(v), 5) for v in ks])
+
+
+def oracle_native_phase() -> dict:
+    """The port's native oracle grades the in-tree round-2 physical samples
+    as the JAX package's did (8 basin hops, optimal mode)."""
+    from rdm_tpu_torch import native
+
+    t0 = time.perf_counter()
+    check(native.available(), f"native oracle: {native.build_error()}")
+    build_s = time.perf_counter() - t0
+    physical = np.load(ROUND2_PHYSICAL)
+    t0 = time.perf_counter()
+    res = evaluate_warmstarts_native(physical[:, 1:], physical[:, 0], mbh_rounds=8,
+                                     solver_mode="optimal")
+    wall = time.perf_counter() - t0
+    feasible, optimal = int(res["feasible"].sum()), int(res["optimal"].sum())
+    check(abs(feasible - ORACLE_FEASIBLE) <= ORACLE_SLACK,
+          f"native oracle: {feasible} feasible, the JAX package's {ORACLE_FEASIBLE}")
+    check(abs(optimal - ORACLE_OPTIMAL) <= ORACLE_SLACK,
+          f"native oracle: {optimal} optimal, the JAX package's {ORACLE_OPTIMAL}")
+    return dict(n=len(physical), feasible=feasible, optimal=optimal,
+                feasible_ratio=feasible / len(physical), optimal_ratio=optimal / len(physical),
+                jax_feasible=ORACLE_FEASIBLE, jax_optimal=ORACLE_OPTIMAL,
+                mean_final_mass_feasible=float(res["final_mass"][res["feasible"]].mean()),
+                wall_s=wall, s_per_sample=wall / len(physical), host_cores=os.cpu_count(),
+                build_s=build_s, library=native.library_path())
+
+
+def run_benchmark_phase() -> dict:
+    """``python -m rdm_tpu_torch.run_benchmark`` on the flagship with the ODE
+    sampler and the native oracle, into a temporary directory."""
+    with tempfile.TemporaryDirectory() as out:
+        env = dict(os.environ, PYTHONPATH=ROOT)
+        cmd = [sys.executable, "-m", "rdm_tpu_torch.run_benchmark",
+               "--model_path", os.path.relpath(FLAGSHIP_RUN, ROOT), "--benchmark_type", "both",
+               "--num_samples", "1024", "--batch_size", "1024", "--sampling_method", "ode",
+               "--oracle_backend", "native", "--output_dir", out]
+        proc = subprocess.run(cmd, cwd=ROOT, env=env, capture_output=True, text=True,
+                              timeout=900)
+        check(proc.returncode == 0, f"run_benchmark failed:\n{proc.stderr[-3000:]}")
+        for sub, name in (("ml_statistics", "ml_statistics_results.json"),
+                          ("ml_statistics", "summary.txt"), ("gto_halo", "gto_halo_results.json"),
+                          ("gto_halo", "summary.txt")):
+            check(os.path.exists(os.path.join(out, sub, name)), f"run_benchmark wrote no {sub}/{name}")
+        with open(os.path.join(out, "ml_statistics", "ml_statistics_results.json")) as f:
+            ml = json.load(f)
+        with open(os.path.join(out, "gto_halo", "gto_halo_results.json")) as f:
+            gto = json.load(f)
+    metrics, pv = gto["gto_halo_metrics"], gto["physical_validation"]
+    check("standard_metrics" in ml, "run_benchmark computed no ML statistics")
+    check(not metrics["has_nan"] and not metrics["has_inf"], "run_benchmark samples have NaN/inf")
+    check(pv["oracle_backend"] == "native" and pv["total_tested"] == 1024,
+          f"run_benchmark graded {pv['total_tested']} samples with {pv['oracle_backend']}")
+    check(pv["feasible_ratio"] >= ODE_FEASIBLE_MIN,
+          f"feasible ratio {pv['feasible_ratio']} < {ODE_FEASIBLE_MIN}")
+    return dict(ml_standard_metrics=ml["standard_metrics"],
+                feasible_ratio=pv["feasible_ratio"], feasible_min=ODE_FEASIBLE_MIN,
+                local_optimal_ratio=pv["local_optimal_ratio"],
+                avg_final_mass_feasible=pv["avg_final_mass_feasible"],
+                ml_sampling_s=ml["sampling_efficiency"]["total_sampling_time"],
+                gto_sampling_s=gto["sampling_efficiency"]["total_sampling_time"],
+                oracle_s=pv["oracle_wall_time_with_compile_s"], host_cores=os.cpu_count(),
+                gto_halo_metrics=metrics)
+
+
 def with_precision(cfg, precision):
     plain = cfg.to_plain()
     plain["model"]["precision"] = precision
@@ -1068,6 +1215,21 @@ def main() -> int:
           "guided samples leave the unit cube")
     emit("cfg", t0, n=int(cfg_samples.shape[0]), steps=100, w=0.1,
          forward_batch=512, launches=cfg_launches, batch_seconds=cfg_times)
+    del lm
+
+    t0 = time.perf_counter()
+    ode = ode_phase({})
+    emit("ode", t0, **ode)
+
+    t0 = time.perf_counter()
+    ode_rb = ode_phase({"resblock_pallas": True})
+    emit("ode_resblock", t0, **ode_rb)
+
+    t0 = time.perf_counter()
+    emit("oracle_native", t0, **oracle_native_phase())
+
+    t0 = time.perf_counter()
+    emit("run_benchmark", t0, **run_benchmark_phase())
 
     t0 = time.perf_counter()
     train = train_phase(device)
@@ -1101,6 +1263,10 @@ def main() -> int:
         "source": "rdm_tpu_torch/csrc/fused_attn_block.cu",
         "replaces": "rdm_tpu/ops/pallas/attention.py:42::_fused_block_kernel",
         "launches": launches,
+        "launches_ode": ode["launches"],
+        "launches_note": "launches: one 1000-step PC sampling call at batch 1024 (5 a "
+                         "forward); launches_ode: one ODE sampling call at batch 1024 "
+                         f"(NFE {ode['nfe']}, 5 a forward)",
         "max_abs_err": main_case["max_abs_err"],
         "ms": main_case["ms"],
         "plain_ms": main_case["plain_ms"],
@@ -1158,6 +1324,11 @@ def main() -> int:
         "source": "rdm_tpu_torch/csrc/fused_resblock.cu",
         "replaces": "rdm_tpu/ops/pallas/resblock.py:51::_kernel",
         "launches": flag_rb["resblock_launches"],
+        "launches_ode": ode_rb["resblock_launches"],
+        "launches_note": "launches: one 1000-step PC sampling call at batch 1024 with "
+                         "model.resblock_pallas (17 a forward); launches_ode: one ODE "
+                         f"sampling call at batch 1024 with it (NFE {ode_rb['nfe']}, 17 a "
+                         "forward); 0 on the default paths",
         "max_abs_err": max(c["max_abs_err"] for c in rb_cases),
         "ms": per_launch(rb_cases, "ms"),
         "plain_ms": per_launch(rb_cases, "plain_ms"),

@@ -9,7 +9,10 @@ requested (or latest) checkpoint with its EMA weights and writes
 (uint8, NHWC) plus a PNG grid when matplotlib is installed.  It runs on the
 card; ``+device=cpu`` runs it on the CPU.  ``model.<key>=<value>`` replaces
 a key of the run's model config: ``model.resblock_pallas=true`` samples
-with the fused resblock kernel.
+with the fused resblock kernel.  ``sampling.method=ode`` samples with the
+probability-flow ODE; ``sampling.denoiser=network
+denoiser_path="Training Runs/<run>"`` ends sampling with that run's EMA
+model (``checkpoints/checkpoint.pth``) as the trained denoiser.
 """
 from __future__ import annotations
 
@@ -65,8 +68,13 @@ def main(argv=None, out_root: str = "vis") -> str:
                      model_overrides=cfg.get("model"))
     load_cfg = lm.cfg
     load_cfg.sampling = cfg.sampling  # the vis config's sampling instructions
-    if cfg.sampling.denoiser == "network":
-        raise NotImplementedError("trained denoisers are not ported yet")
+    # the trained denoiser: a run's EMA model called on (x, t)
+    denoiser_fn = None
+    if cfg.sampling.denoiser == "network" and cfg.get("denoiser_path"):
+        dn = LoadedModel(cfg.denoiser_path, device=lm.device,
+                         checkpoint_file=os.path.join(cfg.denoiser_path, "checkpoints",
+                                                      "checkpoint.pth"))
+        denoiser_fn = dn.model
 
     now = datetime.now()
     log_dir = os.path.join(out_root, now.strftime("%Y.%m.%d"), now.strftime("%H%M%S"))
@@ -85,7 +93,7 @@ def main(argv=None, out_root: str = "vis") -> str:
     generator = torch.Generator(device=lm.device).manual_seed(0)
     for r in range(cfg.eval.rounds):
         print(f"Round {r}")
-        x, _ = sampling_fn(score_fn, generator)
+        x, _ = sampling_fn(score_fn, generator, denoiser_fn=denoiser_fn)
         samples = x.float().permute(0, 2, 3, 1).cpu().numpy()    # NHWC
         samples_u8 = np.round(np.clip(samples, 0, 1) * 255).astype(np.uint8)
         save_grid(samples, os.path.join(img_dir, f"samples_{r}.png"))

@@ -37,12 +37,18 @@ def get_denoiser(name):
 
 
 from . import pc as _pc  # noqa: E402,F401  (registers the PC components)
+from .ode import get_ode_sampler  # noqa: E402,F401
 from .pc import get_pc_sampler  # noqa: E402,F401
 
 
 def get_sampling_fn(config, sde, shape, eps):
     """The sampler named by ``config.sampling.method``."""
     method = config.sampling.method.lower()
+    if method == "ode":
+        return get_ode_sampler(
+            sde=sde, shape=shape, eps=eps,
+            moll=config.sampling.get("moll", 200),
+            side_eps=config.sampling.get("side_eps", 1e-2))
     if method == "pc":
         return get_pc_sampler(
             sde=sde, shape=shape,
@@ -52,6 +58,4 @@ def get_sampling_fn(config, sde, shape, eps):
             snr=config.sampling.snr,
             n_steps=config.sampling.n_steps_each,
             eps=eps)
-    if method == "ode":
-        raise NotImplementedError("the probability-flow ODE sampler is not ported yet")
     raise ValueError(f"Sampler name {config.sampling.method} unknown.")

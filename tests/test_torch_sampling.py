@@ -116,7 +116,11 @@ def test_get_sampling_fn_dispatch():
                                         "snr": 0.01, "n_steps_each": 1}})
     assert callable(get_sampling_fn(cfg, RVESDE(0.01, 5.0, 10), (2, 1, 9, 9), 1e-5))
     cfg.sampling.method = "ode"
-    with pytest.raises(NotImplementedError):
+    sampler = get_sampling_fn(cfg, RVESDE(0.01, 5.0, 10), (2, 1, 9, 9), 1e-5)
+    x, nfe = sampler(lambda x, t: torch.zeros_like(x), torch.Generator().manual_seed(0))
+    assert x.shape == (2, 1, 9, 9) and nfe % 7 == 0
+    cfg.sampling.method = "sde"
+    with pytest.raises(ValueError):
         get_sampling_fn(cfg, RVESDE(0.01, 5.0, 10), (2, 1, 9, 9), 1e-5)
 
 
