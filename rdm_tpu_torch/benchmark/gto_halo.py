@@ -6,11 +6,14 @@ Pipeline: EMA sampling -> (N, 81) -> (N, 67) -> inverse data pipeline
 spherical controls with clip counts) -> component statistics -> physical
 validation through the CR3BP oracle -> JSON + summary.txt + plots.
 
-The port grades with the ``native`` oracle: one batched C++ solve whose
-threads fan out over the host's cores (``max_workers``).  The other
-backends raise ``NotImplementedError`` (``physics.oracle``); an unset
-backend follows the JAX package's rule, under which a card picks
-``hybrid``, so on the card the caller passes ``--oracle_backend native``.
+Every backend of ``physics.oracle`` grades: ``hybrid`` (the batched float32
+solve on the card + a native f64 polish of the near misses), ``tpu`` (the
+batched solve on the card in ``oracle_precision``: ``df32`` is float64 on
+the card, ``f32`` float32), ``native`` (one batched C++ solve whose threads
+fan out over the host's cores, ``max_workers``), the defect check
+(``oracle.DEFECT_CHECK_BACKEND``) and ``pydylan`` (the reference's package, where it imports).  An unset
+backend follows the JAX package's rule: ``hybrid`` on a machine with a
+card.
 """
 from __future__ import annotations
 
@@ -60,7 +63,9 @@ class GTOHaloBenchmarkConfig:
     oracle_max_iters: int = 30
     # monotonic basin hops of still-infeasible lanes
     oracle_mbh_rounds: int = 8
-    # solver arithmetic of the tpu and hybrid backends (not ported)
+    # solver arithmetic of the tpu backend: "df32" runs float64 on the card
+    # (the JAX package's double-float32 words), "f32" float32; the hybrid
+    # backend always solves in float32
     oracle_precision: str = "df32"
     # the SDE's discretisation steps for sampling (None: the run's own N)
     num_steps: Optional[int] = None
@@ -77,8 +82,6 @@ class GTOHaloBenchmarker:
             self.lm.cfg.sampling.method = config.sampling_method
         self.total_spherical_clips = 0
         self.total_spherical_elements = 0
-        if config.enable_physical_validation:
-            self.oracle_backend()           # an unported backend raises before sampling
 
     # ------------------------------------------------------------------ #
     def generate_samples(self):
@@ -167,14 +170,9 @@ class GTOHaloBenchmarker:
     # ------------------------------------------------------------------ #
     def oracle_backend(self) -> str:
         """The configured backend, or the automatic rule's choice with "an
-        accelerator is present" read as ``torch.cuda.is_available()``;
-        raises ``NotImplementedError`` for a backend the port does not run
-        (on the card the rule picks ``hybrid``)."""
-        backend = self.config.oracle_backend or oracle_lib.auto_backend(
-            torch.cuda.is_available())
-        if backend != "native":
-            raise oracle_lib.unported_backend(backend)
-        return backend
+        accelerator is present" read as ``torch.cuda.is_available()`` (on
+        the card the rule picks ``hybrid``)."""
+        return self.config.oracle_backend or oracle_lib.auto_backend(torch.cuda.is_available())
 
     def compute_physical_validation_metrics(self, samples: np.ndarray) -> Dict[str, Any]:
         cfgb = self.config
@@ -189,17 +187,90 @@ class GTOHaloBenchmarker:
             }
         backend = self.oracle_backend()
         print(f"Computing physical validation via the {backend} oracle...")
-        # ONE batched LM solve of the whole batch; the C++ library fans it
-        # out over a std::thread pool.
+        n = max(len(samples), 1)
+
+        # Steady timing of the batched backends: their first call also
+        # builds the kernels, so ``avg_solving_time`` is taken from a second
+        # identical call up to this batch size (doubling the oracle work);
+        # beyond it the first call's time is reported and flagged.
+        _RERUN_CAP = 2048
+
+        def _steady_time(solve_again):
+            if len(samples) > _RERUN_CAP:
+                return None
+            t1 = time.time()
+            solve_again()
+            return (time.time() - t1) / n
+
         t0 = time.time()
-        res = oracle_lib.evaluate_warmstarts_native(
-            samples[:, 1:].astype(np.float64),
-            samples[:, 0].astype(np.float64),
-            max_iters=cfgb.oracle_max_iters,
-            solver_mode=cfgb.solver_mode,
-            mbh_rounds=cfgb.oracle_mbh_rounds,
-            n_threads=cfgb.max_workers or 0)
-        per_sample_time = (time.time() - t0) / max(len(samples), 1)
+        if backend == "pydylan":
+            return self._pydylan_metrics(samples, t0)
+        if backend == oracle_lib.DEFECT_CHECK_BACKEND:
+            # one batched evaluation of the whole batch, no solve
+            res = oracle_lib.evaluate_warmstarts(
+                samples[:, 1:].astype(np.float32), samples[:, 0].astype(np.float32),
+                device=cfgb.device)
+            per_sample_time = (time.time() - t0) / n
+            results = [{
+                "results.control": samples[i, 1:],
+                "feasibility": bool(res["feasible"][i]),
+                "snopt_inform": int(res["inform"][i]),
+                "thrust": 1.0,
+                "solving_time": per_sample_time,
+                "cost_alpha": float(samples[i, 0]),
+            } for i in range(len(samples))]
+            metrics = self.compute_cr3bp_statistics(results)
+            metrics.update({
+                "oracle_backend": backend,
+                "oracle_note": ("dynamical-consistency feasibility check "
+                                "(pydylan/SNOPT unavailable); ratios are "
+                                "not 1:1 comparable with SNOPT results"),
+                "mean_terminal_pos_error": float(np.mean(res["pos_err"])),
+                "mean_terminal_vel_error": float(np.mean(res["vel_err"]))})
+            return metrics
+
+        solver_note = ("Levenberg-Marquardt local solve of the manifold-insertion NLP for each "
+                       "warm start (pydylan/SNOPT unavailable); feasible = the local solver "
+                       "converged from the sample")
+        if backend == "native":
+            # ONE batched LM solve; the C++ library fans it out over a
+            # std::thread pool
+            res = oracle_lib.evaluate_warmstarts_native(
+                samples[:, 1:].astype(np.float64), samples[:, 0].astype(np.float64),
+                max_iters=cfgb.oracle_max_iters, solver_mode=cfgb.solver_mode,
+                mbh_rounds=cfgb.oracle_mbh_rounds, n_threads=cfgb.max_workers or 0)
+            per_sample_time = (time.time() - t0) / n
+            note, precision = "C++ " + solver_note, "f64"
+        elif backend == "hybrid":
+            def _solve():
+                return oracle_lib.evaluate_warmstarts_hybrid(
+                    samples[:, 1:].astype(np.float64), samples[:, 0].astype(np.float64),
+                    max_iters=cfgb.oracle_max_iters, solver_mode=cfgb.solver_mode,
+                    mbh_rounds=cfgb.oracle_mbh_rounds, n_threads=cfgb.max_workers or 0,
+                    device=cfgb.device)
+
+            res = _solve()
+            per_sample_time = _steady_time(_solve) or (time.time() - t0) / n
+            note = ("card-batched f32 " + solver_note
+                    + "; native f64 polish of near-tolerance lanes")
+            precision = "f32"
+        elif backend == "tpu":
+            from ..physics.solver_gpu import refine_warmstarts_gpu
+
+            def _solve():
+                return refine_warmstarts_gpu(
+                    samples[:, 1:].astype(np.float32), samples[:, 0].astype(np.float32),
+                    max_iters=cfgb.oracle_max_iters, solver_mode=cfgb.solver_mode,
+                    mbh_rounds=cfgb.oracle_mbh_rounds, precision=cfgb.oracle_precision,
+                    device=cfgb.device)
+
+            res = _solve()
+            per_sample_time = _steady_time(_solve) or (time.time() - t0) / n
+            # the arithmetic actually used: df32 runs float64 on the card
+            precision = "f32" if cfgb.oracle_precision == "f32" else "f64"
+            note = f"card-batched {precision} " + solver_note
+        else:
+            raise ValueError(f"unknown oracle backend {backend!r}")
         results = [{
             "results.control": res["refined"][i],
             "feasibility": bool(res["feasible"][i]),
@@ -215,19 +286,72 @@ class GTOHaloBenchmarker:
         metrics = self.compute_cr3bp_statistics(results)
         metrics.update({
             "oracle_backend": backend,
-            "oracle_note": ("C++ Levenberg-Marquardt local solve of the "
-                            "manifold-insertion NLP for each warm start "
-                            "(pydylan/SNOPT unavailable); feasible = the local "
-                            "solver converged from the sample"),
+            "oracle_note": note,
             "oracle_solver_mode": cfgb.solver_mode,
             "oracle_mbh_rounds": cfgb.oracle_mbh_rounds,
-            "oracle_grading_precision": "f64",
+            "oracle_grading_precision": precision,
             "oracle_wall_time_with_compile_s": time.time() - t0,
-            "avg_solving_time_includes_compile": False,
+            "avg_solving_time_includes_compile": backend in ("tpu", "hybrid")
+                                                 and len(samples) > _RERUN_CAP,
             "mean_refine_iters": float(np.mean(res["iters"])),
             "mean_terminal_pos_error": float(np.mean(res["pos_err"])),
             "mean_terminal_vel_error": float(np.mean(res["vel_err"])),
         })
+        return metrics
+
+    def _pydylan_metrics(self, samples: np.ndarray, t0: float) -> Dict[str, Any]:
+        """One pydylan/SNOPT solve per sample on a thread pool, with the
+        reference benchmark's progress lines and a 10 s status line."""
+        import threading
+        from concurrent.futures import ThreadPoolExecutor
+
+        cfgb = self.config
+        sim_kwargs = dict(
+            seed=0, seed_step=len(samples), quiet_snopt=True,
+            number_of_segments=20, maximum_shooting_time=40.0,
+            minimum_shooting_time=0.0, start_bdry=6.48423370092, end_bdry=8.0,
+            thrust=1.0, solver_mode=cfgb.solver_mode, min_mass_to_sample=408,
+            max_mass_to_sample=470, snopt_time_limit=1000.0,
+            result_folder=os.path.join(cfgb.output_dir, "cr3bp_results"),
+            backend="pydylan")
+        workers = cfgb.max_workers or os.cpu_count()
+        done_count = {"n": 0}
+        lock = threading.Lock()
+        stop = threading.Event()
+
+        def heartbeat():
+            while not stop.wait(10.0):
+                with lock:
+                    k = done_count["n"]
+                print(f"TELEMETRY: {k}/{len(samples)} solves complete "
+                      f"({time.time() - t0:.0f}s elapsed, {workers} workers)")
+
+        def solve(i):
+            s = oracle_lib.CR3BPEarthMissionWarmstartSimulatorBoundary(**sim_kwargs)
+            try:
+                r = s.simulate(earth_initial_guess=samples[i, 1:],
+                               halo_energy=float(samples[i, 0]))
+            except Exception as e:  # the reference records a failed solve
+                r = {"results.control": None, "feasibility": False,
+                     "snopt_inform": None, "thrust": 1.0,
+                     "solving_time": 0.0, "cost_alpha": float(samples[i, 0]),
+                     "error": str(e)}
+            with lock:
+                done_count["n"] += 1
+                k = done_count["n"]
+            print(f"TELEMETRY: sample {i + 1} done ({k}/{len(samples)}, "
+                  f"feasible={r['feasibility']})")
+            return r
+
+        ticker = threading.Thread(target=heartbeat, daemon=True)
+        ticker.start()
+        try:
+            with ThreadPoolExecutor(max_workers=workers) as ex:
+                results = list(ex.map(solve, range(len(samples))))
+        finally:
+            stop.set()
+        metrics = self.compute_cr3bp_statistics(results)
+        metrics["oracle_backend"] = "pydylan"
         return metrics
 
     def compute_cr3bp_statistics(self, results: List[Dict]) -> Dict[str, Any]:

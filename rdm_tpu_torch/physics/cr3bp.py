@@ -5,11 +5,17 @@ needs.
 * classical-orbital-elements -> state conversion (``coe2rv``) and the GTO
   departure state (a = 24510 km, e = 0.7234..., i = 15 deg, apoapsis);
 * the x-coordinate of L1 and the CR3BP energy (torch);
+* the rotating-frame equations of motion with low-thrust acceleration and
+  mass flow (``eom``), one fixed-step RK4 step (``_rk4_step``), a
+  constant-control arc (``propagate``) and a flat RK4 scan over per-step
+  controls (``leg``): plain torch, batched over leading dimensions, in the
+  device and dtype of the tensors they are given (the JAX package's
+  ``physics/cr3bp.py:96-160`` and ``solver_tpu._leg``);
 * the tangential-thrust spiral from the GTO state to the shooting phase's
   start boundary, on the host.
 
-The batched propagator of the shooting arcs belongs to the GPU solver and
-is not here.
+The shooting kernels of ``ops/cr3bp.py`` run the same RK4 on the card;
+these functions are their plain versions' building blocks.
 """
 from __future__ import annotations
 
@@ -79,6 +85,81 @@ def jacobi_energy(state, mu=CR3BP_MU):
     libration point, increasing outward), in the state's dtype."""
     v2 = torch.sum(state[..., 3:6]**2, dim=-1)
     return 0.5 * v2 - _omega(state[..., :3], mu)
+
+
+def _accel_c(x, y, z, vx, vy, mu=CR3BP_MU):
+    """Gravity plus the rotating frame's terms, one component each: tensors
+    or the dual numbers of ``dual.py`` (the shooting kernels' plain
+    versions run both through these expressions)."""
+    r1 = ((x + mu)**2 + y**2 + z**2).sqrt()
+    r2 = ((x - 1 + mu)**2 + y**2 + z**2).sqrt()
+    r13, r23 = r1**3, r2**3
+    ax = (x - (1 - mu) * (x + mu) / r13 - mu * (x - 1 + mu) / r23 + 2 * vy)
+    ay = (y - (1 - mu) * y / r13 - mu * y / r23 - 2 * vx)
+    az = (-(1 - mu) * z / r13 - mu * z / r23)
+    return ax, ay, az
+
+
+def _accel(state, mu=CR3BP_MU):
+    """Gravity plus the rotating frame's terms on [..., 6] states."""
+    return torch.stack(_accel_c(*state[..., :5].unbind(-1), mu=mu), dim=-1)
+
+
+def eom_c(s, u, thr, thrust_n, isp_s=1000.0, mu=CR3BP_MU):
+    """``eom`` on a 7-tuple of components with direction ``u`` (a 3-tuple)
+    and throttle ``thr``."""
+    x, y, z, vx, vy, vz, m = s
+    ax, ay, az = _accel_c(x, y, z, vx, vy, mu)
+    # thrust acc: (T[N] / m[kg]) m/s^2 -> nondimensional via DU/TU^2
+    a_mag = thr * thrust_n / m.clamp(min=1e-6) * (TU_S**2 / (DU_KM * 1000.0))
+    # mdot[kg/s] = -throttle T / (Isp g0);  g0 in km/s^2 so Isp*g0*1000 = m/s
+    mdot = -thr * thrust_n / (isp_s * G0 * 1000.0) * TU_S  # kg per TU
+    return (vx, vy, vz, ax + a_mag * u[0], ay + a_mag * u[1], az + a_mag * u[2], mdot)
+
+
+def eom(aug_state, u_dir, throttle, thrust_n, isp_s=1000.0, mu=CR3BP_MU):
+    """d/dt of [x y z vx vy vz m]: CR3BP + low thrust.
+
+    thrust_n: engine thrust in newtons; mass in kg; ``u_dir`` [..., 3] a
+    unit vector in the rotating frame; ``throttle`` [...] in [0, 1]."""
+    throttle = torch.as_tensor(throttle, dtype=aug_state.dtype, device=aug_state.device)
+    ds = eom_c(aug_state.unbind(-1), u_dir.unbind(-1), throttle, thrust_n, isp_s, mu)
+    return torch.stack(torch.broadcast_tensors(*ds), dim=-1)
+
+
+def _rk4_step(s, u_dir, throttle, thrust_n, dt, mu=CR3BP_MU):
+    """One RK4 step; ``dt`` broadcasts against ``s`` ([..., 1] per sample)."""
+    def f(x):
+        return eom(x, u_dir, throttle, thrust_n, mu=mu)
+
+    k1 = f(s)
+    k2 = f(s + 0.5 * dt * k1)
+    k3 = f(s + 0.5 * dt * k2)
+    k4 = f(s + dt * k3)
+    return s + (dt / 6.0) * (k1 + 2 * k2 + 2 * k3 + k4)
+
+
+def propagate(aug_state, u_dir, throttle, thrust_n, tof, n_steps: int = 64, mu=CR3BP_MU):
+    """Propagate ``tof`` time units with a constant thrust direction, batched
+    over the leading dimensions of ``aug_state``; ``tof`` may be a float or
+    a tensor of those dimensions."""
+    dt = torch.as_tensor(tof, dtype=aug_state.dtype, device=aug_state.device) / n_steps
+    dt = dt[..., None] if dt.dim() else dt
+    s = aug_state
+    for _ in range(n_steps):
+        s = _rk4_step(s, u_dir, throttle, thrust_n, dt, mu)
+    return s
+
+
+def leg(s0, u_seq, thr_seq, dt_seq, thrust_n):
+    """A shooting leg as one flat RK4 scan over per-step sequences:
+    ``u_seq`` [..., n, 3], ``thr_seq`` and ``dt_seq`` [..., n], from
+    ``s0`` [..., 7]."""
+    s = s0
+    for i in range(dt_seq.shape[-1]):
+        s = _rk4_step(s, u_seq[..., i, :], thr_seq[..., i], thrust_n,
+                      dt_seq[..., i, None], CR3BP_MU)
+    return s
 
 
 # The default mission's spiral endpoint, pinned to a fixed constant: the

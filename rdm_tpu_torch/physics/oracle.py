@@ -3,20 +3,30 @@
 ``CR3BPEarthMissionWarmstartSimulatorBoundary(...).simulate(initial_guess,
 halo_energy)`` returns ``{results.control, feasibility,
 snopt_control_evaluations, snopt_inform, thrust, solving_time,
-cost_alpha, ...}`` for one warm start; ``evaluate_warmstarts_native``
-grades a batch.  Both solve the manifold-insertion NLP: forward-backward
+cost_alpha, ...}`` for one warm start; the batch functions grade many.  All
+backends solve or check the manifold-insertion NLP: forward-backward
 shooting from the GTO-spiral boundary onto the StableLeft stable-manifold
 arc of the L1 halo at E_L1 + halo_energy, parametrised by the sample's
 halo-period and manifold-length variables, with the terminal mass bound to
 the sample's mass variable.
 
-The port runs the ``native`` backend: the package's own C++ oracle
-(``rdm_tpu_torch/native``), an f64 Levenberg-Marquardt local solve and a
-projected mass ascent on a std::thread pool, under monotonic basin hopping.
-The ``tpu`` and ``hybrid`` backends and the defect check (the last name of
-``BACKENDS``) run the batched solver, which comes with the GPU solver
-(ROADMAP Queue A item 4); ``pydylan`` needs the reference's own package.
-Until then each of them raises ``NotImplementedError``.
+* **pydylan**: the reference's C++ astrodynamics and SNOPT, wired as the
+  JAX package wires them; it runs only where ``pydylan`` imports.
+* **native**: the package's own C++ oracle (``rdm_tpu_torch/native``), an
+  f64 Levenberg-Marquardt local solve and a projected mass ascent on a
+  std::thread pool.
+* **tpu**: the same local solve batched on the card
+  (``physics/solver_gpu.refine_warmstarts_gpu``; the name is the JAX
+  package's).
+* **hybrid**: the batched float32 solve, then an f64 native polish of the
+  lanes that ended just above the tolerance (``evaluate_warmstarts_hybrid``).
+* the defect check (``DEFECT_CHECK_BACKEND``, the name the JAX package
+  gives it): the forward-backward midpoint defect of the guess as it is (no
+  refinement), graded in tiers (``evaluate_warmstarts``): a
+  dynamical-consistency check, not 1:1 comparable with solver numbers.
+
+The batched backends run on the card unless the caller names the CPU
+(``device``), where the kernels' plain versions run.
 
 ``snopt_inform``: 1 = feasible and the mass-ascent ratchet converged (its
 step collapsed below ``_OPT_GAIN_TOL``: a constrained local optimum of the
@@ -39,10 +49,14 @@ except ImportError:
     PYDYLAN_AVAILABLE = False
 
 BACKENDS = ("pydylan", "hybrid", "tpu", "native", "jax")
+DEFECT_CHECK_BACKEND = "jax"
 
 # Feasibility = local-solver convergence below this residual norm
 # (position/velocity in nondimensional CR3BP units, mass at 100 kg per unit).
 _FEAS_TOL = 1e-3
+# Tiers of the defect check (no refinement) on the raw midpoint defect.
+_DEFECT_TOL_TIGHT = 0.05
+_DEFECT_TOL_LOOSE = 0.15
 # kg: the mass-ascent ratchet's last step below this certifies inform 1.
 _OPT_GAIN_TOL = 0.25
 
@@ -51,16 +65,6 @@ def native_available() -> bool:
     """True when the package's C++ oracle builds and loads."""
     from .. import native
     return native.available()
-
-
-def unported_backend(backend: str) -> NotImplementedError:
-    """The error for a backend the port does not run yet."""
-    if backend == "pydylan":
-        why = "needs the reference's pydylan package, which the port does not wire"
-    else:
-        why = "runs the batched LM solver, which comes with the GPU solver (ROADMAP Queue A item 4)"
-    return NotImplementedError(f"oracle backend {backend!r} is not ported: it {why}; "
-                               "pass --oracle_backend native")
 
 
 def auto_backend(accelerator_present: bool) -> str:
@@ -79,11 +83,14 @@ def auto_backend(accelerator_present: bool) -> str:
 
 
 class CR3BPEarthMissionWarmstartSimulatorBoundary:
-    """Reference-compatible constructor signature (keyword use only)."""
+    """Reference-compatible constructor signature (keyword use only);
+    ``device`` places the batched backends (the card unless it names the
+    CPU)."""
 
-    # Shooting evaluations per LM iteration of the native solver: 66-column
-    # finite differences plus the ladder trials.
-    _SHOOTS_PER_ITER = 70
+    # Shooting evaluations per LM iteration, for snopt_control_evaluations:
+    # native = 66-column finite differences + ladder trials; tpu/hybrid =
+    # the JAX package's count for its solver (7 cotangent sweeps + 8 trials).
+    _SHOOTS_PER_ITER = {"native": 70, "tpu": 15, "hybrid": 15}
 
     def __init__(self, seed=0, seed_step=1, quiet_snopt=True,
                  number_of_segments=20, maximum_shooting_time=40.0,
@@ -92,7 +99,8 @@ class CR3BPEarthMissionWarmstartSimulatorBoundary:
                  solver_mode="optimal", min_mass_to_sample=408,
                  max_mass_to_sample=470, snopt_time_limit=1000.0,
                  result_folder=None, min_manifold_length=5.0,
-                 max_manifold_length=11.0, backend: Optional[str] = None):
+                 max_manifold_length=11.0, backend: Optional[str] = None,
+                 device=None):
         self.seed = seed
         self.seed_step = seed_step
         self.quiet_snopt = quiet_snopt
@@ -112,37 +120,129 @@ class CR3BPEarthMissionWarmstartSimulatorBoundary:
         self.max_manifold_length = max_manifold_length
         self.halo_energy = None
         self.backend = backend or ("pydylan" if PYDYLAN_AVAILABLE else "jax")
+        self.device = device
 
     def simulate(self, earth_initial_guess, halo_energy=None):
         if halo_energy is not None:
             self.halo_energy = halo_energy
         if self.halo_energy is None:
             raise ValueError("halo_energy is not sampled!")
-        if self.backend != "native":
-            raise unported_backend(self.backend)
-        return self._simulate_native(np.asarray(earth_initial_guess, float))
+        guess = np.asarray(earth_initial_guess, float)
+        if self.backend == "pydylan":
+            return self._simulate_pydylan(guess)
+        if self.backend == "native":
+            return self._simulate_native(guess)
+        if self.backend == "tpu":
+            return self._simulate_batched(_refine_warmstarts_gpu(), guess)
+        if self.backend == "hybrid":
+            return self._simulate_batched(evaluate_warmstarts_hybrid, guess)
+        return self._simulate_jax(guess)
+
+    def _simulate_pydylan(self, guess):
+        """The reference's own wiring of pydylan and SNOPT."""
+        import pydylan  # noqa: F811
+        pydylan.set_logging_severity(pydylan.enum.error)
+        earth, moon = pydylan.Body("Earth"), pydylan.Body("Moon")
+        cr3bp = pydylan.eom.CR3BP(primary=earth, secondary=moon)
+        l1 = cr3bp.find_equilibrium_point(pydylan.enum.LibrationPoint.L1)
+        halo = pydylan.periodic_orbit.Halo(
+            cr3bp, pydylan.enum.LibrationPoint.L1, l1[1] + self.halo_energy, 8000.)
+        assert halo.solve_for_orbit() == pydylan.enum.OrbitGenerationResult.Success
+
+        thr = pydylan.ThrustParameters(fuel_mass=700., dry_mass=300., Isp=1000., thrust=1.0)
+        from .cr3bp import get_gto_state_cr3bp
+        spiral = pydylan.phases.lowthrust_spiral(cr3bp, get_gto_state_cr3bp(), thr)
+        spiral.evaluate(time_of_flight=self.start_bdry)
+
+        snopt = pydylan.SNOPT_options_structure()
+        snopt.derivative_mode = pydylan.enum.derivative_mode_type.analytic
+        snopt.quiet_SNOPT = self.quiet_snopt
+        snopt.time_limit = self.snopt_time_limit
+        snopt.total_iteration_limit = 15000
+        snopt.optimality_tolerance = 1e-3
+        snopt.solver_mode = (pydylan.enum.solver_mode_type.feasible
+                             if self.solver_mode == "feasible"
+                             else pydylan.enum.solver_mode_type.optimal)
+
+        thr = pydylan.ThrustParameters(fuel_mass=700., dry_mass=300., Isp=1000.,
+                                       thrust=self.thrust)
+        thr.fuel_mass = spiral.get_states()[-1, 6]
+        phase = pydylan.phase_options_structure()
+        phase.number_of_segments = self.number_of_segments
+        phase.maximum_initial_coast_time = 15.
+        phase.maximum_final_coast_time = 15.
+        phase.maximum_shooting_time = self.maximum_shooting_time
+        phase.minimum_shooting_time = self.minimum_shooting_time
+        phase.control_coordinate_transcription = pydylan.enum.spherical
+
+        start_bc = pydylan.FixedBoundaryCondition(spiral.get_final_states())
+        lo = min(self.min_manifold_length, self.max_manifold_length)
+        hi = max(self.min_manifold_length, self.max_manifold_length)
+        end_bc = pydylan.LibrationOrbitBoundaryCondition(
+            halo, pydylan.enum.PerturbationDirection.StableLeft,
+            np.asarray([halo.orbit_energy, 0 * halo.orbit_period, lo]),
+            np.asarray([halo.orbit_energy, 1 * halo.orbit_period, hi]))
+
+        mission = pydylan.Mission(cr3bp, start_bc, end_bc, pydylan.enum.snopt)
+        mission.add_phase_options(phase)
+        mission.set_thruster_parameters(thr)
+        guess = guess.copy()
+        guess[-2] = guess[-2] * halo.orbit_period  # un-normalise halo period
+        mission.add_control_initial_guess(guess)
+
+        t0 = time.time()
+        mission.optimize(snopt, pydylan.MBH_options_structure())
+        solving_time = time.time() - t0
+        results = mission.evaluate_and_return_solution(
+            mission.get_control_state(), optimize=False) \
+            if hasattr(mission, "evaluate_and_return_solution") else None
+        feas = mission.is_best_solution_feasible()
+        return {
+            "results.control": np.asarray(mission.get_control_state()),
+            "feasibility": bool(feas),
+            "snopt_control_evaluations": getattr(mission, "get_all_SNOPT_control_evaluations",
+                                                 lambda: None)(),
+            "snopt_inform": int(mission.get_SNOPT_inform())
+            if hasattr(mission, "get_SNOPT_inform") else None,
+            "thrust": self.thrust,
+            "solving_time": solving_time,
+            "cost_alpha": self.halo_energy,
+            "_results": results,
+        }
+
+    def _problem_kwargs(self):
+        return dict(thrust=self.thrust, n_segments=self.number_of_segments,
+                    start_bdry=self.start_bdry,
+                    max_shoot=self.maximum_shooting_time,
+                    min_shoot=self.minimum_shooting_time,
+                    min_manifold_length=self.min_manifold_length,
+                    max_manifold_length=self.max_manifold_length,
+                    min_mass=self.min_mass_to_sample,
+                    max_mass=self.max_mass_to_sample,
+                    solver_mode=self.solver_mode)
 
     def _simulate_native(self, guess):
         t0 = time.time()
         res = evaluate_warmstarts_native(
             np.asarray(guess)[None, :], np.asarray([self.halo_energy]),
-            thrust=self.thrust, n_segments=self.number_of_segments,
-            start_bdry=self.start_bdry,
-            max_shoot=self.maximum_shooting_time,
-            min_shoot=self.minimum_shooting_time,
-            min_manifold_length=self.min_manifold_length,
-            max_manifold_length=self.max_manifold_length,
-            min_mass=self.min_mass_to_sample,
-            max_mass=self.max_mass_to_sample,
-            solver_mode=self.solver_mode)
+            **self._problem_kwargs())
+        return self._result_from_batch(res, time.time() - t0)
+
+    def _simulate_batched(self, solve, guess):
+        """The tpu or hybrid backend on one warm start (the batch functions
+        are where the speed is)."""
+        t0 = time.time()
+        res = solve(np.asarray(guess)[None, :], np.asarray([self.halo_energy]),
+                    device=self.device, **self._problem_kwargs())
         return self._result_from_batch(res, time.time() - t0)
 
     def _result_from_batch(self, res, solving_time):
+        spi = self._SHOOTS_PER_ITER.get(self.backend, 66)
         return {
-            # like SNOPT, the local solver returns the SOLVED control state
+            # like SNOPT, the local solvers return the SOLVED control state
             "results.control": res["refined"][0],
             "feasibility": bool(res["feasible"][0]),
-            "snopt_control_evaluations": int(res["iters"][0]) * self._SHOOTS_PER_ITER,
+            "snopt_control_evaluations": int(res["iters"][0]) * spi,
             "snopt_inform": int(res["inform"][0]),
             "thrust": self.thrust,
             "solving_time": solving_time,
@@ -153,6 +253,37 @@ class CR3BPEarthMissionWarmstartSimulatorBoundary:
             "final_mass": float(res["final_mass"][0]),
             "terminal_mass": float(res["terminal_mass"][0]),
         }
+
+    def _simulate_jax(self, guess):
+        """The defect check, no refinement."""
+        t0 = time.time()
+        res = evaluate_warmstarts(np.asarray(guess)[None, :],
+                                  np.asarray([self.halo_energy]),
+                                  thrust=self.thrust,
+                                  n_segments=self.number_of_segments,
+                                  start_bdry=self.start_bdry,
+                                  min_manifold_length=self.min_manifold_length,
+                                  max_manifold_length=self.max_manifold_length,
+                                  device=self.device)
+        return {
+            "results.control": guess,
+            "feasibility": bool(res["feasible"][0]),
+            "snopt_control_evaluations": None,
+            "snopt_inform": int(res["inform"][0]),
+            "thrust": self.thrust,
+            "solving_time": time.time() - t0,
+            "cost_alpha": self.halo_energy,
+            "residual_norm": float(res["cost"][0]),
+            "terminal_pos_error": float(res["pos_err"][0]),
+            "terminal_vel_error": float(res["vel_err"][0]),
+        }
+
+
+def _refine_warmstarts_gpu():
+    """``solver_gpu.refine_warmstarts_gpu`` (imported at use: the solver
+    imports this module)."""
+    from .solver_gpu import refine_warmstarts_gpu
+    return refine_warmstarts_gpu
 
 
 # --------------------------------------------------------------------------
@@ -234,6 +365,71 @@ def _mbh_loop(solve, guesses, energies, rounds: int, sigma: float,
             best[k][take] = np.asarray(sub[k])[better]
         best["iters"][idx] += np.asarray(sub["iters"], np.int64)
     return best
+
+
+def evaluate_warmstarts_hybrid(guesses: np.ndarray, halo_energies: np.ndarray,
+                               polish_iters: int = 10,
+                               polish_window: float = 100.0,
+                               n_threads: int = 0,
+                               device=None,
+                               **kwargs):
+    """The batched float32 solve on the card, then an f64 native polish of
+    the near misses: the lanes whose residual landed within
+    ``polish_window`` x tol above the tolerance are re-solved from their
+    refined point for ``polish_iters`` iterations on the host, and a
+    polished lane replaces its solve where it is feasible or lower.  The
+    solve is float32 whatever ``precision`` a caller holds (the JAX
+    package passes it none).  Takes the keyword arguments of
+    ``evaluate_warmstarts_native`` and of ``refine_warmstarts_gpu``."""
+    tol = kwargs.get("tol", _FEAS_TOL)
+    res = _refine_warmstarts_gpu()(guesses, halo_energies, device=device, **kwargs)
+
+    near = (~res["feasible"]) & np.isfinite(res["cost"]) \
+        & (res["cost"] < polish_window * tol)
+    if near.any():
+        sub_kwargs = dict(kwargs)
+        sub_kwargs["max_iters"] = polish_iters
+        sub_kwargs.pop("mbh_rounds", None)   # the polish is a local finish
+        sub_kwargs.pop("batch_tile", None)
+        sub_kwargs.pop("n_devices", None)
+        sub = evaluate_warmstarts_native(
+            res["refined"][near][:, :66], np.asarray(halo_energies)[near],
+            n_threads=n_threads, **sub_kwargs)
+        idx = np.nonzero(near)[0]
+        better = sub["feasible"] | (sub["cost"] < res["cost"][idx])
+        take = idx[better]
+        for k in _MERGEABLE:
+            res[k] = np.asarray(res[k]).copy()
+            res[k][take] = np.asarray(sub[k])[better]
+        res["iters"] = np.asarray(res["iters"], np.int64).copy()
+        res["iters"][idx] += np.asarray(sub["iters"], np.int64)
+    return res
+
+
+def evaluate_warmstarts(guesses: np.ndarray, halo_energies: np.ndarray,
+                        thrust: float = 1.0, n_segments: int = 20,
+                        start_bdry: float = 6.48423370092,
+                        min_manifold_length: float = 5.0,
+                        max_manifold_length: float = 11.0,
+                        device=None):
+    """Defect check of [N, 66] guesses, no solve: the batched float32
+    solver with no iteration, so the defect is the residual the solver
+    minimises; tiers: feasible below ``_DEFECT_TOL_LOOSE``, inform 1 below
+    ``_DEFECT_TOL_TIGHT``."""
+    res = _refine_warmstarts_gpu()(
+        guesses, halo_energies, thrust=thrust, n_segments=n_segments,
+        start_bdry=start_bdry, max_iters=0, solver_mode="feasible",
+        min_manifold_length=min_manifold_length,
+        max_manifold_length=max_manifold_length, device=device)
+    cost = res["cost"]
+    sane = np.isfinite(cost) & (cost < 1e5)
+    tight = sane & (cost < _DEFECT_TOL_TIGHT)
+    loose = sane & (cost < _DEFECT_TOL_LOOSE)
+    inform = np.where(tight, 1, np.where(loose, 3, 13))
+    return {"feasible": loose, "optimal": tight, "inform": inform,
+            "cost": cost, "pos_err": res["pos_err"],
+            "vel_err": res["vel_err"], "final_mass": res["final_mass"],
+            "terminal_mass": res["terminal_mass"]}
 
 
 # --------------------------------------------------------------------------

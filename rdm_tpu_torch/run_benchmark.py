@@ -2,10 +2,13 @@
 
     python -m rdm_tpu_torch.run_benchmark --model_path "Training Runs/<run>" \\
         --benchmark_type both --num_samples 1024 --batch_size 1024 \\
-        --sampling_method ode --oracle_backend native
+        --sampling_method ode
 
-It samples on the card unless ``--device cpu`` names the CPU; the native
-oracle grades on the host's cores.  ``--test_mode`` caps the run at 10
+It samples on the card unless ``--device cpu`` names the CPU.  The oracle
+grades with the backend ``--oracle_backend`` names (default: the JAX
+package's rule, ``hybrid`` with a card): ``tpu`` and ``hybrid`` solve on the
+card (or on the CPU with ``--device cpu``), ``native`` on the host's cores,
+the last name of ``BACKENDS`` checks the defect only.  ``--test_mode`` caps the run at 10
 samples in batches of 5.  Results go under ``--output_dir``:
 ``ml_statistics/`` and ``gto_halo/`` with their JSON, summary.txt and
 samples.
@@ -15,7 +18,7 @@ from __future__ import annotations
 import argparse
 import os
 
-from .physics.oracle import BACKENDS
+from .physics.oracle import BACKENDS, DEFECT_CHECK_BACKEND
 
 
 def make_parser():
@@ -39,20 +42,25 @@ def make_parser():
     p.add_argument("--disable_physical_validation", dest="enable_physical_validation",
                    action="store_false")
     p.add_argument("--oracle_backend", default=None, choices=[None, *BACKENDS],
-                   help="default auto: pydylan > hybrid > tpu (with a card) > native; "
-                        "only native runs in this package, the others raise")
+                   help=f"default auto: pydylan > hybrid > tpu (with a card) > native > "
+                        f"{DEFECT_CHECK_BACKEND}; tpu and hybrid solve on the card, native on "
+                        f"the host, {DEFECT_CHECK_BACKEND} checks the defect without a solve, "
+                        "pydylan needs the reference's package")
     p.add_argument("--max_workers", type=int, default=None,
-                   help="threads of the native oracle (default: every core)")
+                   help="threads of the native oracle and of hybrid's polish "
+                        "(default: every core)")
     p.add_argument("--oracle_mbh_rounds", type=int, default=8,
                    help="monotonic basin hops of still-infeasible lanes; 0 = one "
                         "cold local solve per sample")
     p.add_argument("--oracle_precision", default="df32", choices=["df32", "f32"],
-                   help="solver arithmetic of the tpu and hybrid backends")
+                   help="solver arithmetic of the tpu backend: df32 solves in float64 on the "
+                        "card, f32 in float32; the hybrid backend always solves in float32")
     p.add_argument("--output_dir", default="benchmark_results")
     p.add_argument("--save_samples", action="store_true", default=True)
     p.add_argument("--save_plots", action="store_true", default=True)
     p.add_argument("--device", default=None,
-                   help="sampling device (default: the card; 'cpu' runs on the CPU)")
+                   help="device of sampling and of the oracles that run on the card "
+                        "(default: the card; 'cpu' runs on the CPU)")
     p.add_argument("--test_mode", action="store_true",
                    help="cap at 10 samples / batch 5 for smoke testing")
     return p
