@@ -115,7 +115,31 @@ Phases, each printing one JSON line with its elapsed seconds:
 19. run_train python -m rdm_tpu_torch.run_train for four steps at batch 4096
               from a temporary directory: log lines, a checkpoint the port
               restores, snapshot samples (NHWC)
-20. kernel_micro_cf  the channels-first kernels of csrc/micro_cf.cu at the
+20. dp_train  data parallelism of the flagship's training step (checkpoint_10.pth,
+              phase train's batch of 4096 rows with its t, z and masks, bf16,
+              both attention kernels; cuDNN's deterministic algorithms for the
+              checked step): one process gives phase train's gradients bit for
+              bit; (i) under a process group of one on NCCL the step is the
+              same, bit for bit, and ms per step beside phase train's; (ii) two
+              ranks on this card over gloo (NCCL refuses two ranks on one card;
+              gloo moves the gradients through the host), 2048 rows each: the
+              ranks' states bit for bit alike after the step, 5 + 5 attention
+              launches in each, and the averaged gradient held to phase train's
+              kernel-against-plain rule against one process's (the only
+              difference is the order of the batch's sum); ms per step,
+              time-sliced, not a speed figure; (iii) the same over NCCL with a
+              rank a card when there are two cards, else one line saying so
+21. dp_sample  two ranks on the card sample 512 trajectories each from the
+              flagship's EMA weights (1000 steps, w = 0, a seed a rank); the 1024
+              gathered lie in the unit cube, within KS 0.11 of the JAX package's
+              samples, 4,995 attention launches a rank
+22. dp_oracle  phase oracle_gpu's float64 grading with each tile split over
+              [cuda:0, cuda:0] (a thread a part; with two cards also over
+              [cuda:0, cuda:1]): the result equals phase oracle_gpu's, lane for
+              lane; wall s beside phase oracle_gpu's
+23. run_train_torchrun  phase run_train's command under python -m
+              torch.distributed.run --standalone --nproc_per_node 1 (NCCL)
+24. kernel_micro_cf  the channels-first kernels of csrc/micro_cf.cu at the
               TPU script's shapes (C 64, N 20,736 = 81 x 256, bfloat16), each
               against its plain version on the same seeded inputs: both
               transposes and the roll sum bit for bit, the dots at K 64 and
@@ -129,9 +153,10 @@ Phases, each printing one JSON line with its elapsed seconds:
               python -m rdm_tpu_torch.scripts.micro_cf once, in process, as
               its path, with its chained and cold times, bounds and library
               times, and the plain versions' cold times beside them
-21. kernels   one line {"kernels": [...]} with each kernel's launches on its
+25. kernels   one line {"kernels": [...]} with each kernel's launches on its
               path (sampling for the forward kernels, with the ODE path's
-              count beside the attention forward's; training for the
+              count beside the attention forward's and the DP paths' counts a
+              rank beside both attention kernels'; training for the
               backward, one entry-point call for the attention core, the
               micro_cf script for its three kernels: the wrappers' counts,
               and beside them the kernel runs of the script's CUDA-graph
@@ -155,9 +180,11 @@ import time
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 import rdm_tpu_torch
 from rdm_tpu_torch.benchmark import GTOHaloBenchmarker, GTOHaloBenchmarkConfig
+from rdm_tpu_torch.benchmark import dp_check
 from rdm_tpu_torch.benchmark.common import (LoadedModel, generate_raw_samples,
                                             load_training_run)
 from rdm_tpu_torch.config import ConfigDict, load_config
@@ -169,6 +196,8 @@ from rdm_tpu_torch.ops import attention as attn_ops
 from rdm_tpu_torch.ops import cr3bp as shoot_ops
 from rdm_tpu_torch.ops import micro_cf
 from rdm_tpu_torch.ops import resblock as rb_ops
+from rdm_tpu_torch.parallel import launch as dp_launch
+from rdm_tpu_torch.parallel import mesh as dp_mesh
 from rdm_tpu_torch.physics import halo as halo_lib
 from rdm_tpu_torch.physics import manifold as manifold_lib
 from rdm_tpu_torch.physics import oracle as oracle_lib
@@ -609,8 +638,11 @@ def loss_and_grads(cfg, model, batch, labels, seed):
     return float(loss.detach()), [g.float() for g in torch.autograd.grad(loss, params)]
 
 
-def train_phase(device) -> dict:
-    """The flagship trains on the card; returns the fields of the phase."""
+def train_phase(device):
+    """The flagship trains on the card; returns the fields of the phase and
+    the yardstick of its kernel-against-plain rule (the gradients through
+    the kernels, the bf16-f32 spread as one vector and per parameter), which
+    phase dp_train holds its ranks to."""
     cfg, state, images, labels = load_training_run(FLAGSHIP_RUN, device)
     check(cfg.model.precision == "bfloat16" and cfg.model.attn_pallas is True,
           "flagship config is not bfloat16 with the attention kernel")
@@ -669,6 +701,8 @@ def train_phase(device) -> dict:
     check(ratios[0][0] <= 1.0, f"a parameter's gradient: kernel-plain / spread {ratios[0]}")
     check(len(kratios) == ATTN_BLOCKS_PER_FORWARD and kratios[0][0] <= 1.0,
           f"a k bias's gradient: kernel-plain / q-bias spread {kratios}")
+    yardstick = {"loss": loss_k, "grads": g_k, "spread": spread, "per_param": pf,
+                 "kbias": kbias, "names": names}
 
     # 2. twenty steps with the kernels, on the training path
     step = make_train_step_on_device(get_sde(cfg), use_labels=True,
@@ -736,7 +770,7 @@ def train_phase(device) -> dict:
                                                       state.optimizer.mu + state.optimizer.nu)))
     out["checkpoint_round_trip_equal"] = same
     check(same, "checkpoint round trip changed the state")
-    return out
+    return out, yardstick
 
 
 def flagship_sampling(run, model_overrides, t0) -> dict:
@@ -1115,7 +1149,7 @@ def oracle_gpu_phase(native_feasible) -> dict:
     bench.config = GTOHaloBenchmarkConfig(model_path="")
     out["auto_backend"] = bench.oracle_backend()
     check(out["auto_backend"] == "hybrid", f"the automatic backend is {out['auto_backend']}")
-    return out
+    return out, res
 
 
 def run_benchmark_phase() -> dict:
@@ -1162,8 +1196,9 @@ def with_precision(cfg, precision):
     return ConfigDict.wrap(plain)
 
 
-def run_train_phase() -> dict:
-    """The training CLI on the card, from a temporary working directory."""
+def run_train_phase(launcher=()) -> dict:
+    """The training CLI on the card, from a temporary working directory,
+    started by ``launcher`` (a torchrun command line) or as one process."""
     pkl = os.path.join(ROOT, "datasets", "training_data_boundary_80073.pkl")
     args = ["model.precision=bfloat16", "model.attn_pallas=true", f"data.pkl_path={pkl}",
             "data.gto_mean=0", "data.gto_std=1", "training.n_iters=3",
@@ -1172,8 +1207,9 @@ def run_train_phase() -> dict:
             "eval.batch_size=4096"]
     with tempfile.TemporaryDirectory() as tmp:
         env = dict(os.environ, PYTHONPATH=ROOT)
-        proc = subprocess.run([sys.executable, "-m", "rdm_tpu_torch.run_train", *args],
-                              cwd=tmp, env=env, capture_output=True, text=True, timeout=600)
+        proc = subprocess.run([sys.executable, *launcher, "-m", "rdm_tpu_torch.run_train",
+                               *args], cwd=tmp, env=env, capture_output=True, text=True,
+                              timeout=600)
         check(proc.returncode == 0, f"run_train failed:\n{proc.stderr[-3000:]}")
         runs = os.listdir(os.path.join(tmp, "Training Runs"))
         check(len(runs) == 1, f"run_train made {runs}")
@@ -1193,6 +1229,224 @@ def run_train_phase() -> dict:
     return {"steps": steps, "eval_lines": len(evals), "checkpoint_step": ck.step,
             "sample_shape": list(sample.shape), "sample_min": int(sample.min()),
             "sample_max": int(sample.max())}
+
+
+# ---------------------------------------------------------------------------
+# data parallelism: ranks on the card against one process
+
+# torchrun with one process: the run_train phase's CLI under the launcher (NCCL)
+TORCHRUN_1 = ("-m", "torch.distributed.run", "--standalone", "--nproc_per_node", "1")
+DP_SPEC = {"run": FLAGSHIP_RUN, "batch": 4096, "batch_seed": 11, "draw_seed": 12,
+           "deterministic": True, "allow_tf32": False}
+DP_TIMED_STEPS = 5
+
+
+def dp_ranks(argv, local_ranks, timeout=300):
+    """``python -m rdm_tpu_torch.benchmark.dp_check *argv`` as one rank per
+    entry of ``local_ranks`` (the card each uses)."""
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    return dp_launch.run_ranks(["-m", "rdm_tpu_torch.benchmark.dp_check", *argv],
+                               len(local_ranks), local_ranks=local_ranks, env=env,
+                               timeout=timeout)
+
+
+def step_results_equal(a, b) -> bool:
+    return a["loss"] == b["loss"] and all(
+        all(torch.equal(x, y) for x, y in zip(a[k], b[k]))
+        for k in ("grads", "params", "mu", "nu", "shadow"))
+
+
+def one_process_dp_step(device, fields=None):
+    """One ``make_train_step`` step of DP_SPEC on the whole batch in this
+    process (cuDNN's deterministic algorithms, so two runs agree bit for
+    bit), with the attention kernels' launches in it."""
+    cfg, state, batch, labels, t, z, draws = dp_check.load_step_spec(DP_SPEC, device)
+    torch.backends.cudnn.deterministic = True
+    try:
+        attn_ops.fused_attn_block.launches = attn_ops.fused_attn_block_bwd.launches = 0
+        loss, grads = dp_check.train_step_rows(cfg, state, batch, labels, t, z, draws,
+                                               slice(None))
+        torch.cuda.synchronize()
+        res = dp_check.step_result(state, loss, grads, attn_ops.fused_attn_block.launches,
+                                   attn_ops.fused_attn_block_bwd.launches)
+    finally:
+        torch.backends.cudnn.deterministic = False
+    return cfg, state, res
+
+
+def dp_grad_rule(ranked, one, yardstick) -> dict:
+    """Phase train's kernel-against-plain rule for the ranks' averaged
+    gradient against one process's: as one vector within half the bf16-f32
+    spread, each parameter within its own bf16-f32 distance (a k bias within
+    its block's q bias's)."""
+    names = yardstick["names"]
+    flat = lambda gs: torch.cat([g.flatten() for g in gs])
+    diff = float((flat(ranked["grads"]) - flat(one["grads"])).norm())
+    per = {n: float((a - b).norm()) for a, b, n in zip(ranked["grads"], one["grads"], names)}
+    pf, kbias = yardstick["per_param"], yardstick["kbias"]
+    ratios = sorted(((per[n] / max(pf[kbias.get(n, n)], 1e-30), n) for n in names),
+                    reverse=True)
+    params_diff = max(float((a - b).abs().max()) for a, b in zip(ranked["params"],
+                                                                 one["params"]))
+    return {"grad_diff": diff, "grad_spread_bf16_f32": yardstick["spread"],
+            "grad_ratio": diff / yardstick["spread"], "worst_param_ratios": ratios[:4],
+            "loss": ranked["loss"], "loss_one_process": one["loss"],
+            "param_max_abs_diff": params_diff,
+            "ok": (diff <= 0.5 * yardstick["spread"] and ratios[0][0] <= 1.0
+                   and abs(ranked["loss"] - one["loss"]) <= BF16_STEP / 2 * abs(one["loss"]))}
+
+
+def dp_two_ranks(tmp, local_ranks, backend, one, yardstick, tag) -> dict:
+    """DP_SPEC's step in two ranks on ``local_ranks``' cards over
+    ``backend``: both ranks bit for bit alike, each launching 5 + 5
+    attention kernels, and phase train's rule against one process."""
+    spec_path = os.path.join(tmp, "spec.pt")
+    out_dir = os.path.join(tmp, tag)
+    os.makedirs(out_dir)
+    torch.save(DP_SPEC, spec_path)
+    dp_ranks(["step", spec_path, out_dir, "--backend", backend,
+              "--time_steps", str(DP_TIMED_STEPS)], local_ranks)
+    r0, r1 = (torch.load(os.path.join(out_dir, f"rank{r}.pt"), weights_only=False)
+              for r in range(2))
+    same = step_results_equal(r0, r1)
+    check(same, f"dp_train {tag}: the two ranks' states differ after the step")
+    check(all(r["fwd_launches"] == ATTN_BLOCKS_PER_FORWARD
+              and r["bwd_launches"] == ATTN_BLOCKS_PER_FORWARD for r in (r0, r1)),
+          f"dp_train {tag}: attention launches {[(r['fwd_launches'], r['bwd_launches']) for r in (r0, r1)]}")
+    rule = dp_grad_rule(r0, one, yardstick)
+    check(rule["ok"], f"dp_train {tag}: against one process {rule}")
+    return {"backend": r0["backend"], "devices": [r0["device"], r1["device"]],
+            "ranks_bit_equal": same, "rows_per_rank": DP_SPEC["batch"] // 2,
+            "launches": [[r["fwd_launches"], r["bwd_launches"]] for r in (r0, r1)],
+            "count": r0["count"], "ms_per_step": r0["ms_per_step"], **rule}
+
+
+def dp_train_phase(device, train, yardstick) -> dict:
+    """The flagship's training step from checkpoint_10.pth on phase train's
+    batch (4096 rows, t, z and masks) in one process, under a process group
+    of one (NCCL), and in two ranks; see the module's docstring."""
+    cfg, _, one = one_process_dp_step(device)
+    # the same gradients as phase train's kernel run of that step, recomputed
+    # with phase train's own function under the deterministic algorithms
+    _, state0, images, labels = load_training_run(FLAGSHIP_RUN, device)
+    idx = torch.randint(0, images.shape[0], (DP_SPEC["batch"],), device=device,
+                        generator=torch.Generator(device=device).manual_seed(11))
+    torch.backends.cudnn.deterministic = True
+    try:
+        loss_t, g_t = loss_and_grads(cfg, state0.model, images[idx], labels[idx], seed=12)
+    finally:
+        torch.backends.cudnn.deterministic = False
+    del state0, images, labels
+    same_as_train = loss_t == one["loss"] and all(
+        torch.equal(a.cpu(), b) for a, b in zip(g_t, one["grads"]))
+    check(same_as_train, "the one-process DP step's gradients differ from phase train's "
+                         "loss_and_grads on the same batch, t, z and masks")
+    check(one["fwd_launches"] == ATTN_BLOCKS_PER_FORWARD
+          and one["bwd_launches"] == ATTN_BLOCKS_PER_FORWARD,
+          f"one-process step launched {one['fwd_launches']} + {one['bwd_launches']}")
+    out = {"batch": DP_SPEC["batch"], "one_process": {
+        "loss": one["loss"], "launches": [one["fwd_launches"], one["bwd_launches"]],
+        "grads_equal_phase_train": same_as_train}}
+
+    # (i) a process group of one on NCCL: the step is today's, bit for bit
+    with tempfile.TemporaryDirectory() as tmp:
+        dist.init_process_group("nccl", store=dist.FileStore(os.path.join(tmp, "store"), 1),
+                                rank=0, world_size=1)
+        try:
+            check(dp_mesh.world_size() == 1 and dist.get_backend() == "nccl",
+                  "dp_train (i): no NCCL group of one")
+            cfg, state, res = one_process_dp_step(device)
+            same = step_results_equal(res, one)
+            check(same, "dp_train (i): the NCCL world of one changed the step")
+            ms = dp_check.ms_per_step(cfg, state, DP_SPEC["batch"], TRAIN_STEPS)
+        finally:
+            dist.destroy_process_group()
+        del state
+    out["nccl_world_1"] = {"bit_equal_one_process": same,
+                           "launches": [res["fwd_launches"], res["bwd_launches"]],
+                           "ms_per_step": ms, "steps_timed": TRAIN_STEPS,
+                           "train_phase_ms_per_step": train["ms_per_step"]}
+
+    # (ii) two ranks on this card over gloo (time-sliced; a correctness path)
+    with tempfile.TemporaryDirectory() as tmp:
+        out["gloo_2_ranks_1_card"] = dp_two_ranks(tmp, [0, 0], "gloo", one, yardstick,
+                                                  "gloo_1_card")
+        out["gloo_2_ranks_1_card"]["timing"] = (
+            f"{DP_TIMED_STEPS} steps of 2048 rows a rank, the two ranks time-sliced on one "
+            "card, gradients through the host: not a speed figure")
+        # (iii) one rank a card over NCCL, when there are two cards
+        if torch.cuda.device_count() >= 2:
+            out["nccl_2_cards"] = dp_two_ranks(tmp, [0, 1], "nccl", one, yardstick,
+                                               "nccl_2_cards")
+        else:
+            print("dp_train (iii): not run, this machine has one card (NCCL over two "
+                  "cards needs two)", flush=True)
+            out["nccl_2_cards"] = None
+    return out
+
+
+def dp_sample_phase(flag) -> dict:
+    """Two ranks on the card sample 512 trajectories each from the flagship's
+    EMA weights (1000 steps, w = 0, a seed a rank); the 1024 gathered on
+    rank 0 lie in the unit cube and within KS 0.11 of the JAX package's."""
+    n = 512
+    with tempfile.TemporaryDirectory() as tmp:
+        dp_ranks(["sample", FLAGSHIP_RUN, str(n), tmp, "--backend", "gloo"], [0, 0])
+        samples = np.load(os.path.join(tmp, "samples.npy"))
+        ranks = []
+        for r in range(2):
+            with open(os.path.join(tmp, f"rank{r}.json")) as f:
+                ranks.append(json.load(f))
+    check(samples.shape == (2 * n, 67) and bool(np.isfinite(samples).all()),
+          f"dp_sample: gathered {samples.shape}")
+    check(float(samples.min()) >= 0.0 and float(samples.max()) <= 1.0,
+          "dp_sample: samples leave the unit cube")
+    check(not np.array_equal(samples[:n], samples[n:]), "dp_sample: the ranks drew alike")
+    steps = ranks[0]["steps"] - 1
+    check(all(r["launches"] == ATTN_BLOCKS_PER_FORWARD * steps for r in ranks),
+          f"dp_sample: launches {[r['launches'] for r in ranks]}")
+    ref = np.load(JAX_SAMPLES).reshape(-1, 67)
+    ks = np.array([ks_statistic(samples[:, d], ref[:, d]) for d in range(67)])
+    check(float(ks.max()) < KS_LIMIT, f"dp_sample: max per-dimension KS {ks.max()}")
+    slowest = ranks[0]["slowest_wall_s"]
+    return {"n": int(samples.shape[0]), "per_rank": n, "launches": [r["launches"] for r in ranks],
+            "ks_max": float(ks.max()), "ks_argmax": int(ks.argmax()), "ks_limit": KS_LIMIT,
+            "wall_s": [r["wall_s"] for r in ranks], "slowest_wall_s": slowest,
+            "trajectories_per_second": samples.shape[0] / slowest,
+            "one_process_trajectories_per_second": flag["trajectories_per_second"],
+            "timing": "two ranks time-sliced on one card: not a speed figure"}
+
+
+def dp_oracle_phase(gpu_res, gpu_wall) -> dict:
+    """The float64 grading of phase oracle_gpu (8 hops, optimal mode) with
+    each tile split over [cuda:0, cuda:0] (a thread a part): the result
+    equals phase oracle_gpu's, lane for lane; with two cards also over
+    [cuda:0, cuda:1]."""
+    physical = np.load(ROUND2_PHYSICAL)
+    G, H = physical[:, 1:], physical[:, 0]
+    out = {"one_card_wall_s": gpu_wall}
+    splits = [["cuda:0", "cuda:0"]]
+    if torch.cuda.device_count() >= 2:
+        splits.append(["cuda:0", "cuda:1"])
+    else:
+        print("dp_oracle: [cuda:0, cuda:1] not run, this machine has one card", flush=True)
+    for devices in splits:
+        for f in SHOOT_KERNELS:
+            f.launches = 0
+        t0 = time.perf_counter()
+        res = solver_gpu.refine_warmstarts_gpu(G, H, mbh_rounds=8, solver_mode="optimal",
+                                               precision="df32", device=devices)
+        for d in set(devices):
+            torch.cuda.synchronize(d)
+        wall = time.perf_counter() - t0
+        differ = [k for k in gpu_res if not np.array_equal(np.asarray(res[k]),
+                                                           np.asarray(gpu_res[k]))]
+        check(not differ, f"dp_oracle over {devices}: {differ} differ from phase oracle_gpu's")
+        out["+".join(devices)] = {
+            "lane_for_lane_equal": True, "wall_s": wall, "feasible": int(res["feasible"].sum()),
+            "optimal": int(res["optimal"].sum()),
+            "launches": {f.__name__: f.launches for f in SHOOT_KERNELS}}
+    return out
 
 
 def resblock_routing_phase(device) -> dict:
@@ -1535,7 +1789,7 @@ def main() -> int:
     emit("oracle_native", t0, **native_fields)
 
     t0 = time.perf_counter()
-    gpu = oracle_gpu_phase(native_feasible)
+    gpu, gpu_res = oracle_gpu_phase(native_feasible)
     emit("oracle_gpu", t0, **gpu, native_wall_s=native_fields["wall_s"],
          jax_df32_feasible=SOLVER_FEASIBLE, jax_df32_optimal=SOLVER_OPTIMAL)
 
@@ -1543,11 +1797,27 @@ def main() -> int:
     emit("run_benchmark", t0, **run_benchmark_phase())
 
     t0 = time.perf_counter()
-    train = train_phase(device)
+    train, yardstick = train_phase(device)
     emit("train", t0, **train)
 
     t0 = time.perf_counter()
     emit("run_train", t0, **run_train_phase())
+
+    t0 = time.perf_counter()
+    dp = dp_train_phase(device, train, yardstick)
+    emit("dp_train", t0, **dp)
+    del yardstick
+
+    t0 = time.perf_counter()
+    dps = dp_sample_phase(flag)
+    emit("dp_sample", t0, **dps)
+
+    t0 = time.perf_counter()
+    emit("dp_oracle", t0, **dp_oracle_phase(gpu_res, gpu["f64"]["wall_s"]))
+
+    t0 = time.perf_counter()
+    emit("run_train_torchrun", t0, launcher="torchrun --standalone --nproc_per_node 1 (NCCL)",
+         **run_train_phase(TORCHRUN_1))
 
     t0 = time.perf_counter()
     mcf_cases = micro_cf_cases(device)
@@ -1575,9 +1845,13 @@ def main() -> int:
         "replaces": "rdm_tpu/ops/pallas/attention.py:42::_fused_block_kernel",
         "launches": launches,
         "launches_ode": ode["launches"],
+        "launches_dp": {"dp_sample_per_rank": dps["launches"],
+                        "dp_train_per_rank": [r[0] for r in
+                                              dp["gloo_2_ranks_1_card"]["launches"]]},
         "launches_note": "launches: one 1000-step PC sampling call at batch 1024 (5 a "
                          "forward); launches_ode: one ODE sampling call at batch 1024 "
-                         f"(NFE {ode['nfe']}, 5 a forward)",
+                         f"(NFE {ode['nfe']}, 5 a forward); launches_dp: each rank of "
+                         "phase dp_sample (512 a rank) and of phase dp_train (ii)",
         "max_abs_err": main_case["max_abs_err"],
         "ms": main_case["ms"],
         "plain_ms": main_case["plain_ms"],
@@ -1605,6 +1879,10 @@ def main() -> int:
         "source": "rdm_tpu_torch/csrc/fused_attn_block_bwd.cu",
         "replaces": "rdm_tpu/ops/pallas/attention.py:101::_fused_block_bwd_kernel",
         "launches": train["bwd_launches"],
+        "launches_dp": {"dp_train_per_rank": [r[1] for r in
+                                              dp["gloo_2_ranks_1_card"]["launches"]]},
+        "launches_note": "launches: the 20 steps of phase train (5 a step); launches_dp: "
+                         "each rank's step in phase dp_train (ii)",
         "max_abs_err": max(bwd_main["dx_max_abs_err"], bwd_main["param_max_abs_err"]),
         "ms": bwd_main["ms"],
         "plain_ms": bwd_main["plain_ms"],

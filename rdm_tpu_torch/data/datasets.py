@@ -10,8 +10,8 @@ parameters normalised to [0, 1].  Preprocessing follows the reference:
 
 The whole set is a few tens of MB, so it is held as arrays and batches are
 gathered from them: on the host by ``get_dataset``'s epoch iterators (the
-same numpy seeds, and so the same batches, as the JAX package's), or on the
-card by the trainer's on-device step.
+same numpy seeds and per-process shares, and so the same batches, as the
+JAX package's), or on the card by the trainer's on-device step.
 """
 from __future__ import annotations
 
@@ -74,17 +74,23 @@ class GTOHaloImageDataset:
         return self.images[idx], self.labels[idx]
 
 
-def _epoch_iterator(images, labels, batch: int, seed: int, shuffle: bool = True) -> Iterator:
-    """Infinite batch iterator, reshuffled every epoch from ``seed``; a set
-    smaller than one batch is sampled with replacement."""
+def _epoch_iterator(images, labels, batch: int, seed: int, shuffle: bool = True,
+                    shard: Tuple[int, int] = (1, 0)) -> Iterator:
+    """Infinite batch iterator over one process's share, reshuffled every
+    epoch from ``seed``: with ``shard=(n_proc, proc_idx)`` each epoch's order
+    is cut to ``order[proc_idx::n_proc]``, as the JAX package's iterator does
+    (every process draws the same permutation).  A share smaller than one
+    batch is sampled with replacement from the whole set."""
+    n_proc, proc_idx = shard
     rng = np.random.default_rng(seed)
     n = images.shape[0]
     while True:
         order = rng.permutation(n) if shuffle else np.arange(n)
-        for i in range(0, n - batch + 1, batch):
+        order = order[proc_idx::n_proc]
+        for i in range(0, len(order) - batch + 1, batch):
             sel = order[i:i + batch]
             yield images[sel], labels[sel]
-        if n < batch:
+        if len(order) < batch:
             sel = rng.integers(0, n, size=batch)
             yield images[sel], labels[sel]
 
@@ -100,12 +106,20 @@ def load_arrays(config) -> Tuple[np.ndarray, np.ndarray]:
     return ds.images, ds.labels
 
 
-def get_dataset(config, evaluation: bool = False):
+def get_dataset(config, evaluation: bool = False, shard: Tuple[int, int] | None = None):
     """Infinite iterators of (images NCHW, labels) batches for one process:
     ``(train, eval)`` (seeds 0 and 1, shuffled), or with ``evaluation`` one
-    unshuffled iterator of evaluation batches (seed 7)."""
+    unshuffled iterator of evaluation batches (seed 7).  Batch sizes are
+    global: with ``shard=(n_proc, proc_idx)`` (default: this process's
+    world size and rank) each process yields its ``batch // n_proc`` rows
+    of its share of every epoch."""
+    from ..parallel.mesh import per_rank, rank, world_size
+    n_proc, proc = (world_size(), rank()) if shard is None else shard
     images, labels = load_arrays(config)
     if evaluation:
-        return _epoch_iterator(images, labels, config.eval.batch_size, seed=7, shuffle=False)
-    return (_epoch_iterator(images, labels, config.training.batch_size, seed=0),
-            _epoch_iterator(images, labels, config.eval.batch_size, seed=1))
+        return _epoch_iterator(images, labels, config.eval.batch_size // n_proc, seed=7,
+                               shuffle=False, shard=(n_proc, proc))
+    train_b = per_rank(config.training.batch_size, "Train", n_proc)
+    eval_b = per_rank(config.eval.batch_size, "Eval", n_proc)
+    return (_epoch_iterator(images, labels, train_b, seed=0, shard=(n_proc, proc)),
+            _epoch_iterator(images, labels, eval_b, seed=1, shard=(n_proc, proc)))

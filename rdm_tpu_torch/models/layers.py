@@ -51,10 +51,17 @@ def default_init_(weight: torch.Tensor, scale: float, fan_in: int, fan_out: int,
         weight.uniform_(-bound, bound, generator=generator)
 
 
+def uniform_draw(shape, generator: torch.Generator, device=None):
+    """U(0, 1) of ``shape`` from ``generator``: the one draw behind every mask
+    of the training forward (the label drop, then each dropout mask), whose
+    leading axis is the batch."""
+    return torch.rand(shape, generator=generator, device=device)
+
+
 def dropout_mask(shape, rate: float, generator: torch.Generator, device=None):
     """Keep mask of ``shape``: True with probability ``1 - rate``, drawn
     from ``generator``."""
-    return torch.rand(shape, generator=generator, device=device) < 1.0 - rate
+    return uniform_draw(shape, generator, device) < 1.0 - rate
 
 
 def apply_dropout(h, mask, rate: float):

@@ -28,6 +28,7 @@ from torch import nn
 
 from ..ops import resblock as rb_ops
 from ..ops.resize import nearest_resize
+from . import layers
 from .layers import (AttnBlockpp, Conv3x3, Dense, Downsample, GaussianFourierProjection,
                      GroupNorm, NIN, ResnetBlockDDPMpp, Upsample, default_init_, get_act,
                      group_count)
@@ -192,7 +193,7 @@ class NCSNpp(nn.Module):
         if train and generator is None:
             raise ValueError("training draws dropout and label-drop masks: pass a generator")
         if self.conditional and train and self.cond_drop_prob > 0:
-            drop = torch.rand((x.shape[0], 1), generator=generator, device=x.device)
+            drop = layers.uniform_draw((x.shape[0], 1), generator, x.device)
             mask = drop < self.cond_drop_prob
             class_labels = class_labels * (1.0 - mask.to(class_labels.dtype))
 

@@ -15,6 +15,7 @@ import functools
 import hashlib
 import os
 import subprocess
+import threading
 
 PACKAGE_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(PACKAGE_DIR, "csrc")
@@ -23,6 +24,9 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 # Shared memory one block may use on sm_90 (227 KB).
 SMEM_LIMIT = 232448
+# Serialises the first load of a library (and the typing of its functions):
+# the threads of a solve split over cards reach their first launch together.
+_LOAD_LOCK = threading.Lock()
 
 
 def find_nvcc() -> str:
@@ -57,7 +61,7 @@ def build(*names: str) -> list:
     for name, path in zip(names, paths):
         if not os.path.exists(path):
             os.makedirs(BUILD_DIR, exist_ok=True)
-            tmp = f"{path}.{os.getpid()}.tmp"
+            tmp = f"{path}.{os.getpid()}.{threading.get_ident()}.tmp"
             proc = subprocess.Popen([find_nvcc(), *NVCC_FLAGS, "-o", tmp,
                                      os.path.join(CSRC_DIR, name + ".cu")],
                                     stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
@@ -76,9 +80,15 @@ def build(*names: str) -> list:
     return paths
 
 
-@functools.lru_cache(maxsize=None)
 def load_library(name: str) -> ctypes.CDLL:
-    """Build ``csrc/<name>.cu`` if needed and load it."""
+    """Build ``csrc/<name>.cu`` if needed and load it, once a process: a
+    thread that calls while another builds waits for that build."""
+    with _LOAD_LOCK:
+        return _load(name)
+
+
+@functools.lru_cache(maxsize=None)
+def _load(name: str) -> ctypes.CDLL:
     return ctypes.CDLL(build(name)[0])
 
 
@@ -89,13 +99,15 @@ def library(name: str, fn_name: str, argtypes, extra=()):
     lib = load_library(name)
     fn = getattr(lib, fn_name)
     if fn.argtypes is None:
-        fn.argtypes = argtypes
-        fn.restype = ctypes.c_int
-        lib.rdm_cuda_error_string.argtypes = [ctypes.c_int]
-        lib.rdm_cuda_error_string.restype = ctypes.c_char_p
-        for fname, args, res in extra:
-            getattr(lib, fname).argtypes = args
-            getattr(lib, fname).restype = res
+        with _LOAD_LOCK:
+            if fn.argtypes is None:
+                fn.restype = ctypes.c_int
+                lib.rdm_cuda_error_string.argtypes = [ctypes.c_int]
+                lib.rdm_cuda_error_string.restype = ctypes.c_char_p
+                for fname, args, res in extra:
+                    getattr(lib, fname).argtypes = args
+                    getattr(lib, fname).restype = res
+                fn.argtypes = argtypes   # last: the check above reads it
     return lib
 
 

@@ -31,6 +31,7 @@ launches in ``.launches``.
 from __future__ import annotations
 
 import ctypes
+import threading
 
 import torch
 
@@ -233,6 +234,16 @@ def _check_shape(name, t, shape):
         raise ValueError(f"{name}: expected shape {tuple(shape)}, got {tuple(t.shape)}")
 
 
+# The solver's split over cards launches from a thread a card: the counts'
+# read-modify-write takes this lock.
+_COUNT_LOCK = threading.Lock()
+
+
+def _count(wrapper) -> None:
+    with _COUNT_LOCK:
+        wrapper.launches += 1
+
+
 def _launch(fn_name, argtypes, args, device):
     lib = _build.library(_SOURCE, fn_name, argtypes)
     with torch.cuda.device(device):
@@ -275,7 +286,7 @@ def shoot_legs(theta, tgt, spiral_end, thrust, n_segments, full=False):
                 [theta.data_ptr(), None if full else tgt.data_ptr(), spiral_end.data_ptr(),
                  float(thrust), int(n_segments), int(bool(full)), *consts(), out.data_ptr(),
                  finite.data_ptr(), M], theta.device)
-        shoot_legs.launches += 1
+        _count(shoot_legs)
     return out, finite.bool()
 
 
@@ -297,7 +308,7 @@ def manifold_target(state0, period, vstable, tau_frac, length):
     if M:
         _launch(f"rdm_manifold_target_{_SUFFIX[state0.dtype]}", [_P] * 5 + [_D] * 4 + [_P, _I, _P],
                 [t.data_ptr() for t in ins] + consts() + [out.data_ptr(), M], state0.device)
-        manifold_target.launches += 1
+        _count(manifold_target)
     return out
 
 
@@ -325,7 +336,7 @@ def shoot_jvp(theta, tgt, state0, period, vstable, spiral_end, thrust, n_segment
                 [t.data_ptr() for t in ins] + [float(thrust), int(n_segments), float(min_mani),
                                                float(max_mani), *consts(), J.data_ptr(), L],
                 theta.device)
-        shoot_jvp.launches += 1
+        _count(shoot_jvp)
     return J
 
 

@@ -43,8 +43,16 @@ vmap of a ``while_loop`` becomes one loop on the host over the lanes still
 active: each iteration reads back one "any lane active" flag, gathers the
 active lanes, and writes their new carry back; a finished lane's carry never
 changes.  On CPU tensors the kernels' plain versions run.
+
+Lanes are independent, so ``n_devices`` > 1 (the JAX package shards each
+tile over a mesh) splits each tile into contiguous parts, one per card,
+solved at once by a thread per card and concatenated: the result is that of
+one card, lane for lane.  The shooting kernels set no per-context launch
+attribute, so one process may drive them on several cards.
 """
 from __future__ import annotations
+
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
@@ -218,6 +226,45 @@ def _norm(x):
     return torch.sqrt(torch.sum(x * x, dim=-1))
 
 
+# Small matrices a batched linear-algebra call takes: every call takes exactly
+# this many, the last chunk padded with copies of its first matrix.
+_GRANULE = 4096
+
+
+def _fixed_batch(fn, *args):
+    """``fn`` over batches of small matrices (``args`` share their leading
+    axes; ``fn`` returns a tensor or a tuple of tensors with those leading
+    axes), called on chunks of exactly ``_GRANULE`` matrices.  The
+    libraries pick their algorithm, and so their rounding, by the batch's
+    size (a product or factorisation of one matrix rounds otherwise than
+    one in a batch of two, a float32 LU solve of 8,192 otherwise than one
+    of 4,096), so a lane's result would depend on how many lanes share the
+    call; with one batch size it does not, and a tile split over cards
+    solves each lane as one card does.  Every device takes the same chunks
+    (the CPU's batched routines loop over the matrices, so there they cost
+    only the padding)."""
+    nd = args[0].dim() - 2
+    lead = args[0].shape[:nd]
+    flat = [a.reshape(-1, *a.shape[nd:]) for a in args]
+    n = flat[0].shape[0]
+    if n == 0:
+        return fn(*args)
+    pad = -n % _GRANULE
+    if pad:
+        flat = [torch.cat([f, f[:1].expand(pad, *f.shape[1:])]) for f in flat]
+    outs = [fn(*(f[i:i + _GRANULE] for f in flat)) for i in range(0, n + pad, _GRANULE)]
+    single = not isinstance(outs[0], tuple)
+    cols = [[o] for o in outs] if single else outs
+    res = tuple(torch.cat(c)[:n].reshape(*lead, *c[0].shape[1:]) for c in zip(*cols))
+    return res[0] if single else res
+
+
+def _bmm(a, b):
+    """``a @ b`` over a batch of small matrices, rounded alike whatever the
+    batch's size (``_fixed_batch``)."""
+    return _fixed_batch(torch.matmul, a, b)
+
+
 def _gather(data, lanes, k=None):
     """Per-lane data for ``lanes``, repeated for k variants of each lane."""
     out = []
@@ -286,11 +333,11 @@ class _Problem:
         factorisation fails (that rung's cost is then inf and it is
         rejected), never an exception."""
         if self.dtype == torch.float64:
-            L, info = torch.linalg.cholesky_ex(A)
-            a = torch.cholesky_solve(b[..., None], L)[..., 0]
+            L, info = _fixed_batch(torch.linalg.cholesky_ex, A)
+            a = _fixed_batch(lambda rhs, f: torch.cholesky_solve(rhs, f), b[..., None], L)
         else:
-            a, info = torch.linalg.solve_ex(A, b[..., None])
-            a = a[..., 0]
+            a, info = _fixed_batch(torch.linalg.solve_ex, A, b[..., None])
+        a = a[..., 0]
         return torch.where((info != 0)[..., None], torch.full_like(a, float("nan")), a)
 
 
@@ -299,11 +346,11 @@ def _ladder(prob, J, theta, r, lam):
     [n, 8]) for J [n, m, 66], r [n, m]."""
     m = r.shape[-1]
     lambdas = lam[:, None] * (10.0 ** torch.arange(_N_LAMBDA, dtype=r.dtype, device=r.device))
-    JJt = J @ J.transpose(1, 2)
+    JJt = _bmm(J, J.transpose(1, 2))
     eye = torch.eye(m, dtype=r.dtype, device=r.device)
     A = JJt[:, None] + lambdas[..., None, None] * eye
     a = prob.solve(A, torch.broadcast_to(-r[:, None, :], (r.shape[0], _N_LAMBDA, m)))
-    d = a @ J                                                       # [n, 8, 66]
+    d = _bmm(a, J)                                                  # [n, 8, 66]
     return prob.clamp(theta[:, None, :] + d), lambdas
 
 
@@ -446,12 +493,12 @@ def _mass_rate(J, theta, lower, upper):
     re-project (the KKT-style stationarity diagnostic)."""
     n = theta.shape[0]
     Jt = J.transpose(1, 2)
-    JJt = J @ Jt + 1e-8 * torch.eye(NRES, dtype=J.dtype, device=J.device)
+    JJt = _bmm(J, Jt) + 1e-8 * torch.eye(NRES, dtype=J.dtype, device=J.device)
 
     def proj(v):
-        a, info = torch.linalg.solve_ex(JJt, (J @ v[..., None]))
+        a, info = _fixed_batch(torch.linalg.solve_ex, JJt, _bmm(J, v[..., None]))
         a = torch.where((info != 0)[:, None, None], torch.full_like(a, float("nan")), a)
-        return v - (Jt @ a)[..., 0]
+        return v - _bmm(Jt, a)[..., 0]
 
     e63 = torch.zeros(n, NVAR, dtype=J.dtype, device=J.device)
     e63[:, 63] = 1.0
@@ -521,6 +568,48 @@ def _solve_tile(g, energies, dev, use_f64, optimal, thrust, n_segments, max_iter
             host(terminal_mass), host(it, np.int64), host(stationarity), host(opt_gain))
 
 
+def solver_devices(device=None, n_devices: int = 1) -> list:
+    """The devices a solve splits each tile over: an explicit list or tuple
+    ``device`` as given (``["cpu", "cpu"]`` splits on the CPU); otherwise
+    the first ``n_devices`` cards (0: every card present), clamped to the
+    cards present, or the one device ``device`` names."""
+    if isinstance(device, (list, tuple)):
+        if not device:
+            raise ValueError("an empty device list")
+        return [torch.device(d) for d in device]
+    base = resolve_device(device)
+    count = torch.cuda.device_count() if base.type == "cuda" else 1
+    n = max(1, min(count if n_devices == 0 else int(n_devices), count))
+    return [base] if n == 1 else [torch.device("cuda", i) for i in range(n)]
+
+
+def _split_tile(devices, g, e, *args):
+    """``_solve_tile`` over contiguous parts of the lanes, one a device, each
+    card's in its own thread and on its own stream (inside
+    ``torch.cuda.device``: a part's read-backs then wait for its own work
+    only, also where two parts share a card); the parts' columns
+    concatenated in lane order.  Parts on the CPU run in turn: their
+    operations already use every core, and two threads of them contend."""
+    if len(devices) == 1:
+        return _solve_tile(g, e, devices[0], *args)
+    bounds = np.linspace(0, len(g), len(devices) + 1).round().astype(int)
+    jobs = [(d, lo, hi) for d, lo, hi in zip(devices, bounds[:-1], bounds[1:]) if hi > lo]
+
+    def solve(job):
+        d, lo, hi = job
+        if d.type != "cuda":
+            return _solve_tile(g[lo:hi], e[lo:hi], d, *args)
+        with torch.cuda.device(d), torch.cuda.stream(torch.cuda.Stream(d)):
+            return _solve_tile(g[lo:hi], e[lo:hi], d, *args)
+
+    if all(d.type == "cuda" for d, _, _ in jobs):
+        with ThreadPoolExecutor(max_workers=len(jobs)) as pool:
+            parts = list(pool.map(solve, jobs))
+    else:
+        parts = [solve(job) for job in jobs]
+    return tuple(np.concatenate(cols) for cols in zip(*parts))
+
+
 def refine_warmstarts_gpu(guesses: np.ndarray, halo_energies: np.ndarray,
                           thrust: float = 1.0, n_segments: int = 20,
                           start_bdry: float = 6.48423370092,
@@ -548,30 +637,29 @@ def refine_warmstarts_gpu(guesses: np.ndarray, halo_energies: np.ndarray,
     ``"df32"`` (or ``"f64"``) solves in float64 with a forward-difference
     Jacobian, ``"f32"`` in float32 with the forward-mode Jacobian.
     ``batch_tile`` bounds the lanes solved at once (memory); larger batches
-    run in tiles.  ``n_devices`` 0 or 1 is the one card.  ``mbh_rounds`` > 0
-    adds monotonic basin hopping of the still-infeasible lanes
-    (``oracle._mbh_loop``).  ``device`` is the card unless it names the CPU,
-    where the kernels' plain versions run."""
-    if n_devices not in (0, 1):
-        raise NotImplementedError(
-            f"n_devices={n_devices}: the solver runs on one card; data parallelism over "
-            "several is ROADMAP Queue A item 5")
+    run in tiles.  ``n_devices`` > 1 splits each tile over that many cards
+    (0: every card), clamped to the cards present; ``batch_tile`` is then
+    rounded up to a multiple of it.  ``mbh_rounds`` > 0 adds monotonic basin
+    hopping of the still-infeasible lanes (``oracle._mbh_loop``).
+    ``device`` is the card unless it names the CPU, where the kernels' plain
+    versions run; a list of devices splits each tile over them."""
     if str(precision) not in ("f32", "df32", "f64"):
         raise ValueError(f"precision {precision!r}: expected 'df32', 'f64' or 'f32'")
-    dev = resolve_device(device)
+    devices = solver_devices(device, n_devices)
     optimal = str(solver_mode) != "feasible"
     use_f64 = str(precision) != "f32"
     box = (float(max_shoot), float(max_coast), float(min_shoot), float(min_manifold_length),
            float(max_manifold_length), float(min_mass), float(max_mass))
     spiral_end64, _l1x, _e_l1 = _mission_constants(start_bdry)
     tile = max(1, int(batch_tile))
+    tile += -tile % len(devices)
 
     def _solve_once(guesses_in, energies_in):
         # the f32 path takes float32 warm starts, the f64 path the caller's values
         g = np.asarray(guesses_in, np.float64 if use_f64 else np.float32)
         e = np.asarray(energies_in, np.float64)
-        parts = [_solve_tile(g[lo:lo + tile, :NVAR], e[lo:lo + tile], dev, use_f64, optimal,
-                             thrust, n_segments, max_iters, tol, box, spiral_end64)
+        parts = [_split_tile(devices, g[lo:lo + tile, :NVAR], e[lo:lo + tile], use_f64,
+                             optimal, thrust, n_segments, max_iters, tol, box, spiral_end64)
                  for lo in range(0, len(g), tile)]
         (theta, cost, pos_err, vel_err, final_mass, terminal_mass, iters, stat,
          opt_gain) = (np.concatenate(cols) for cols in zip(*parts))

@@ -5,11 +5,19 @@
   with weight = sigma^2 (or g^2 under likelihood weighting), summed over the
   dimensions times 0.5 when ``reduce_mean`` is off, averaged over the batch.
   ``t`` and ``z`` can be passed in instead of drawn.
-* optimizer: global-norm clipping, then Adam, then the linear warmup of the
-  learning rate, with optax's semantics (``ClipAdamWarmup``).
+* optimizer: global-norm clipping, then Adam, then weight decay, then the
+  linear warmup of the learning rate, with optax's semantics
+  (``ClipAdamWarmup``).
 * update: skipped when the loss or a gradient is not finite; the parameters,
   the optimizer's moments and counts, and the EMA stay as they were and only
   ``step`` advances.
+* remat: ``"dots"`` and ``"full"`` recompute the score network's forward in
+  the backward pass (``torch.utils.checkpoint``); the gradients are those of
+  ``"none"``.
+* data parallelism: in a process group of more than one rank the training
+  step averages the loss and the gradients over the ranks (one all-reduce)
+  before the guarded update, so every rank takes the same decision and the
+  same update: one global batch, one step.
 
 The step functions update the ``TrainState`` in place.  Each does one host
 synchronisation, to read whether the step is finite and the gradient norm.
@@ -18,10 +26,15 @@ indices) comes from the ``torch.Generator`` the caller passes.
 """
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 import torch
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from ..ops import cube
+from ..parallel import mesh
 
 f32 = np.float32
 
@@ -32,14 +45,16 @@ def _bcast(v, x):
 
 class ClipAdamWarmup:
     """optax's ``chain(clip_by_global_norm(grad_clip), scale_by_adam(beta1,
-    beta2, eps), scale_by_schedule(-lr * min(count / warmup, 1)))`` followed
-    by ``apply_updates``, in float32:
+    beta2, eps), add_decayed_weights(weight_decay), scale_by_schedule(-lr *
+    min(count / warmup, 1)))`` followed by ``apply_updates``, in float32:
 
     * clipping scales every gradient by ``max_norm / norm`` (as
       ``(g / norm) * max_norm``) when ``norm >= max_norm``;
     * Adam keeps ``mu``, ``nu`` and ``count`` and returns
       ``mu_hat / (sqrt(nu_hat) + eps)`` with the bias corrections of
       ``count + 1``;
+    * weight decay adds ``weight_decay * p`` (the parameters before the
+      update) to Adam's output, so a step is ``-lr_t (adam + wd p)``;
     * the schedule reads the count of updates applied so far
       (``schedule_count``), so the first update has learning rate 0 under
       warmup.
@@ -49,12 +64,14 @@ class ClipAdamWarmup:
     """
 
     def __init__(self, named_params, lr: float, warmup: int = 0, beta1: float = 0.9,
-                 beta2: float = 0.999, eps: float = 1e-8, grad_clip: float = -1.0):
+                 beta2: float = 0.999, eps: float = 1e-8, grad_clip: float = -1.0,
+                 weight_decay: float = 0.0):
         self.names = [n for n, _ in named_params]
         self.params = [p for _, p in named_params]
         self.lr, self.warmup = float(lr), int(warmup)
         self.beta1, self.beta2, self.eps = float(beta1), float(beta2), float(eps)
         self.grad_clip = float(grad_clip)
+        self.weight_decay = float(weight_decay)
         self.count = 0
         self.schedule_count = 0
         self.mu = [torch.zeros_like(p, memory_format=torch.contiguous_format)
@@ -100,6 +117,8 @@ class ClipAdamWarmup:
         torch._foreach_add_(denom, self.eps)
         upd = torch._foreach_div(self.mu, bc1)
         torch._foreach_div_(upd, denom)
+        if self.weight_decay:
+            torch._foreach_add_(upd, torch._foreach_mul(self.params, self.weight_decay))
         torch._foreach_mul_(upd, -self.learning_rate(self.schedule_count))
         self.schedule_count += 1
         torch._foreach_add_(self.params, upd)
@@ -119,25 +138,69 @@ class ClipAdamWarmup:
 
 
 def get_optimizer(config, named_params) -> ClipAdamWarmup:
-    """The optimizer of ``config.optim`` over ``named_params``."""
+    """The optimizer of ``config.optim`` over ``named_params``.  ``Adam`` and
+    ``AdamW`` are one chain, as in the JAX package: the decay is added to
+    Adam's output in both (for ``Adam`` that is not torch's L2 on the
+    gradients)."""
     opt = config.optim
     if opt.optimizer not in ("Adam", "AdamW"):
         raise NotImplementedError(f"Optimizer {opt.optimizer} not supported yet!")
-    if opt.get("weight_decay", 0):
-        raise NotImplementedError("weight decay is not ported (every config runs 0)")
     return ClipAdamWarmup(named_params, lr=opt.lr, warmup=opt.get("warmup", 0),
                           beta1=opt.beta1, beta2=opt.beta2, eps=float(opt.eps),
-                          grad_clip=opt.get("grad_clip", -1))
+                          grad_clip=opt.get("grad_clip", -1),
+                          weight_decay=float(opt.get("weight_decay", 0) or 0))
+
+
+# Ops whose outputs the "dots" policy keeps: products and convolutions, as
+# JAX's checkpoint_dots keeps dot_general and conv_general_dilated.  The
+# fused-block kernels are not aten ops, so like the Pallas calls in JAX they
+# are recomputed.
+_DOTS = {torch.ops.aten.mm, torch.ops.aten.addmm, torch.ops.aten.bmm, torch.ops.aten.baddbmm,
+         torch.ops.aten.convolution, torch.ops.aten._convolution}
+REMAT_POLICIES = ("none", "dots", "full")
+
+
+def _save_dots(ctx, op, *args, **kwargs):
+    return (CheckpointPolicy.MUST_SAVE if op.overloadpacket in _DOTS
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def _remat_score(model, remat: str, perturbed, time_cond, class_labels, generator):
+    """The training forward under ``torch.utils.checkpoint``: ``"full"``
+    saves nothing of it, ``"dots"`` the outputs of products and convolutions.
+    The dropout and label-drop masks come from ``generator``, whose state
+    checkpoint does not keep: the recompute runs from the generator's state
+    at the forward and puts back the state it found, so it draws the same
+    masks and the generator ends where one forward leaves it."""
+    start = generator.get_state()
+    runs = []
+
+    def forward(perturbed, time_cond, class_labels):
+        if not runs:
+            runs.append(1)
+            return model(perturbed, time_cond, class_labels, train=True, generator=generator)
+        after = generator.get_state()
+        generator.set_state(start)
+        try:
+            return model(perturbed, time_cond, class_labels, train=True, generator=generator)
+        finally:
+            generator.set_state(after)
+
+    context_fn = (functools.partial(create_selective_checkpoint_contexts, _save_dots)
+                  if remat == "dots" else None)
+    kwargs = {"context_fn": context_fn} if context_fn is not None else {}
+    return checkpoint(forward, perturbed, time_cond, class_labels, use_reentrant=False,
+                      **kwargs)
 
 
 def get_loss_fn(sde, train: bool, reduce_mean: bool = True,
                 likelihood_weighting: bool = True, eps: float = 1e-5, remat: str = "none"):
     """Returns ``loss_fn(model, batch, class_labels, generator, t=None,
     z=None) -> scalar``; ``t`` and ``z`` replace the draws when given.
-    ``remat`` takes only ``"none"`` (the JAX package's recompute policies
-    are not ported)."""
-    if remat != "none":
-        raise NotImplementedError(f"remat policy {remat!r} is not ported (only 'none')")
+    ``remat`` (``"none"``, ``"dots"``, ``"full"``) recomputes the training
+    forward in the backward pass; it does not change the result."""
+    if remat not in REMAT_POLICIES:
+        raise ValueError(f"remat policy {remat!r}: expected one of {REMAT_POLICIES}")
 
     def loss_fn(model, batch, class_labels, generator, t=None, z=None):
         B = batch.shape[0]
@@ -150,8 +213,11 @@ def get_loss_fn(sde, train: bool, reduce_mean: bool = True,
         mean, std = sde.marginal_prob(batch, t)
         perturbed = cube.reflect(mean + _bcast(std, batch) * z)
         _, time_cond = sde.marginal_prob(torch.zeros_like(batch), t)
-        score = model(perturbed, time_cond, class_labels, train=train,
-                      generator=generator if train else None)
+        if train and remat != "none":
+            score = _remat_score(model, remat, perturbed, time_cond, class_labels, generator)
+        else:
+            score = model(perturbed, time_cond, class_labels, train=train,
+                          generator=generator if train else None)
         target = cube.score_hk(perturbed, mean, std)
         if likelihood_weighting:
             _, g = sde.sde(torch.zeros_like(batch), t)
@@ -179,15 +245,23 @@ def guarded_update(state, loss, grads) -> bool:
 
 def make_train_step(sde, reduce_mean=False, likelihood_weighting=False, remat="none"):
     """``step_fn(state, batch, class_labels, generator, t=None, z=None) ->
-    loss``: gradients, the guarded update and the EMA step."""
+    loss``: gradients, the guarded update and the EMA step.  In a process
+    group of more than one rank (``parallel.mesh``, read when the step is
+    made) ``batch`` is this rank's share of the global batch, and the loss
+    and gradients are averaged over the ranks before the update; the loss
+    returned is the average."""
     loss_fn = get_loss_fn(sde, train=True, reduce_mean=reduce_mean,
                           likelihood_weighting=likelihood_weighting, remat=remat)
+    data_parallel = mesh.world_size() > 1
 
     def step_fn(state, batch, class_labels, generator, t=None, z=None):
         loss = loss_fn(state.model, batch, class_labels, generator, t=t, z=z)
-        grads = torch.autograd.grad(loss, state.params)
-        guarded_update(state, loss, list(grads))
-        return loss.detach()
+        grads = list(torch.autograd.grad(loss, state.params))
+        loss = loss.detach()
+        if data_parallel:
+            mesh.all_reduce_mean_([loss, *grads])
+        guarded_update(state, loss, grads)
+        return loss
 
     return step_fn
 
@@ -197,7 +271,9 @@ def make_train_step_on_device(sde, use_labels: bool, batch_size: int, reduce_mea
     """``step_fn(state, images, labels, generator) -> loss`` over a dataset
     resident on the device: the batch indices are drawn uniformly with
     replacement from ``generator`` and the batch is gathered there, so
-    nothing but the generator's state crosses from the host."""
+    nothing but the generator's state crosses from the host.  Under data
+    parallelism ``batch_size`` is the rank's share and each rank draws from
+    its own generator."""
     train_step = make_train_step(sde, reduce_mean=reduce_mean,
                                  likelihood_weighting=likelihood_weighting, remat=remat)
 

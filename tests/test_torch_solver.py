@@ -98,8 +98,18 @@ def test_mbh_hops_only_the_stuck_lanes(near):
 
 def test_argument_rules(monkeypatch):
     G, H = np.full((1, 66), 0.5), np.array([0.05])
-    with pytest.raises(NotImplementedError, match="Queue A item 5"):
-        sg.refine_warmstarts_gpu(G, H, n_devices=2, device="cpu")
+    # n_devices is clamped to the cards present (0: all of them); a list of
+    # devices is taken as given; the CPU is one device
+    cpu = torch.device("cpu")
+    assert sg.solver_devices("cpu", 2) == [cpu]
+    assert sg.solver_devices(["cpu", "cpu"], 1) == [cpu, cpu]
+    with monkeypatch.context() as m:
+        m.setattr(torch.cuda, "is_available", lambda: True)
+        m.setattr(torch.cuda, "device_count", lambda: 4)
+        assert sg.solver_devices(None, 0) == [torch.device("cuda", i) for i in range(4)]
+        assert sg.solver_devices(None, 8) == [torch.device("cuda", i) for i in range(4)]
+        assert sg.solver_devices(None, 2) == [torch.device("cuda", 0), torch.device("cuda", 1)]
+        assert sg.solver_devices(None, 1) == [torch.device("cuda")]
     with pytest.raises(ValueError, match="precision"):
         sg.refine_warmstarts_gpu(G, H, precision="bf16", device="cpu")
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)

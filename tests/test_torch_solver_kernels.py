@@ -3,8 +3,9 @@
 On the CPU: the wrappers' input checks, that a CPU tensor takes the plain
 version without counting a launch, and the bound's operation counts.
 On the card (marker ``gpu``): each kernel against its plain version on
-seeded round-2 lanes, two runs bit for bit, and a small solve on the card
-against the same solve on the CPU.  The kernels contract multiplies and
+seeded round-2 lanes, two runs bit for bit, a small solve on the card
+against the same solve on the CPU, and a solve split over two parts of the
+card from an empty build directory against the unsplit one.  The kernels contract multiplies and
 adds into FMAs and the CR3BP arcs amplify a rounding by their sensitivity,
 so kernel and plain version are held on quantiles of the per-row error, as
 ``chip_smoke.py`` holds them (its SHOOT_TOL states the reasons)."""
@@ -160,3 +161,26 @@ def test_solve_on_the_card_matches_the_cpu(cuda_device):
                                    device="cpu")
     np.testing.assert_array_equal(card["feasible"], cpu["feasible"])
     np.testing.assert_allclose(card["cost"], cpu["cost"], rtol=0, atol=1e-6)
+
+
+@pytest.mark.gpu
+def test_split_on_a_fresh_build_directory(cuda_device, tmp_path, monkeypatch):
+    """A solve split over two parts of the card whose threads both reach the
+    shooting library's first use in an empty build directory: one build,
+    and the result of the unsplit solve lane for lane."""
+    from rdm_tpu_torch.ops import _build
+    physical = np.load(ROUND2)
+    G, H = physical[:8, 1:], physical[:8, 0]
+    kw = dict(max_iters=2, solver_mode="feasible", precision="df32")
+    monkeypatch.setattr(_build, "BUILD_DIR", str(tmp_path))
+    _build._load.cache_clear()
+    try:
+        card = torch.device("cuda", 0)
+        split = sg.refine_warmstarts_gpu(G, H, device=[card, card], **kw)
+    finally:
+        _build._load.cache_clear()
+    assert [f for f in os.listdir(tmp_path) if f.endswith(".so")] == [
+        os.path.basename(_build.library_path("cr3bp_shoot"))]
+    one = sg.refine_warmstarts_gpu(G, H, device=card, **kw)
+    for k in one:
+        np.testing.assert_array_equal(np.asarray(split[k]), np.asarray(one[k]), err_msg=k)
