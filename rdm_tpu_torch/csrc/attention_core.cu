@@ -44,6 +44,7 @@
 #include "attn_common.cuh"
 #include "attn_mma.cuh"
 #include "tma.cuh"
+#include "smem_attr.cuh"
 
 namespace {
 
@@ -105,9 +106,9 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o, int B, 
                                        + static_cast<size_t>(R) * (C + 1));
   auto kern = attention_core_kernel<T, kScoresInT>;
   // The most shared memory any shape takes (the launcher caps R so that
-  // L = C = 128 fits), set once per instantiation.
-  static const cudaError_t attr = cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, 232448);
+  // L = C = 128 fits), set once per instantiation and card.
+  static SmemAttr smem_attr;
+  const cudaError_t attr = smem_attr.apply(reinterpret_cast<const void*>(kern), 232448);
   if (attr != cudaSuccess) return attr;
   if (smem > 232448) return cudaErrorInvalidValue;
   kern<<<B, kThreads, smem, stream>>>(static_cast<const T*>(q), static_cast<const T*>(k),
@@ -218,8 +219,8 @@ cudaError_t launch_mma(const void* q, const void* k, const void* v, void* o, int
   constexpr int smem = core_smem_bytes(NT, CT);
   static_assert(smem <= 232448, "the ring does not fit");
   const int threads = 32 * (core_groups(NT, CT) * ((L + 15) / 16) + 1);
-  static const cudaError_t attr =
-      cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  static SmemAttr smem_attr;
+  const cudaError_t attr = smem_attr.apply(reinterpret_cast<const void*>(kern), smem);
   if (attr != cudaSuccess) return attr;
   CUtensorMap maps[3];
   const cuuint64_t dims[3] = {static_cast<cuuint64_t>(C), static_cast<cuuint64_t>(L),

@@ -48,6 +48,7 @@
 #include "attn_common.cuh"
 #include "attn_mma.cuh"
 #include "tma.cuh"
+#include "smem_attr.cuh"
 
 namespace {
 
@@ -181,10 +182,10 @@ cudaError_t launch(const void* x, void* out, const void* const* p, int B, int L,
   auto kern = fused_attn_block_kernel<T, C>;
   // The most any shape may take beside the static statistics
   // (ops/attention.py: rows_per_chunk keeps each within it), set once per
-  // instantiation.
+  // instantiation and card.
   constexpr int limit = kSmemLimit - 2 * C * static_cast<int>(sizeof(float));
-  static const cudaError_t attr =
-      cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, limit);
+  static SmemAttr smem_attr;
+  const cudaError_t attr = smem_attr.apply(reinterpret_cast<const void*>(kern), limit);
   if (attr != cudaSuccess) return attr;
   if (smem > static_cast<size_t>(limit)) return cudaErrorInvalidValue;
   kern<<<B, kThreads, smem, stream>>>(
@@ -466,8 +467,8 @@ cudaError_t launch_tc(const void* x, void* out, const void* const* p, int B, int
   auto kern = fused_attn_block_tc_kernel<NT>;
   constexpr int smem = tc_smem_bytes(NT, 16 * NT);
   static_assert(smem <= kSmemLimit, "the ring does not fit");
-  static const cudaError_t attr =
-      cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  static SmemAttr smem_attr;
+  const cudaError_t attr = smem_attr.apply(reinterpret_cast<const void*>(kern), smem);
   if (attr != cudaSuccess) return attr;
   int dev = 0, sms = 0;
   cudaError_t err = cudaGetDevice(&dev);

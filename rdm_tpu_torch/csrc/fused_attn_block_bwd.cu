@@ -110,6 +110,7 @@
 #include "attn_common.cuh"
 #include "attn_mma.cuh"
 #include "tma.cuh"
+#include "smem_attr.cuh"
 
 #include <cstddef>
 
@@ -465,9 +466,9 @@ cudaError_t launch(const void* x, const void* g, void* dx, const void* const* p,
   const size_t smem = sizeof(float) * static_cast<size_t>(lay.smem_floats);
   auto kern = fused_attn_block_bwd_kernel<T, C>;
   // the most any shape may take (make_layout keeps each within it), set once
-  // per instantiation
-  static const cudaError_t attr =
-      cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemBytes);
+  // per instantiation and card
+  static SmemAttr smem_attr;
+  const cudaError_t attr = smem_attr.apply(reinterpret_cast<const void*>(kern), kSmemBytes);
   if (attr != cudaSuccess) return attr;
   kern<<<n_slots, kThreads, smem, stream>>>(
       static_cast<const T*>(x), static_cast<const T*>(g), static_cast<T*>(dx),
@@ -1114,8 +1115,8 @@ cudaError_t launch_tc(const void* x, const void* g, void* dx, const void* const*
                       float* slots, int B, int L, int groups, float eps, float scale,
                       float rescale, cudaStream_t stream) {
   auto kern = fused_attn_block_bwd_tc_kernel<NT>;
-  static const cudaError_t attr =
-      cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, kTcSmemLimit);
+  static SmemAttr smem_attr;
+  const cudaError_t attr = smem_attr.apply(reinterpret_cast<const void*>(kern), kTcSmemLimit);
   if (attr != cudaSuccess) return attr;
   const int stages = tc_stages(NT, L);
   const int n_slots = B < kSlots ? B : kSlots;

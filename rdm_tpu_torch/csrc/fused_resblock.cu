@@ -60,6 +60,7 @@
 #include "attn_common.cuh"
 #include "attn_mma.cuh"
 #include "tma.cuh"
+#include "smem_attr.cuh"
 
 namespace {
 
@@ -318,10 +319,10 @@ cudaError_t launch(const void* x, const void* tembv, void* out, const void* cons
                    int cin, int groups0, int groups1, float eps, float rescale,
                    cudaStream_t stream) {
   auto kern = fused_resblock_kernel<T, H>;
-  // The largest shared memory any C_in needs, set once per instantiation.
-  static const cudaError_t attr = cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem_bytes<T, H>(256)));
+  // The largest shared memory any C_in needs, set once per instantiation and card.
+  static SmemAttr smem_attr;
+  const cudaError_t attr = smem_attr.apply(reinterpret_cast<const void*>(kern),
+                                           static_cast<int>(smem_bytes<T, H>(256)));
   if (attr != cudaSuccess) return attr;
   const int blocks = (B + Shape<H>::S - 1) / Shape<H>::S;
   kern<<<blocks, kThreads, smem_bytes<T, H>(cin), stream>>>(
@@ -900,9 +901,9 @@ cudaError_t launch_tc(const void* x, const void* tembv, void* out, const void* c
   auto kern = fused_resblock_tc_kernel<H>;
   const TcPlan plan = tc_plan<H>(cin);
   if (plan.stages < 1) return cudaErrorInvalidValue;
-  // The most any shape may take, set once per instantiation.
-  static const cudaError_t attr =
-      cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemLimit);
+  // The most any shape may take, set once per instantiation and card.
+  static SmemAttr smem_attr;
+  const cudaError_t attr = smem_attr.apply(reinterpret_cast<const void*>(kern), kSmemLimit);
   if (attr != cudaSuccess) return attr;
   int dev = 0, sms = 0;
   cudaError_t err = cudaGetDevice(&dev);

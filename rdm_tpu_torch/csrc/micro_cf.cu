@@ -66,6 +66,7 @@
 
 #include "mma_ptx.cuh"
 #include "tma.cuh"
+#include "smem_attr.cuh"
 
 namespace {
 
@@ -530,9 +531,9 @@ int rdm_cf_dots(const void* w, const void* x, void* y, int taps, int K, int N, i
       stages < kConsumers || stages % kConsumers != 0 || smem < dots_smem_needed(taps, K, stages) ||
       smem > kSmemLimit)
     return static_cast<int>(cudaErrorInvalidValue);
-  // The most any shape may take, set once.
-  static const cudaError_t attr = cudaFuncSetAttribute(
-      dots_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemLimit);
+  // The most any shape may take, set once per card.
+  static SmemAttr smem_attr;
+  const cudaError_t attr = smem_attr.apply(reinterpret_cast<const void*>(dots_kernel), kSmemLimit);
   if (attr != cudaSuccess) return static_cast<int>(attr);
   CUtensorMap tmap_w, tmap_x;
   if (!tensor_map_2d(&tmap_w, w, taps * kRows, K, kRows) || !tensor_map_2d(&tmap_x, x, K, N, K))

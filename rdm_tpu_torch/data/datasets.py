@@ -1,4 +1,5 @@
-"""The GTO halo training data, in NCHW.
+"""The training data, in NCHW: the GTO halo set, and the image sets of the
+other model families (CIFAR-10, ImageNet32, ImageNet64C).
 
 The training set is a pickle of [N, 67] float32 rows, each a trajectory's
 parameters normalised to [0, 1].  Preprocessing follows the reference:
@@ -8,13 +9,21 @@ parameters normalised to [0, 1].  Preprocessing follows the reference:
   reference's constants 0.4652 / 0.1811 by default; the flagship run sets
   0 / 1 and so trains on the unit cube), reshape to (1, 9, 9).
 
-The whole set is a few tens of MB, so it is held as arrays and batches are
+The image sets are read whole into float arrays in [0, 1]: CIFAR-10 from
+its ``cifar-10-batches-py`` pickles, the ImageNet sets from folders of
+image files under ``config.dataroot`` (PIL, imported only there).
+Unconditional sets get zero labels [N, 1]; ImageNet64C's labels are the
+class indices [N, 1] from its ``dataset.json``.
+
+The GTO set is a few tens of MB, so it is held as arrays and batches are
 gathered from them: on the host by ``get_dataset``'s epoch iterators (the
 same numpy seeds and per-process shares, and so the same batches, as the
 JAX package's), or on the card by the trainer's on-device step.
 """
 from __future__ import annotations
 
+import json
+import os
 import pickle
 import warnings
 from typing import Iterator, Tuple
@@ -74,6 +83,53 @@ class GTOHaloImageDataset:
         return self.images[idx], self.labels[idx]
 
 
+def load_cifar10(dataroot: str, train: bool = True):
+    """CIFAR-10 from the ``cifar-10-batches-py`` pickles: (images [N, 3, 32,
+    32] float32 in [0, 1], labels [N, 1] float32)."""
+    base = os.path.join(dataroot, "cifar-10-batches-py")
+    files = [f"data_batch_{i}" for i in range(1, 6)] if train else ["test_batch"]
+    xs, ys = [], []
+    for name in files:
+        with open(os.path.join(base, name), "rb") as f:
+            d = pickle.load(f, encoding="bytes")
+        xs.append(np.asarray(d[b"data"], np.uint8))
+        ys.append(np.asarray(d[b"labels"], np.int64))
+    x = np.concatenate(xs).reshape(-1, 3, 32, 32)
+    y = np.concatenate(ys)[:, None].astype(np.float32)
+    return x.astype(np.float32) / 255.0, y
+
+
+def _pil_image():
+    try:
+        from PIL import Image
+    except ImportError as e:
+        raise ImportError("the ImageNet folder datasets read image files with PIL "
+                          "(the Pillow package), which is not installed") from e
+    return Image
+
+
+def _read_rgb(Image, path) -> np.ndarray:
+    with Image.open(path) as im:
+        return np.asarray(im.convert("RGB"), np.float32).transpose(2, 0, 1) / 255.0
+
+
+def load_image_folder(root: str) -> np.ndarray:
+    """Every image file of ``root``, by sorted name: [N, 3, H, W] float32 in
+    [0, 1]."""
+    Image = _pil_image()
+    return np.stack([_read_rgb(Image, os.path.join(root, p)) for p in sorted(os.listdir(root))])
+
+
+def load_image_folder_class(root: str):
+    """The images and labels that ``root/dataset.json`` lists (``{"labels":
+    [[file, class], ...]}``): ([N, 3, H, W], [N, 1] float32)."""
+    Image = _pil_image()
+    with open(os.path.join(root, "dataset.json")) as f:
+        pairs = json.load(f)["labels"]
+    imgs = [_read_rgb(Image, os.path.join(root, rel)) for rel, _ in pairs]
+    return np.stack(imgs), np.asarray([label for _, label in pairs], np.float32)[:, None]
+
+
 def _epoch_iterator(images, labels, batch: int, seed: int, shuffle: bool = True,
                     shard: Tuple[int, int] = (1, 0)) -> Iterator:
     """Infinite batch iterator over one process's share, reshuffled every
@@ -95,15 +151,27 @@ def _epoch_iterator(images, labels, batch: int, seed: int, shuffle: bool = True,
             yield images[sel], labels[sel]
 
 
-def load_arrays(config) -> Tuple[np.ndarray, np.ndarray]:
-    """The whole training set as (images NCHW, labels) numpy arrays."""
+def load_arrays(config, evaluation: bool = False) -> Tuple[np.ndarray, np.ndarray]:
+    """The whole training (or, with ``evaluation``, validation) set as
+    (images NCHW, labels) numpy arrays; the GTO set has one split."""
     name = config.data.dataset
-    if name != "GTOHaloImage":
-        raise NotImplementedError(f"dataset {name} is not ported (only GTOHaloImage)")
-    ds = GTOHaloImageDataset(config.data.pkl_path,
-                             mean=config.data.get("gto_mean", GTO_MEAN),
-                             std=config.data.get("gto_std", GTO_STD))
-    return ds.images, ds.labels
+    if name == "GTOHaloImage":
+        ds = GTOHaloImageDataset(config.data.pkl_path,
+                                 mean=config.data.get("gto_mean", GTO_MEAN),
+                                 std=config.data.get("gto_std", GTO_STD))
+        return ds.images, ds.labels
+    if name == "CIFAR10":
+        return load_cifar10(config.dataroot, train=not evaluation)
+    if name == "ImageNet32":
+        split = "valid_32x32" if evaluation else "train_32x32"
+        images = load_image_folder(os.path.join(config.dataroot, "ds_imagenet", split))
+        return images, np.zeros((len(images), 1), np.float32)
+    if name == "ImageNet64C":
+        split = "valid" if evaluation else "train"
+        return load_image_folder_class(os.path.join(config.dataroot, "imagenet-64x64", split))
+    if name == "GTOHalo":
+        raise NotImplementedError("the 1-D GTOHalo set (the legacy pipeline) is not ported")
+    raise ValueError(f"{name} is not valid")
 
 
 def get_dataset(config, evaluation: bool = False, shard: Tuple[int, int] | None = None):
@@ -115,7 +183,7 @@ def get_dataset(config, evaluation: bool = False, shard: Tuple[int, int] | None 
     of its share of every epoch."""
     from ..parallel.mesh import per_rank, rank, world_size
     n_proc, proc = (world_size(), rank()) if shard is None else shard
-    images, labels = load_arrays(config)
+    images, labels = load_arrays(config, evaluation=evaluation)
     if evaluation:
         return _epoch_iterator(images, labels, config.eval.batch_size // n_proc, seed=7,
                                shuffle=False, shard=(n_proc, proc))

@@ -13,15 +13,26 @@
   ``time_embed.W``, which does not train.
 * ``jax_tree_from_state_dict`` is the inverse of ``state_dict_from_jax``:
   the Flax ``params`` tree as nested dicts of float32 numpy arrays.
+* ``adm_state_dict_from_jax`` / ``vdm_state_dict_from_jax`` do the same for
+  the JAX package's ADM (``WrappedADM``, or the bare ``ADM``) and VDM trees,
+  and ``adm_tree_from_state_dict`` / ``vdm_tree_from_state_dict`` invert
+  them.  EDM convs are HWIO there and OIHW here, EDM linears (in, out) and
+  (out, in); ADM's GroupNorms nest a Flax ``gn``; VDM's ``enc.N``/``dec.N``
+  interleave resblocks and attention blocks when attention is on, where the
+  JAX package names them ``encK``/``enc_attnK``.  The buffers
+  ``resample_filter`` and ``freqs`` are in neither.
+* ``FAMILIES`` names each model's pair, for checkpoints.
 """
 from __future__ import annotations
+
+import re
 
 import numpy as np
 import torch
 
 
 def _t(v) -> torch.Tensor:
-    return torch.from_numpy(np.ascontiguousarray(np.asarray(v, dtype=np.float32)))
+    return torch.from_numpy(np.array(v, dtype=np.float32, order="C"))
 
 
 def _conv(node, prefix, out):
@@ -123,11 +134,14 @@ def ema_state_dict(model_sd: dict, shadow_list) -> dict:
     return out
 
 
-def adam_state_from_jax(count, mu: dict, nu: dict, schedule_count) -> dict:
+def adam_state_from_jax(count, mu: dict, nu: dict, schedule_count,
+                        model_name: str = "ncsnpp") -> dict:
     """The JAX package's optax Adam state (numpy trees) as the state dict of
     the port's optimizer (``training.losses.ClipAdamWarmup``)."""
+    from_jax = FAMILIES[model_name][0]
+
     def moments(tree):
-        sd = state_dict_from_jax(tree)
+        sd = from_jax(tree)
         return {k: v for k, v in sd.items() if k != "time_embed.W"}
 
     return {"count": int(count), "schedule_count": int(schedule_count),
@@ -189,3 +203,140 @@ def jax_tree_from_state_dict(sd: dict) -> dict:
         name, value = _flax_leaf(leaf, tensor.detach().cpu().numpy().astype(np.float32))
         node[name] = np.ascontiguousarray(value)
     return tree
+
+
+# ---------------------------------------------------------------------------
+# ADM and VDM
+
+def _walk(tree: dict, path=()):
+    """(path, array) of every leaf of a nested dict."""
+    for key, value in tree.items():
+        if isinstance(value, dict):
+            yield from _walk(value, path + (key,))
+        else:
+            yield path + (key,), np.asarray(value)
+
+
+def _edm_to_torch(leaf: str, value: np.ndarray) -> tuple:
+    """A Flax EDM leaf as its state-dict leaf: HWIO -> OIHW, (in, out) ->
+    (out, in), GroupNorm scale -> weight."""
+    if leaf == "scale":
+        return "weight", value
+    if leaf == "weight" and value.ndim == 4:
+        return leaf, value.transpose(3, 2, 0, 1)
+    if leaf == "weight" and value.ndim == 2:
+        return leaf, value.T
+    return leaf, value
+
+
+def _edm_to_flax(leaf: str, value: np.ndarray, norm: bool) -> tuple:
+    if norm:
+        return ("scale" if leaf == "weight" else leaf), value
+    if leaf == "weight" and value.ndim == 4:
+        return leaf, value.transpose(2, 3, 1, 0)
+    if leaf == "weight" and value.ndim == 2:
+        return leaf, value.T
+    return leaf, value
+
+
+def _put(tree: dict, path, value) -> None:
+    node = tree
+    for name in path[:-1]:
+        node = node.setdefault(name, {})
+    node[path[-1]] = np.ascontiguousarray(value, dtype=np.float32)
+
+
+def _numpy(tensor) -> np.ndarray:
+    return tensor.detach().cpu().numpy().astype(np.float32)
+
+
+def _unwrap(sd: dict, prefix: str) -> tuple:
+    """(keys without ``prefix``, whether every key had it)."""
+    wrapped = bool(sd) and all(k.startswith(prefix) for k in sd)
+    return ({k[len(prefix):]: v for k, v in sd.items()} if wrapped else sd), wrapped
+
+
+def adm_state_dict_from_jax(params: dict) -> dict:
+    """ADM Flax params (``WrappedADM``'s ``{"model": ...}`` or a bare
+    ``ADM``'s) -> the port's state dict (``model.``-prefixed for the
+    wrapper)."""
+    wrapped = set(params) == {"model"}
+    out: dict = {}
+    for path, value in _walk(params["model"] if wrapped else params):
+        path = [p for p in path if p != "gn"]
+        head = path[0]
+        if head.startswith(("enc_", "dec_")):
+            path = [head[:3], head[4:]] + path[1:]
+        leaf, value = _edm_to_torch(path[-1], value)
+        out[("model." if wrapped else "") + ".".join(path[:-1] + [leaf])] = _t(value)
+    return out
+
+
+def adm_tree_from_state_dict(sd: dict) -> dict:
+    """The port's ADM state dict -> the JAX package's Flax params tree;
+    the inverse of ``adm_state_dict_from_jax``."""
+    sd, wrapped = _unwrap(sd, "model.")
+    tree: dict = {}
+    for key, tensor in sd.items():
+        *mods, leaf = key.split(".")
+        if mods[0] in ("enc", "dec"):
+            mods = [f"{mods[0]}_{mods[1]}"] + mods[2:]
+        norm = mods[-1].startswith("norm") or mods[-1] == "out_norm"
+        name, value = _edm_to_flax(leaf, _numpy(tensor), norm)
+        _put(tree, mods + (["gn"] if norm else []) + [name], value)
+    return {"model": tree} if wrapped else tree
+
+
+_VDM_SEQ = {("cond_map", "0"): "cond_map0", ("cond_map", "2"): "cond_map1",
+            ("out", "0"): "out_norm", ("out", "2"): "out_conv"}
+_VDM_NORMS = ("norm1", "norm2", "norm", "out_norm")
+
+
+def vdm_state_dict_from_jax(params: dict) -> dict:
+    """VDM Flax params -> the port's state dict."""
+    attention = "enc_attn0" in params or "dec_attn0" in params
+    seq = {v: k for k, v in _VDM_SEQ.items()}
+    out: dict = {}
+    for path, value in _walk(params):
+        head, rest = path[0], list(path[1:])
+        block = re.fullmatch(r"(enc|dec)(_attn)?(\d+)", head)
+        if head in seq:
+            mods = list(seq[head])
+        elif block:
+            stage, attn, k = block.group(1), block.group(2) is not None, int(block.group(3))
+            mods = [stage, str(2 * k + attn if attention else k)]
+        else:
+            mods = [head]
+        leaf, value = _edm_to_torch(rest[-1], value)
+        out[".".join(mods + rest[:-1] + [leaf])] = _t(value)
+    return out
+
+
+def vdm_tree_from_state_dict(sd: dict) -> dict:
+    """The port's VDM state dict -> the JAX package's Flax params tree; the
+    inverse of ``vdm_state_dict_from_jax``."""
+    attention = any(k.startswith(("enc.1.qkv", "enc.1.norm.")) for k in sd)
+    tree: dict = {}
+    for key, tensor in sd.items():
+        *mods, leaf = key.split(".")
+        if tuple(mods[:2]) in _VDM_SEQ:
+            mods = [_VDM_SEQ[tuple(mods[:2])]] + mods[2:]
+        elif mods[0] in ("enc", "dec"):
+            idx = int(mods[1])
+            if attention:
+                base = f"{mods[0]}{idx // 2}" if idx % 2 == 0 else f"{mods[0]}_attn{idx // 2}"
+            else:
+                base = f"{mods[0]}{idx}"
+            mods = [base] + mods[2:]
+        norm = mods[-1] in _VDM_NORMS
+        name, value = _edm_to_flax(leaf, _numpy(tensor), norm)
+        _put(tree, mods + [name], value)
+    return tree
+
+
+# model name -> (Flax params -> state dict, state dict -> Flax params)
+FAMILIES = {
+    "ncsnpp": (state_dict_from_jax, jax_tree_from_state_dict),
+    "adm": (adm_state_dict_from_jax, adm_tree_from_state_dict),
+    "vdm": (vdm_state_dict_from_jax, vdm_tree_from_state_dict),
+}

@@ -1,4 +1,5 @@
-"""NCSN++ building blocks in NCHW with the reference state-dict names.
+"""NCSN++ building blocks, and the layer zoo's ``Combine``, ``FIRConv2d``
+and BigGAN resblock, in NCHW with the reference state-dict names.
 
 Each module carries a compute ``dtype`` with the JAX package's semantics:
 parameters are stored in float32 and cast to ``dtype`` for the
@@ -16,6 +17,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..ops import fir as fir_ops
 from ..ops.attention import SUPPORTED_CHANNELS, FusedAttnBlockFn, round_to
 from ..ops.resblock import FusedResblockFn, fused_resblock
 from ..ops.resize import upsample2x_nearest
@@ -108,6 +110,11 @@ def Conv3x3(in_ch: int, out_ch: int, init_scale: float = 1.0, stride: int = 1,
     """3x3 convolution; padding 1 is SAME at stride 1."""
     return Conv2d(in_ch, out_ch, 3, stride=stride, padding=padding,
                   init_scale=init_scale, dtype=dtype)
+
+
+def Conv1x1(in_ch: int, out_ch: int, init_scale: float = 1.0, dtype=torch.float32) -> Conv2d:
+    """1x1 convolution."""
+    return Conv2d(in_ch, out_ch, 1, padding=0, init_scale=init_scale, dtype=dtype)
 
 
 class NIN(nn.Module):
@@ -286,3 +293,107 @@ class Downsample(nn.Module):
         if self.with_conv:
             return self.Conv_0(F.pad(x, (0, 1, 0, 1)))
         return F.avg_pool2d(x, 2, stride=2)
+
+
+class Combine(nn.Module):
+    """Skip combiner: a 1x1 conv of ``x`` (``dim1`` -> ``dim2`` channels),
+    then concatenated with ``y`` (``cat``, channels first) or added to it
+    (``sum``)."""
+
+    def __init__(self, dim1: int, dim2: int, method: str = "cat", dtype=torch.float32):
+        super().__init__()
+        if method not in ("cat", "sum"):
+            raise ValueError(f"Method {method} not recognized.")
+        self.Conv_0 = Conv1x1(dim1, dim2, dtype=dtype)
+        self.method = method
+
+    def forward(self, x, y):
+        h = self.Conv_0(x)
+        return torch.cat([h, y], dim=1) if self.method == "cat" else h + y
+
+
+class FIRConv2d(nn.Module):
+    """Convolution with FIR up- or downsampling fused in (``weight`` OIHW,
+    ``bias``), computed in ``dtype``; the up path is the corrected one of
+    ``ops.fir``."""
+
+    def __init__(self, in_ch: int, out_ch: int, kernel: int = 3, up: bool = False,
+                 down: bool = False, resample_kernel=(1, 3, 3, 1), use_bias: bool = True,
+                 init_scale: float = 1.0, dtype=torch.float32):
+        super().__init__()
+        assert not (up and down)
+        self.weight = nn.Parameter(torch.zeros(out_ch, in_ch, kernel, kernel))
+        if use_bias:
+            self.bias = nn.Parameter(torch.zeros(out_ch))
+        self.up, self.down = up, down
+        self.resample_kernel = tuple(resample_kernel)
+        self.use_bias = use_bias
+        self.init_scale = init_scale
+        self.dtype = dtype
+
+    def forward(self, x):
+        dt = self.dtype
+        x, w = x.to(dt), self.weight.to(dt)
+        if self.up:
+            x = fir_ops.upsample_conv_2d(x, w, k=self.resample_kernel)
+        elif self.down:
+            x = fir_ops.conv_downsample_2d(x, w, k=self.resample_kernel)
+        else:
+            x = F.conv2d(x, w, padding=w.shape[-1] // 2)
+        if self.use_bias:
+            x = x + self.bias.to(dt)[None, :, None, None]
+        return x
+
+
+class ResnetBlockBigGANpp(nn.Module):
+    """BigGAN-style resblock with its up- or downsampling inside the block:
+    GN -> act -> resample (FIR or naive) -> conv3x3 -> + time -> GN -> act
+    -> dropout -> conv3x3 (zero init), with a 1x1 conv shortcut (of the
+    resampled input) when the width changes or the block resamples, and
+    the 1/sqrt(2) skip rescale.  ``NCSNpp`` does not build it: it ignores
+    ``resblock_type: biggan``, as the JAX package and the reference do."""
+
+    def __init__(self, act, in_ch: int, out_ch: int, temb_dim: int | None = None,
+                 up: bool = False, down: bool = False, dropout: float = 0.1,
+                 fir: bool = False, fir_kernel=(1, 3, 3, 1), skip_rescale: bool = True,
+                 init_scale: float = 0.0, dtype=torch.float32):
+        super().__init__()
+        self.GroupNorm_0 = GroupNorm(group_count(in_ch), in_ch, dtype=dtype)
+        self.Conv_0 = Conv3x3(in_ch, out_ch, dtype=dtype)
+        if temb_dim is not None:
+            self.Dense_0 = Dense(temb_dim, out_ch, dtype=dtype)
+        self.GroupNorm_1 = GroupNorm(group_count(out_ch), out_ch, dtype=dtype)
+        self.Conv_1 = Conv3x3(out_ch, out_ch, init_scale=init_scale, dtype=dtype)
+        if in_ch != out_ch or up or down:
+            self.Conv_2 = Conv1x1(in_ch, out_ch, dtype=dtype)
+        self.act = act
+        self.up, self.down = up, down
+        self.fir, self.fir_kernel = fir, tuple(fir_kernel)
+        self.dropout = dropout
+        self.skip_rescale = skip_rescale
+        self.dtype = dtype
+
+    def _resample(self, t):
+        if self.up:
+            return (fir_ops.upsample_2d(t, self.fir_kernel) if self.fir
+                    else fir_ops.naive_upsample_2d(t))
+        if self.down:
+            return (fir_ops.downsample_2d(t, self.fir_kernel) if self.fir
+                    else fir_ops.naive_downsample_2d(t))
+        return t
+
+    def forward(self, x, temb=None, train: bool = False, generator=None):
+        h = self.act(self.GroupNorm_0(x))
+        h, x = self._resample(h), self._resample(x)
+        h = self.Conv_0(h)
+        if temb is not None:
+            h = h + self.Dense_0(self.act(temb))[:, :, None, None]
+        h = self.act(self.GroupNorm_1(h))
+        if train and self.dropout > 0:
+            h = apply_dropout(h, dropout_mask(h.shape, self.dropout, generator, h.device),
+                              self.dropout)
+        h = self.Conv_1(h)
+        if hasattr(self, "Conv_2"):
+            x = self.Conv_2(x)
+        out = x.to(self.dtype) + h
+        return out / round_to(math.sqrt(2.0), self.dtype) if self.skip_rescale else out

@@ -84,7 +84,8 @@ def main(argv=None, out_root: str = "vis") -> str:
 
     B = cfg.eval.batch_size
     sampling_fn = get_sampling_fn(load_cfg, lm.sde, sample_shape(load_cfg, B), SAMPLING_EPS)
-    if bool(load_cfg.data.get("classes", False)):
+    # classifier-free guidance for class-conditional data, and always for ADM
+    if bool(load_cfg.data.get("classes", False)) or load_cfg.model.name == "adm":
         labels = torch.full((B, load_cfg.model.get("num_classes", 1)),
                             float(cfg.get("label", 0)), device=lm.device)
         score_fn = get_cf_score_fn(lm.sde, lm.model, labels, float(cfg.get("w", 0)))

@@ -12,6 +12,14 @@ nested dicts of float32 numpy arrays), so the JAX package resumes a port
 run with its Adam moments, counts and learning rate.  It names optax's
 classes in the pickle without importing optax (``_OptaxPickler``).
 
+The model families convert through ``models.convert.FAMILIES``: NCSN++,
+ADM and VDM checkpoints of the port carry the weights under their
+reference names in ``model`` and as Flax trees; the JAX package writes ADM
+and VDM checkpoints with an empty ``model`` and the weights only in
+``native_params`` / ``native_ema_shadow``, which ``restore_checkpoint``
+then reads (the family named by the caller, else by the checkpoint's
+config).
+
 ``restore_checkpoint`` reads ``step``, ``model``, ``ema`` and the optimizer
 state of either package and ignores the rest.  It unpickles through a
 restricted unpickler: the optax state classes become
@@ -31,7 +39,7 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
-from ..models.convert import adam_state_from_jax, ema_state_dict, jax_tree_from_state_dict
+from ..models.convert import FAMILIES, adam_state_from_jax, ema_state_dict
 
 _OPTAX_EMPTY = ("optax._src.base", "EmptyState")
 _OPTAX_ADAM = ("optax._src.transform", "ScaleByAdamState")
@@ -121,16 +129,18 @@ class _OptaxPickler(pickle._Pickler):
 optax_pickle = types.SimpleNamespace(Pickler=_OptaxPickler, __name__="optax_pickle")
 
 
-def _optax_chain(optimizer, model_sd: dict) -> tuple:
+def _optax_chain(optimizer, model_sd: dict, model_name: str = "ncsnpp") -> tuple:
     """The optimizer's state as the JAX package's optax chain
     (``rdm_tpu/training/losses.py:get_optimizer``): the clip's empty state
     when clipping is on, Adam's count and moments, the schedule's count.
-    The moments are Flax trees; the frozen ``time_embed.W`` has zero
+    The moments are Flax trees; NCSN++'s frozen ``time_embed.W`` has zero
     moments there, as under optax."""
+    to_tree = FAMILIES[model_name][1]
+
     def tree(moments):
         sd = {k: torch.zeros_like(v) if k == "time_embed.W" else moments[k]
               for k, v in model_sd.items()}
-        return jax_tree_from_state_dict(sd)
+        return to_tree(sd)
 
     opt = optimizer.state_dict()
     chain = [_OptaxState(_OPTAX_EMPTY)] if optimizer.grad_clip >= 0 else []
@@ -148,7 +158,7 @@ class Checkpoint(NamedTuple):
     optimizer: Optional[dict] = None   # the port optimizer's state dict, or None
 
 
-def _optimizer_state(entry) -> Optional[dict]:
+def _optimizer_state(entry, model_name: str = "ncsnpp") -> Optional[dict]:
     """The port optimizer's state from a checkpoint's ``optimizer`` entry:
     the port's own layout, or the JAX package's optax chain (clip, Adam,
     schedule); None for anything else (a reference torch Adam)."""
@@ -166,10 +176,28 @@ def _optimizer_state(entry) -> Optional[dict]:
         raise ValueError("unrecognised optax state in checkpoint: "
                          + ", ".join(type(s).__name__ for s in chain))
     count, mu, nu = adam[0].fields
-    return adam_state_from_jax(count, mu, nu, schedule[0].fields[0])
+    return adam_state_from_jax(count, mu, nu, schedule[0].fields[0], model_name)
 
 
-def restore_checkpoint(path: str) -> Optional[Checkpoint]:
+# buffers a reference checkpoint may hold that the port's modules do not save
+_BUFFERS = ("resample_filter", "freqs")
+
+
+def _family(config) -> str:
+    """The model family ``config`` names (``model.name``), else NCSN++."""
+    if hasattr(config, "to_plain"):
+        config = config.to_plain()
+    if isinstance(config, dict) and isinstance(config.get("model"), dict):
+        return config["model"].get("name") or "ncsnpp"
+    return "ncsnpp"
+
+
+def _model_name(loaded: dict, model_name: Optional[str]) -> str:
+    """The caller's model name, else the checkpoint config's, else NCSN++."""
+    return model_name or _family(loaded.get("config"))
+
+
+def restore_checkpoint(path: str, model_name: Optional[str] = None) -> Optional[Checkpoint]:
     """Read ``step``, ``model``, ``ema`` and the optimizer state from a
     checkpoint.  A missing file logs a warning and returns None."""
     if not os.path.exists(path):
@@ -177,21 +205,34 @@ def restore_checkpoint(path: str) -> Optional[Checkpoint]:
         return None
     loaded = torch.load(path, map_location="cpu", pickle_module=restricted_pickle,
                         weights_only=False)
-    model_sd = {k.removeprefix("module."): v for k, v in loaded["model"].items()}
+    name = _model_name(loaded, model_name)
+    model_sd = {k.removeprefix("module."): v for k, v in loaded["model"].items()
+                if k.rsplit(".", 1)[-1] not in _BUFFERS}
     ema_entry = loaded.get("ema") or {}
-    shadows = ema_entry.get("shadow_params")
-    ema_sd = ema_state_dict(model_sd, shadows) if shadows is not None else None
+    if not model_sd and "native_params" in loaded:
+        # the JAX package's ADM and VDM checkpoints
+        from_jax = FAMILIES[name][0]
+        model_sd = from_jax(loaded["native_params"])
+        shadow = loaded.get("native_ema_shadow")
+        ema_sd = from_jax(shadow) if shadow is not None else None
+    else:
+        shadows = ema_entry.get("shadow_params")
+        ema_sd = ema_state_dict(model_sd, shadows) if shadows is not None else None
     n = ema_entry.get("num_updates")
     return Checkpoint(step=int(loaded["step"]), model=model_sd, ema=ema_sd,
                       ema_num_updates=None if n is None else int(n),
-                      optimizer=_optimizer_state(loaded.get("optimizer")))
+                      optimizer=_optimizer_state(loaded.get("optimizer"), name))
 
 
 def save_checkpoint(path: str, state, config=None) -> None:
     """Write ``state`` (a ``TrainState``) in the JAX package's layout
     ``{step, model, optimizer: {optax_state}, ema: {decay, num_updates,
     shadow_params}, scaler: None, config, native_params,
-    native_ema_shadow}``, every tensor and array float32 on the CPU."""
+    native_ema_shadow}``, every tensor and array float32 on the CPU; the
+    Flax trees and the optimizer's moments in the layout of the JAX
+    package's family that ``config.model.name`` names (NCSN++ without a
+    config)."""
+    model_name = _family(config)
     os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
 
     def cpu(t):
@@ -199,16 +240,17 @@ def save_checkpoint(path: str, state, config=None) -> None:
 
     model_sd = {k: cpu(v) for k, v in state.model.state_dict().items()}
     shadows = [cpu(s) for s in state.ema.shadow_params]
+    to_tree = FAMILIES[model_name][1]
     checkpoint = {
         "step": int(state.step),
         "model": model_sd,
-        "optimizer": {"optax_state": _optax_chain(state.optimizer, model_sd)},
+        "optimizer": {"optax_state": _optax_chain(state.optimizer, model_sd, model_name)},
         "ema": {"decay": float(state.ema.decay), "num_updates": int(state.ema.num_updates),
                 "shadow_params": shadows},
         "scaler": None,
         "config": config.to_plain() if hasattr(config, "to_plain") else config,
-        "native_params": jax_tree_from_state_dict(model_sd),
-        "native_ema_shadow": jax_tree_from_state_dict(ema_state_dict(model_sd, shadows)),
+        "native_params": to_tree(model_sd),
+        "native_ema_shadow": to_tree(ema_state_dict(model_sd, shadows)),
     }
     tmp = f"{path}.{os.getpid()}.tmp"
     torch.save(checkpoint, tmp, pickle_module=optax_pickle)

@@ -15,10 +15,13 @@ What it keeps of the reference loop:
     optimizer state;
   * the stall watchdog (``training.stall_timeout_s``, exit status 17).
 
-By default the GTO dataset is resident on the device and each step gathers
-its batch there, with indices drawn (with replacement) from the run's
-generator, as the JAX package's default path does.  With
-``training.data_on_device=false`` the batches come from the host's epoch
+The GTO set and the image sets (CIFAR-10 with DDPM++, ImageNet32 with VDM,
+ImageNet64C with the class-conditional ADM) train through this loop;
+unconditional sets pass no labels to the model.  By default the GTO
+dataset is resident on the device and each step gathers its batch there,
+with indices drawn (with replacement) from the run's generator, as the JAX
+package's default path does.  With ``training.data_on_device=false``, and
+always for the image sets, the batches come from the host's epoch
 iterators (``data.get_dataset``), as on the JAX package's host path.  All
 randomness comes from one ``torch.Generator`` on the device seeded with
 ``seed`` (default 42); a resumed run starts that stream anew, as the JAX
@@ -132,8 +135,6 @@ def run(cfg, work_dir: str, checkpoint_path: str | None = None) -> None:
     mprint(f"device: {device}"
            + (f" ({torch.cuda.get_device_name(device)})" if device.type == "cuda" else "")
            + (f", rank {rank} of {world}" if world > 1 else ""))
-    if cfg.data.dataset != "GTOHaloImage":
-        raise NotImplementedError(f"dataset {cfg.data.dataset} is not ported")
     batch = mesh.per_rank(cfg.training.batch_size, "Train")
     mesh.per_rank(cfg.eval.batch_size, "Eval")
     mesh.prebuild_kernels(device)
@@ -145,7 +146,7 @@ def run(cfg, work_dir: str, checkpoint_path: str | None = None) -> None:
     mprint(f"model: {cfg.model.name} ({n_params:,} params), sde: RVESDE("
            f"{cfg.sde.sigma_min}, {cfg.sde.sigma_max}, N={cfg.sde.num_scales})")
 
-    ckpt = checkpoints.restore_checkpoint(restore_path)
+    ckpt = checkpoints.restore_checkpoint(restore_path, model_name=cfg.model.name)
     if ckpt is not None:
         checkpoints.load_into_state(state, ckpt)
         if ckpt.optimizer is None:
@@ -156,7 +157,9 @@ def run(cfg, work_dir: str, checkpoint_path: str | None = None) -> None:
 
     classes = bool(cfg.data.get("classes", False))
     train_iter, eval_iter = get_dataset(cfg)
-    data_on_device = cfg.training.get("data_on_device", True) is not False
+    # the image sets come from the host's iterators, as in the JAX package
+    data_on_device = (cfg.training.get("data_on_device", True) is not False
+                      and cfg.data.dataset == "GTOHaloImage")
     remat = cfg.training.get("remat", "none")
     if data_on_device:
         imgs_np, lbls_np = load_arrays(cfg)

@@ -100,6 +100,36 @@ SCRIPT = textwrap.dedent("""
     graded = evaluate_warmstarts_native(phys[:4, 1:], phys[:4, 0])
     assert graded["feasible"].shape == (4,) and np.isfinite(graded["cost"]).all()
     save_plots_or_say(lambda plt: None)     # prints that the plots were skipped
+
+    # the other families: the goldens load and run, a checkpoint round-trips
+    import torch
+    from rdm_tpu_torch.models import adm, vdm
+    g = np.load("tests/golden/adm_golden.npz")
+    m = adm.ADM(img_resolution=16, label_dim=10, model_channels=32, channel_mult=(1, 2),
+                channel_mult_emb=2, num_blocks=1, attn_resolutions=(8,), dropout=0.0)
+    m.load_state_dict(dict((k[3:], torch.from_numpy(g[k])) for k in g.files
+                           if k.startswith("sd.")))
+    with torch.no_grad():
+        out = m(torch.from_numpy(g["x"]), torch.from_numpy(g["noise_labels"]),
+                torch.from_numpy(g["onehot"]))
+    assert np.abs(out.numpy() - g["out"]).max() < 1e-4
+    from rdm_tpu_torch.config import load_config
+    from rdm_tpu_torch.training.state import init_train_state
+    vcfg = load_config("train", ["data=cifar10", "model=vdm", "model.channels=8",
+                                 "model.num_blocks=1"])
+    v = init_train_state(vdm.VDM.from_config(vcfg).init_weights(torch.Generator()), vcfg)
+    with tempfile.TemporaryDirectory() as tmp:
+        checkpoints.save_checkpoint(tmp + "/c.pth", v, config=vcfg)
+        ck = checkpoints.restore_checkpoint(tmp + "/c.pth")
+        checkpoints.load_into_state(v, ck)
+        assert "enc.0.conv1.weight" in ck.model and ck.optimizer["count"] == 0
+
+        # data generation on the native oracle, and its training pickle
+        from rdm_tpu_torch import datagen, generate_data
+        summary = generate_data.main(["--backend", "native", "--seed", "4", "--seed_step", "1",
+                                      "--result_folder", tmp + "/gd"])
+        assert summary["n_feasible"] == 1
+        assert datagen.prepare_training_data(tmp + "/gd") == 1
     assert not [m for m in sys.modules if blocked(m)]
     print("ISOLATED-OK")
 """)
