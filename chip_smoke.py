@@ -55,10 +55,11 @@ Phases, each printing one JSON line with its elapsed seconds:
               through the resblock kernel (17 per forward), the attention
               blocks through theirs; the same checks, and trajectories/s
               beside phase 8's
-10. resblock_routing  an NCSN++ at nf 32 with model.resblock_pallas on:
-              every resblock is routed, when the model is built, to the fused
-              block's plain version (the kernel takes none of its shapes); one
-              forward on the card runs and launches the resblock kernel 0 times
+10. resblock_routing  an NCSN++ at nf 32 with model.resblock_pallas and
+              model.attn_pallas on, bfloat16: every resblock and attention
+              block keeps its kernel when the model is built; one forward on
+              the card launches the resblock kernel 17 times and the attention
+              kernel 5 times (C 32, L 81), all through the tiled bodies
 11. cfg       guided sampling (w = 0.1) at batch 256 with N = 100
 12. ode       the flagship samples 1024 trajectories at batch 1024 with the
               probability-flow ODE (Dormand-Prince, rtol = atol = 1e-5, one
@@ -186,18 +187,42 @@ Phases, each printing one JSON line with its elapsed seconds:
               step twice from the same state and generator bit for bit, ten
               steps at batch 64 on seeded 64 x 64 images with dropout, label
               dropout and EMA, a checkpoint round trip, guided PC sampling
-              (w = 1, one-hot labels) at batch 64 with N 100 in the unit
+              (w = 1, one-hot labels) at batch 64 with N 50 in the unit
               cube; ms per step, samples/s, peak memory
 30. family_vdm  the same for model=vdm data=cifar10 (float32, unguided)
 31. run_train_families  python -m rdm_tpu_torch.run_train data=cifar10
-              model=ddpmpp (full width) for four steps at batch 64 on seeded
-              CIFAR-10 pickles: log lines, a checkpoint the run's model loads
-              strictly, snapshot samples
-32. ddpmpp_attn_routing  model=ddpmpp model.attn_pallas=true: every attention
-              block (16 x 16, 256 channels) routed to the plain version with
-              its log line, 0 attention-kernel launches in a forward on the
-              card; printed as a known gap
-33. kernels   one line {"kernels": [...]} with each kernel's launches on its
+              model=ddpmpp (full width, float32 as the config ships, no
+              kernels) for four steps at batch 64 on seeded CIFAR-10 pickles:
+              log lines, a checkpoint the run's model loads strictly,
+              snapshot samples
+32. run_train_ddpmpp_kernels  the same with model.precision=bfloat16
+              model.attn_pallas=true model.resblock_pallas=true (the tiled
+              kernels)
+33. kernel_tiled  the tiled bodies against their plain versions, bfloat16:
+              attention forward and backward (the backward twice bit for bit)
+              at C 256, L 256 (DDPM++) and C 32, L 81 (nf 32), each at B 64
+              and a ragged B; the resblock at DDPM++'s ten block shapes at
+              B 64, three of them at B 3, and the nf-32 NCSN++'s eight at
+              B 64, each twice bit for bit; each output within 4 bf16 steps
+              of its scale and more than 99 % of its elements within one; at
+              B 64 timed cold beside the plain versions, the unfused library
+              block or cuDNN module and the bound
+34. ddpmpp_attn_routing  model=ddpmpp with both kernels on, bfloat16: every
+              block keeps its kernel, no routing log line; one evaluation
+              forward on the card launches the attention kernel 17 times and
+              the resblock kernel 70 times, all tiled
+35. ddpmpp    model=ddpmpp at full width (104,701,571 parameters, bf16, both
+              kernels, random weights from a seed, the config's zero-scale
+              layers drawn at scale 1): for two seeds one training loss and
+              gradient through the attention kernels against the plain
+              versions under phase train's rule (within half of the bf16-f32
+              spread as a vector; every parameter within its own), beside a
+              witness (the plain versions on permuted channels: the same
+              rounding points, another summation order); three training
+              steps at batch 64 twice from one state bit for bit (102
+              forward and 102 backward launches), ten PC steps with the EMA
+              weights and all three kernels twice bit for bit, samples finite
+36. kernels   one line {"kernels": [...]} with each kernel's launches on its
               path (sampling for the forward kernels, with the ODE path's
               count beside the attention forward's and the DP paths' counts a
               rank beside both attention kernels'; training for the
@@ -205,7 +230,8 @@ Phases, each printing one JSON line with its elapsed seconds:
               micro_cf script for its three kernels: the wrappers' counts,
               and beside them the kernel runs of the script's CUDA-graph
               replays; phase 16's float64 grading for the shooting kernels,
-              the float32 grading's and phase 26's beside them), error, times
+              the float32 grading's and phase 26's beside them; phase 35's
+              training and sampling for the three tiled bodies), error, times
               and bound
 
 The last line is {"ok": true, "device": {...}}.  A failed check raises, and
@@ -242,7 +268,7 @@ from rdm_tpu_torch.data import get_dataset
 from rdm_tpu_torch.models import NCSNpp, create_model
 from rdm_tpu_torch.models import adm as adm_lib
 from rdm_tpu_torch.models import vdm as vdm_lib
-from rdm_tpu_torch.models.layers import AttnBlockpp, ResnetBlockDDPMpp
+from rdm_tpu_torch.models.layers import NIN, AttnBlockpp, ResnetBlockDDPMpp, default_init_
 from rdm_tpu_torch.models.registry import get_cf_score_fn, get_score_fn
 from rdm_tpu_torch.ops import _build
 from rdm_tpu_torch.ops import attention as attn_ops
@@ -304,7 +330,7 @@ RESBLOCKS_PER_FORWARD = 17
 RESBLOCK_SHAPES = {(9, 64, 64): 2, (4, 64, 128): 1, (4, 128, 128): 1, (2, 128, 128): 4,
                    (2, 256, 128): 3, (4, 256, 128): 3, (9, 192, 64): 1, (9, 128, 64): 2}
 SOURCES = ("fused_attn_block", "fused_attn_block_bwd", "fused_resblock", "attention_core",
-           "micro_cf", "cr3bp_shoot")
+           "micro_cf", "cr3bp_shoot", "fused_attn_block_tiled", "fused_resblock_tiled")
 BF16_STEP = 2.0 ** -8
 PARAM_NAMES = ("gamma", "beta", "wq", "bq", "wk", "bk", "wv", "bv", "wp", "bp")
 # The flagship's logged losses at batch 4096 (Training Runs/2026.08.17_184657/
@@ -909,7 +935,7 @@ def ode_phase(model_overrides) -> dict:
     check(ref.shape == (1024, 67), f"JAX ODE samples {ref.shape}")
     ks = np.array([ks_statistic(physical[:, d], ref[:, d]) for d in range(67)])
     check(float(ks.max()) < KS_LIMIT, f"ODE max per-dimension KS {ks.max()} >= {KS_LIMIT}")
-    return dict(overrides=model_overrides, nfe=nfe, jax_nfe_at_batch_256=658, launches=launches,
+    return dict(overrides=model_overrides, nfe=nfe, jax_nfe_at_batch_1024=1491, launches=launches,
                 resblock_launches=rb_launches, wall_s=sum(times), load_s=load_s,
                 trajectories_per_second=samples.shape[0] / sum(times),
                 ms_per_nfe=sum(times) / nfe * 1e3,
@@ -1508,32 +1534,38 @@ def dp_oracle_phase(gpu_res, gpu_wall) -> dict:
 
 
 def resblock_routing_phase(device) -> dict:
-    """An nf-32 NCSN++ with the resblock kernel on: the kernel takes none of
-    its block shapes, so every block runs the fused block's plain version;
-    one forward on the card, no resblock kernel launch."""
+    """An nf-32 NCSN++ with both kernels on, bfloat16: every resblock keeps
+    the kernel when the model is built (the tiled body takes its shapes) and
+    every attention block too (C 32, L 81); one forward on the card launches
+    the resblock kernel 17 times and the attention kernel 5 times, all
+    through the tiled bodies."""
     cfg = load_config("train", ["model.nf=32", "model.precision=bfloat16",
-                                "model.resblock_pallas=true"])
+                                "model.resblock_pallas=true", "model.attn_pallas=true"])
     model = create_model(cfg).init_weights(torch.Generator().manual_seed(0))
     model.to(device).eval().requires_grad_(False)
     blocks = [m for m in model.modules() if isinstance(m, ResnetBlockDDPMpp)]
+    attn = [m for m in model.modules() if isinstance(m, AttnBlockpp)]
     check(len(blocks) == RESBLOCKS_PER_FORWARD
-          and all(b.use_kernel and b.fused_forward is rb_ops.fused_resblock_reference
-                  for b in blocks),
-          "nf-32 resblocks are not routed to the plain fused block")
+          and all(b.use_kernel and b.fused_forward is rb_ops.fused_resblock for b in blocks)
+          and len(attn) == NF32_ATTN_BLOCKS and all(m.use_kernel for m in attn),
+          "nf-32 blocks are not all routed to their kernels")
     gen = torch.Generator(device=device).manual_seed(50)
     x = torch.rand((64, 1, 9, 9), generator=gen, device=device)
     sigma = torch.exp(torch.empty(64, device=device).uniform_(math.log(0.01), math.log(5.0),
                                                               generator=gen))
     labels = torch.rand((64, 1), generator=gen, device=device)
-    rb_ops.fused_resblock.launches = 0
+    zero_tiled_launches()
     with torch.no_grad():
         out = model(x, sigma, labels)
     torch.cuda.synchronize()
-    launches = rb_ops.fused_resblock.launches
+    launches = tiled_launch_counts()
     check(out.shape == (64, 1, 9, 9) and bool(torch.isfinite(out.float()).all()),
           "nf-32 forward output")
-    check(launches == 0, f"nf-32 forward launched the resblock kernel {launches} times")
-    return {"nf": 32, "batch": 64, "routed_blocks": len(blocks), "resblock_launches": launches,
+    check(launches["fused_resblock"] == launches["fused_resblock_tiled"] == RESBLOCKS_PER_FORWARD
+          and launches["fused_attn_block"] == launches["fused_attn_block_tiled"]
+          == NF32_ATTN_BLOCKS, f"nf-32 forward launches {launches}")
+    return {"nf": 32, "batch": 64, "resblocks_on_kernel": len(blocks),
+            "attention_blocks_on_kernel": len(attn), "launches": launches,
             "out_abs_max": float(out.float().abs().max())}
 
 
@@ -1881,7 +1913,7 @@ def family_golden_phase(device) -> dict:
 
 FAMILY_BATCH = 64
 FAMILY_STEPS = 10
-FAMILY_SAMPLING_STEPS = 100
+FAMILY_SAMPLING_STEPS = 50
 
 
 def _state_tensors(state):
@@ -2016,12 +2048,15 @@ def write_cifar10(root: str, per_batch: int = 128, seed: int = 0) -> None:
                          b"labels": rng.integers(0, 10, n).tolist()}, f)
 
 
-def run_train_families_phase() -> dict:
+def run_train_families_phase(extra=()) -> dict:
     """``python -m rdm_tpu_torch.run_train data=cifar10 model=ddpmpp`` (full
-    width) for four steps at batch 64 on seeded CIFAR-10 pickles, as a
-    subprocess from a temporary directory."""
-    args = ["data=cifar10", "model=ddpmpp", "training.n_iters=3", "training.snapshot_freq=3",
-            "training.eval_freq=1000", "training.log_freq=1",
+    width; ``extra`` overrides) for four steps at batch 64 on seeded
+    CIFAR-10 pickles, as a subprocess from a temporary directory.  Phase
+    run_train_families runs the config as it ships (float32, no kernels),
+    phase run_train_ddpmpp_kernels with ``DDPMPP_KERNEL_ARGS`` (bfloat16,
+    both tiled kernels)."""
+    args = ["data=cifar10", "model=ddpmpp", *extra, "training.n_iters=3",
+            "training.snapshot_freq=3", "training.eval_freq=1000", "training.log_freq=1",
             "training.snapshot_freq_for_preemption=1000", "training.batch_size=64",
             "eval.batch_size=64", "sde.num_scales=50"]
     with tempfile.TemporaryDirectory() as tmp:
@@ -2060,40 +2095,524 @@ class _Records(logging.Handler):
 
 
 def ddpmpp_attn_routing_phase(device) -> dict:
-    """``model=ddpmpp model.attn_pallas=true``: every attention block runs at
-    16 x 16 with 256 channels (C 256, L 256), widths the CUDA kernels do not
-    take, so each is routed to the plain version when the model is built,
-    with a log line; one forward on the card launches the attention kernel
-    0 times.  A known gap: the JAX package's fused attention serves any
-    shape."""
+    """``model=ddpmpp`` with both kernels on, bfloat16: every attention block
+    (16 x 16, C 256) and every resblock keeps its kernel when the model is
+    built, with no routing log line; one evaluation forward on the card (no
+    dropout) launches the attention kernel 17 times and the resblock kernel
+    70 times, all through the tiled bodies."""
     records = _Records()
-    log = logging.getLogger("rdm_tpu_torch.models.layers")
+    log = logging.getLogger("rdm_tpu_torch")
     log.addHandler(records)
     try:
-        cfg = load_config("train", ["data=cifar10", "model=ddpmpp", "model.attn_pallas=true"])
-        model = create_model(cfg)
+        _, model = ddpmpp_model(device)
     finally:
         log.removeHandler(records)
     blocks = [m for m in model.modules() if isinstance(m, AttnBlockpp)]
     widths = sorted({b.NIN_0.W.shape[0] for b in blocks})
-    check(len(blocks) > 0 and not any(b.use_kernel for b in blocks) and widths == [256],
-          f"ddpmpp attention blocks: {len(blocks)}, widths {widths}")
-    check(len(records.lines) == len(blocks), f"routing log lines {records.lines}")
-    model.to(device).eval()
+    check(len(blocks) == DDPMPP_ATTN_BLOCKS and all(b.use_kernel for b in blocks)
+          and widths == [256], f"ddpmpp attention blocks: {len(blocks)}, widths {widths}")
+    check(not [ln for ln in records.lines if "kernel" in ln], f"routing log lines {records.lines}")
+    model.eval().requires_grad_(False)
     gen = torch.Generator(device=device).manual_seed(3)
     x = torch.rand((4, 3, 32, 32), generator=gen, device=device)
-    before = attn_ops.fused_attn_block.launches
+    zero_tiled_launches()
     with torch.no_grad():
         out = model(x, torch.full((4,), 0.5, device=device))
-    launches = attn_ops.fused_attn_block.launches - before
-    check(launches == 0 and bool(torch.isfinite(out).all()),
-          f"ddpmpp forward launched the attention kernel {launches} times")
+    torch.cuda.synchronize()
+    launches = tiled_launch_counts()
+    check(launches["fused_attn_block"] == launches["fused_attn_block_tiled"] == DDPMPP_ATTN_BLOCKS
+          and launches["fused_resblock"] == launches["fused_resblock_tiled"] == DDPMPP_RESBLOCKS
+          and bool(torch.isfinite(out.float()).all()),
+          f"ddpmpp evaluation forward launches {launches}")
+    del model
+    torch.cuda.empty_cache()
     return {"attention_blocks": len(blocks), "channels": widths[0], "tokens": 16 * 16,
-            "routed_to_plain": len(blocks), "log_lines": len(records.lines),
-            "log_line": records.lines[0], "launches": launches,
-            "known_gap": "the CUDA attention kernels take C 64/128 and L <= "
-                         f"{attn_ops.MAX_TOKENS}; the JAX package's fused attention runs "
-                         "C 256, L 256 (open work: Queue B rows 1-2)"}
+            "resblocks": DDPMPP_RESBLOCKS, "routed_to_plain": 0, "log_lines": len(records.lines),
+            "launches": launches}
+
+
+# ---------------------------------------------------------------------------
+# the tiled bodies: DDPM++ on CIFAR-10 and the nf-32 NCSN++
+
+DDPMPP_KERNEL_ARGS = ["model.precision=bfloat16", "model.attn_pallas=true",
+                      "model.resblock_pallas=true"]
+DDPMPP_OVERRIDES = ["data=cifar10", "model=ddpmpp", *DDPMPP_KERNEL_ARGS]
+# (H, C_in, C_out) -> blocks a forward: DDPM++'s 70 resblocks, the nf-32 NCSN++'s 17
+DDPMPP_RESBLOCK_SHAPES = {(32, 128, 128): 8, (32, 256, 128): 8, (32, 384, 128): 1,
+                          (16, 128, 256): 1, (16, 256, 256): 7, (16, 512, 256): 9,
+                          (8, 256, 256): 8, (8, 512, 256): 9, (4, 256, 256): 10,
+                          (4, 512, 256): 9}
+NF32_RESBLOCK_SHAPES = {(9, 32, 32): 2, (9, 64, 32): 2, (9, 96, 32): 1, (4, 32, 64): 1,
+                        (4, 64, 64): 1, (4, 128, 64): 3, (2, 64, 64): 4, (2, 128, 64): 3}
+DDPMPP_ATTN_BLOCKS = 17
+DDPMPP_RESBLOCKS = 70
+NF32_ATTN_BLOCKS = 5
+TILED_BATCH = 64
+DDPMPP_TRAIN_STEPS = 3
+DDPMPP_SAMPLING_STEPS = 10
+DDPMPP_GRAD_SEEDS = (21, 31)
+
+
+# the card tests' second gate on a tiled body's output: more than this share
+# of the elements within one bf16 step of max(|plain|, 1)
+WITHIN_STEP_MIN = 0.99
+
+
+def within_step(out, ref) -> float:
+    """Share of the elements of ``out`` within one bf16 step of max(|ref|, 1)
+    of ``ref``."""
+    err = (out.float() - ref.float()).abs()
+    return float((err <= BF16_STEP * ref.float().abs().clamp(min=1.0)).float().mean())
+
+
+def tiled_launch_counts() -> dict:
+    return {f.__name__: f.launches for f in (
+        attn_ops.fused_attn_block, attn_ops.fused_attn_block_bwd, rb_ops.fused_resblock,
+        attn_ops.fused_attn_block_tiled, attn_ops.fused_attn_block_bwd_tiled,
+        rb_ops.fused_resblock_tiled)}
+
+
+def zero_tiled_launches() -> None:
+    for f in (attn_ops.fused_attn_block, attn_ops.fused_attn_block_bwd, rb_ops.fused_resblock,
+              attn_ops.fused_attn_block_tiled, attn_ops.fused_attn_block_bwd_tiled,
+              rb_ops.fused_resblock_tiled):
+        f.launches = 0
+
+
+def attn_library_block(x, params, groups, skip_rescale=True):
+    """The attention block unfused from PyTorch's own calls, the yardstick of
+    the tiled body (not the port's path): F.group_norm, the four NINs as
+    matrix products and F.scaled_dot_product_attention, in x's type."""
+    F = torch.nn.functional
+    gamma, beta, wq, bq, wk, bk, wv, bv, wp, bp = (p.to(x.dtype) for p in params)
+    B, C, H, W = x.shape
+    h = F.group_norm(x, groups, gamma, beta, attn_ops.GN_EPS).flatten(2).transpose(1, 2)
+    q, k, v = (torch.matmul(h, w) + b for w, b in ((wq, bq), (wk, bk), (wv, bv)))
+    o = F.scaled_dot_product_attention(q[:, None], k[:, None], v[:, None])[:, 0]
+    out = x.flatten(2).transpose(1, 2) + torch.matmul(o, wp) + bp
+    out = out * (1 / math.sqrt(2.0) if skip_rescale else 1.0)
+    return out.transpose(1, 2).reshape(B, C, H, W)
+
+
+def tiled_attn_case(B, C, L, groups, seed, device, timed):
+    """The tiled attention forward and backward against their plain versions
+    (bfloat16 activations, float32 parameters as the model passes them),
+    the backward twice bit for bit; timed cold beside the plain versions,
+    the unfused library block and the bounds."""
+    x, params = attn_inputs(B, C, L, groups, torch.float32, seed, device)
+    x = x.to(torch.bfloat16)
+    g = torch.randn(x.shape, generator=torch.Generator(device=device).manual_seed(seed),
+                    device=device).to(torch.bfloat16)
+    kw = dict(groups=groups, skip_rescale=True)
+    check(attn_ops.attn_body(C, L, torch.bfloat16) == "tiled", f"C {C}, L {L} is not tiled")
+    before = attn_ops.fused_attn_block_tiled.launches, attn_ops.fused_attn_block_bwd_tiled.launches
+    out = attn_ops.fused_attn_block(x, *params, **kw)
+    ref = attn_ops.fused_attn_block_reference(x, *params, **kw)
+    d1 = attn_ops.fused_attn_block_bwd(x, g, *params, **kw)
+    d2 = attn_ops.fused_attn_block_bwd(x, g, *params, **kw)
+    dref = attn_ops.fused_attn_block_bwd_reference(x, g, *params, **kw)
+    torch.cuda.synchronize()
+    check((attn_ops.fused_attn_block_tiled.launches - before[0],
+           attn_ops.fused_attn_block_bwd_tiled.launches - before[1]) == (1, 2),
+          "the tiled wrappers did not launch")
+    check(bool(torch.isfinite(out.float()).all()), f"tiled attention output not finite {B, C, L}")
+    err = float((out.float() - ref.float()).abs().max())
+    # the same rounding points; a sum next to a bf16 rounding boundary may
+    # round the other way and carry a step on: 4 bf16 steps at the scale,
+    # and as the card tests more than WITHIN_STEP_MIN of the elements within
+    # one step
+    tol = 4 * BF16_STEP * max(1.0, float(ref.float().abs().max()))
+    check(all(torch.equal(a, b) for a, b in zip(d1, d2)),
+          f"two tiled backward runs differ (B={B}, C={C}, L={L})")
+    errs = {}
+    for name, a, b in zip(("dx",) + PARAM_NAMES, d1, dref):
+        check(a.shape == b.shape and a.dtype == b.dtype and bool(torch.isfinite(a.float()).all()),
+              f"tiled backward {name} shape, type or finiteness")
+        errs[name] = (float((a.float() - b.float()).abs().max()),
+                      max(1.0, float(b.float().abs().max())))
+    # as phase kernel_bwd: dx within 4 bf16 steps of its scale, the float32
+    # parameter gradients within one step of theirs, dbk (zero in exact
+    # arithmetic: the summed rounding noise of dk) at the scale of dbq
+    errs["bk"] = (errs["bk"][0], max(errs["bk"][1], errs["bq"][1]))
+    dx_err, dx_scale = errs.pop("dx")
+    worst = max(errs, key=lambda n: errs[n][0] / errs[n][1])
+    res = {"B": B, "C": C, "L": L, "groups": groups, "body": "tiled",
+           "plan": attn_ops.tiled_plan(B, C, L)._asdict(), "max_abs_err": err, "tol": tol,
+           "frac_differ": float((out != ref).float().mean()),
+           "frac_within_step": within_step(out, ref), "frac_within_step_min": WITHIN_STEP_MIN,
+           "dx_max_abs_err": dx_err, "dx_tol": 4 * BF16_STEP * dx_scale, "worst_param": worst,
+           "param_max_abs_err": errs[worst][0], "param_tol": BF16_STEP * errs[worst][1],
+           "bwd_bitwise_repeatable": True}
+    res["plan"]["gemm_tiles"] = [list(t) for t in res["plan"]["gemm_tiles"]]
+    check(err <= tol and res["frac_within_step"] > WITHIN_STEP_MIN,
+          f"tiled attention disagrees with its plain version: {res}")
+    check(dx_err <= res["dx_tol"], f"tiled backward dx disagrees: {res}")
+    for name, (e, scale) in errs.items():
+        check(e <= BF16_STEP * scale, f"tiled backward d{name} disagrees: {res}")
+    if timed:
+        # cold: x (and g) rotate over more than twice the L2, CUDA-graph slopes
+        gen = torch.Generator(device=device)
+        make = lambda i: torch.randn(x.shape, generator=gen.manual_seed(300 + i),
+                                     device=device).to(torch.bfloat16)
+        make2 = lambda i: (make(2 * i), make(2 * i + 1))
+        nbytes = x.numel() * x.element_size()
+        lib_params = [p.to(torch.bfloat16) for p in params]
+
+        def library_fwd_bwd(t):
+            xx = t[0].detach().requires_grad_(True)
+            ps = [p.detach().requires_grad_(True) for p in lib_params]
+            return torch.autograd.grad(attn_library_block(xx, ps, groups), [xx, *ps], t[1])
+
+        fwd = {"": lambda t: attn_ops.fused_attn_block(t, *params, **kw),
+               "plain_": lambda t: attn_ops.fused_attn_block_reference(t, *params, **kw),
+               "library_": lambda t: attn_library_block(t, lib_params, groups)}
+        bwd = {"bwd_": lambda t: attn_ops.fused_attn_block_bwd(*t, *params, **kw),
+               "bwd_plain_": lambda t: attn_ops.fused_attn_block_bwd_reference(*t, *params, **kw),
+               "bwd_library_": library_fwd_bwd}
+        for key, fn in fwd.items():
+            with torch.no_grad():
+                res[key + "ms"] = micro_cf_script.cold_us(fn, make, nbytes, device, (2, 8)) / 1e3
+        for key, fn in bwd.items():
+            res[key + "ms"] = micro_cf_script.cold_us(fn, make2, 2 * nbytes, device, (2, 6)) / 1e3
+        res["bound_ms"], res["bound_by"] = attn_bound_ms(B, C, L, torch.bfloat16)
+        res["bwd_bound_ms"], res["bwd_bound_by"] = attn_bwd_bound_ms(B, C, L, torch.bfloat16)
+        res["share_of_bound"] = res["bound_ms"] / res["ms"]
+        res["bwd_share_of_bound"] = res["bwd_bound_ms"] / res["bwd_ms"]
+    return res
+
+
+def tiled_resblock_case(B, H, ci, co, seed, device, timed):
+    """The tiled resblock against its plain version in bfloat16, two runs bit
+    for bit; timed cold beside the plain version, the unfused module (cuDNN
+    convolutions) and the bound."""
+    x, tembv, params = resblock_inputs(B, H, ci, co, torch.bfloat16, seed, device)
+    kw = dict(groups0=min(ci // 4, 32), groups1=min(co // 4, 32), skip_rescale=True)
+    check(rb_ops.resblock_body(H, H, ci, co, torch.bfloat16) == "tiled",
+          f"({H}, {ci}, {co}) is not tiled")
+    before = rb_ops.fused_resblock_tiled.launches
+    out = rb_ops.fused_resblock(x, tembv, *params, **kw)
+    again = rb_ops.fused_resblock(x, tembv, *params, **kw)
+    ref = rb_ops.fused_resblock_reference(x, tembv, *params, **kw)
+    torch.cuda.synchronize()
+    check(rb_ops.fused_resblock_tiled.launches - before == 2, "the tiled resblock did not launch")
+    check(out.shape == ref.shape and out.dtype == ref.dtype and bool(torch.isfinite(
+        out.float()).all()), f"tiled resblock output {B, H, ci, co}")
+    err = float((out.float() - ref.float()).abs().max())
+    # as phase kernel_resblock: 4 bf16 steps at the output's largest
+    # magnitude, and as the card tests more than WITHIN_STEP_MIN of the
+    # elements within one step
+    tol = 4 * BF16_STEP * max(1.0, float(ref.float().abs().max()))
+    res = {"B": B, "H": H, "C_in": ci, "C_out": co, "body": "tiled",
+           "plan": list(rb_ops.tiled_resblock_plan(B, H, ci, co, kw["groups0"],
+                                                   kw["groups1"]).flat()),
+           "max_abs_err": err, "tol": tol, "frac_differ": float((out != ref).float().mean()),
+           "frac_within_step": within_step(out, ref), "frac_within_step_min": WITHIN_STEP_MIN,
+           "bitwise_repeatable": bool(torch.equal(out, again))}
+    check(err <= tol and res["frac_within_step"] > WITHIN_STEP_MIN and res["bitwise_repeatable"],
+          f"tiled resblock disagrees with its plain version or itself: {res}")
+    if timed:
+        blk = resblock_module(params, ci, co, torch.bfloat16, device)
+        temb = torch.randn((B, 4 * 64), generator=torch.Generator(device=device).manual_seed(seed),
+                           device=device)
+
+        def make(i):
+            gen = torch.Generator(device=device).manual_seed(400 + i)
+            return (torch.randn((B, ci, H, H), generator=gen, device=device).to(torch.bfloat16),
+                    (0.5 * torch.randn((B, co), generator=gen, device=device)).to(torch.bfloat16))
+
+        nbytes = (x.numel() + tembv.numel()) * x.element_size()
+        fns = {"": lambda t: rb_ops.fused_resblock(*t, *params, **kw),
+               "plain_": lambda t: rb_ops.fused_resblock_reference(*t, *params, **kw),
+               "module_": lambda t: blk(t[0], temb)}
+        with torch.no_grad():
+            for key, fn in fns.items():
+                res[key + "ms"] = micro_cf_script.cold_us(fn, make, nbytes, device, (2, 6)) / 1e3
+        res["bound_ms"], res["bound_by"] = resblock_bound_ms(B, H, ci, co, torch.bfloat16)
+        res["share_of_bound"] = res["bound_ms"] / res["ms"]
+    return res
+
+
+def kernel_tiled_phase(device) -> tuple:
+    """Each tiled body against its plain version at the configs' shapes:
+    attention at C 256, L 256 (DDPM++) and C 32, L 81 (nf 32), each at B 64
+    (timed) and a ragged B; the resblock at DDPM++'s ten shapes at B 64
+    (timed), three of them at B 3, and the nf-32 NCSN++'s eight at B 64."""
+    attn = [tiled_attn_case(TILED_BATCH, 256, 256, 32, 70, device, True),
+            tiled_attn_case(3, 256, 256, 32, 71, device, False),
+            tiled_attn_case(TILED_BATCH, 32, 81, 8, 72, device, True),
+            tiled_attn_case(5, 32, 81, 8, 73, device, False)]
+    rb = [tiled_resblock_case(TILED_BATCH, H, ci, co, 80 + i, device, True)
+          for i, (H, ci, co) in enumerate(DDPMPP_RESBLOCK_SHAPES)]
+    rb += [tiled_resblock_case(3, H, ci, co, 95 + i, device, False)
+           for i, (H, ci, co) in enumerate([(32, 384, 128), (16, 128, 256), (4, 512, 256)])]
+    rb += [tiled_resblock_case(TILED_BATCH, H, ci, co, 100 + i, device, False)
+           for i, (H, ci, co) in enumerate(NF32_RESBLOCK_SHAPES)]
+    for c in attn:
+        print(json.dumps({"tiled_attn_case": c}), flush=True)
+    for c in rb:
+        print(json.dumps({"tiled_resblock_case": c}), flush=True)
+    return attn, rb
+
+
+def ddpmpp_forward_sum(cases, key) -> float:
+    """Sum of ``key`` over DDPM++'s 70 resblocks of one forward at B 64."""
+    return sum(c[key] * DDPMPP_RESBLOCK_SHAPES[(c["H"], c["C_in"], c["C_out"])]
+               for c in cases if c["B"] == TILED_BATCH and (c["H"], c["C_in"], c["C_out"])
+               in DDPMPP_RESBLOCK_SHAPES and key in c)
+
+
+def ddpmpp_model(device, overrides=()):
+    cfg = load_config("train", DDPMPP_OVERRIDES + [f"training.batch_size={TILED_BATCH}",
+                                                   f"sde.num_scales={DDPMPP_SAMPLING_STEPS}",
+                                                   *overrides])
+    model = create_model(cfg).to(device).init_weights(
+        torch.Generator(device=device).manual_seed(0))
+    # The config's init_scale of 0 draws every resblock's Conv_1, every
+    # attention block's output NIN and the output convolution at a variance
+    # scale of 1e-10 (weights near 1e-6): the network is then close to the
+    # identity and the gradients inside its blocks close to zero.  Draw them
+    # at scale 1, as the other layers, so the comparison below sees every
+    # gradient at its working size.
+    gen = torch.Generator(device=device).manual_seed(1)
+    for mod in model.modules():
+        if isinstance(mod, NIN) and mod.init_scale == 0:
+            default_init_(mod.W, 1.0, *mod.W.shape, gen)
+        elif isinstance(mod, torch.nn.Conv2d) and getattr(mod, "init_scale", 1.0) == 0:
+            w = mod.weight
+            default_init_(w, 1.0, w[0].numel(), w.shape[0] * w[0, 0].numel(), gen)
+    return cfg, model
+
+
+def channel_permutation(C, groups, seed, device):
+    """A permutation of C channels that maps each GroupNorm group onto a
+    group: the groups in a random order, each one's channels shuffled."""
+    rng = np.random.default_rng(seed)
+    cg = C // groups
+    return torch.from_numpy(np.concatenate(
+        [g * cg + rng.permutation(cg) for g in rng.permutation(groups)])).to(device)
+
+
+class PermutedPlainAttention:
+    """Inside ``with``, the plain attention versions (the model's path with
+    its kernels off) run on channel-permuted inputs and parameters and
+    permute their results back: the same operations, rounded at the same
+    points, that sum their products and statistics in another order.  What
+    this moves a gradient by is bfloat16's noise under a change of summation
+    order alone, the witness the kernel's own differences are read against."""
+
+    def __init__(self, seed):
+        self.seed, self.perms = seed, {}
+
+    def perm(self, C, groups, device):
+        if (C, groups) not in self.perms:
+            pi = channel_permutation(C, groups, self.seed + C, device)
+            self.perms[(C, groups)] = pi, torch.argsort(pi)
+        return self.perms[(C, groups)]
+
+    @staticmethod
+    def params(raw, pi):
+        gamma, beta, wq, bq, wk, bk, wv, bv, wp, bp = raw
+        mat = lambda w: w[pi][:, pi]
+        return (gamma[pi], beta[pi], mat(wq), bq[pi], mat(wk), bk[pi], mat(wv), bv[pi],
+                mat(wp), bp[pi])
+
+    def __enter__(self):
+        fwd, bwd = attn_ops.fused_attn_block_reference, attn_ops.fused_attn_block_bwd_reference
+        self.saved = fwd, bwd
+
+        def fwd_p(x, *raw, groups, skip_rescale=True):
+            pi, inv = self.perm(x.shape[1], groups, x.device)
+            return fwd(x[:, pi].contiguous(), *self.params(raw, pi), groups=groups,
+                       skip_rescale=skip_rescale)[:, inv].contiguous()
+
+        def bwd_p(x, g, *raw, groups, skip_rescale=True):
+            pi, inv = self.perm(x.shape[1], groups, x.device)
+            dx, dgamma, dbeta, dwq, dbq, dwk, dbk, dwv, dbv, dwp, dbp = bwd(
+                x[:, pi].contiguous(), g[:, pi].contiguous(), *self.params(raw, pi),
+                groups=groups, skip_rescale=skip_rescale)
+            mat = lambda w: w[inv][:, inv]
+            return (dx[:, inv].contiguous(), dgamma[inv], dbeta[inv], mat(dwq), dbq[inv],
+                    mat(dwk), dbk[inv], mat(dwv), dbv[inv], mat(dwp), dbp[inv])
+
+        attn_ops.fused_attn_block_reference = fwd_p
+        attn_ops.fused_attn_block_bwd_reference = bwd_p
+        return self
+
+    def __exit__(self, *exc):
+        attn_ops.fused_attn_block_reference, attn_ops.fused_attn_block_bwd_reference = self.saved
+        return False
+
+
+def ddpmpp_grad_rule(cfg, model, batch, seed, device) -> dict:
+    """One loss and gradient of ``model`` (bfloat16, both kernels on; the
+    config's dropout keeps the resblocks on the module path, as in the JAX
+    package) with t, z and masks from ``seed``: through the tiled attention
+    kernels (k), the plain versions (p), the plain versions on permuted
+    channels (w, ``PermutedPlainAttention``) and float32 through the plain
+    versions (f).  Per parameter, ``kernel`` is |k - p| and ``witness``
+    |w - p|, each over the bf16-f32 distance |p - f| (the k biases over their
+    block's q bias's, as in phase train); as vectors the same over the whole
+    gradient."""
+    loss_k, g_k = loss_and_grads(cfg, model, batch, None, seed=seed)
+    set_attn_kernel(model, False)
+    loss_p, g_p = loss_and_grads(cfg, model, batch, None, seed=seed)
+    with PermutedPlainAttention(seed):
+        loss_w, g_w = loss_and_grads(cfg, model, batch, None, seed=seed)
+    set_attn_kernel(model, True)
+    plain32 = with_precision(cfg, "float32").to_plain()
+    plain32["model"].update(attn_pallas=False, resblock_pallas=False)
+    cfg32 = ConfigDict.wrap(plain32)
+    m32 = create_model(cfg32).to(device)
+    m32.load_state_dict(model.state_dict(), strict=True)
+    loss_f, g_f = loss_and_grads(cfg32, m32, batch, None, seed=seed)
+    del m32
+    flat = lambda gs: torch.cat([g.flatten() for g in gs])
+    spread = float((flat(g_p) - flat(g_f)).norm())
+    names = [n for n, p in model.named_parameters() if p.requires_grad]
+    dists = lambda x, y: {n: float((a - b).norm()) for a, b, n in zip(x, y, names)}
+    kp, wp, pf = dists(g_k, g_p), dists(g_w, g_p), dists(g_p, g_f)
+    kbias = {f"{m}.NIN_1.b": f"{m}.NIN_0.b" for m, mod in model.named_modules()
+             if isinstance(mod, AttnBlockpp)}
+    blocks = tuple(k[:-len("NIN_1.b")] for k in kbias)
+    attn = {n for n in names if n.startswith(blocks)}
+    rk = {n: kp[n] / max(pf[kbias.get(n, n)], 1e-30) for n in names}
+    rw = {n: wp[n] / max(pf[kbias.get(n, n)], 1e-30) for n in names}
+    top = lambda r, o, sel: sorted(((r[n], o[n], n) for n in names if sel(n)), reverse=True)[:6]
+    res = {"seed": seed, "loss_kernel": loss_k, "loss_plain": loss_p, "loss_permuted": loss_w,
+           "loss_f32": loss_f, "grad_spread_bf16_f32": spread,
+           "grad_ratio": float((flat(g_k) - flat(g_p)).norm()) / spread,
+           "witness_grad_ratio": float((flat(g_w) - flat(g_p)).norm()) / spread,
+           "worst_ratios": top(rk, rw, lambda n: True),
+           "worst_witness_ratios": top(rw, rk, lambda n: True),
+           "worst_attention_ratios": top(rk, rw, lambda n: n in attn),
+           "worst_other_ratios": top(rk, rw, lambda n: n not in attn),
+           "worst_other_witness_ratios": top(rw, rk, lambda n: n not in attn),
+           "params_over_1": sum(v > 1 for v in rk.values()),
+           "witness_params_over_1": sum(v > 1 for v in rw.values()),
+           "k_bias_worst": max((rk[n], rw[n], n) for n in kbias),
+           "attention_params": len(attn), "attention_params_nonzero_grads": sum(
+               bool(g.any()) for g, n in zip(g_k, names) if n in attn)}
+    del g_k, g_p, g_w, g_f
+    torch.cuda.empty_cache()
+    return res
+
+
+def ddpmpp_phase(device) -> dict:
+    """model=ddpmpp at its full width (104,701,571 parameters) in bfloat16
+    with both kernels on, random weights from a seed: (1) for each of two
+    seeds, one training loss and gradient through the tiled attention
+    kernels (forward and backward; the config's dropout keeps the resblocks
+    on the module path, as in the JAX package) against the same through the
+    plain versions, under phase train's rule (float32 through the plain
+    versions gives the yardstick; ``ddpmpp_grad_rule``); (2) DDPMPP_TRAIN_STEPS steps at batch 64 twice from the same state and
+    generator, bit for bit (cuDNN's deterministic algorithms); (3) PC
+    sampling with the EMA weights at batch 64 with N = 10, all three
+    kernels, twice, bit for bit; launches counted over (2) and (3)."""
+    torch.cuda.empty_cache()
+    cfg, model = ddpmpp_model(device)
+    check(sum(p.numel() for p in model.parameters()) == FAMILY_PARAMS["ddpmpp"],
+          "ddpmpp parameter count")
+    attn = [m for m in model.modules() if isinstance(m, AttnBlockpp)]
+    rbs = [m for m in model.modules() if isinstance(m, ResnetBlockDDPMpp)]
+    check(len(attn) == DDPMPP_ATTN_BLOCKS and all(m.use_kernel for m in attn)
+          and len(rbs) == DDPMPP_RESBLOCKS
+          and all(m.use_kernel and m.fused_forward is rb_ops.fused_resblock for m in rbs),
+          "ddpmpp blocks are not all on their kernels")
+    rng = np.random.default_rng(2)
+    images = torch.from_numpy(rng.uniform(size=(2 * TILED_BATCH, 3, 32, 32))
+                              .astype(np.float32)).to(device)
+    labels = torch.zeros((2 * TILED_BATCH, 1), device=device)   # CIFAR-10 here: no classes
+    batch = images[:TILED_BATCH]
+    out = {"params": FAMILY_PARAMS["ddpmpp"], "batch": TILED_BATCH}
+
+    # (1) kernel against plain under phase train's rule, for each seed of
+    #     DDPMPP_GRAD_SEEDS: the gradient vector within half of the bf16-f32
+    #     spread, every parameter within its own (the k biases within their
+    #     block's q bias's), the loss within half a bf16 step, relative.
+    #     The witness (the plain versions summing in another order) is
+    #     printed beside each reading: it moves the gradients as far as the
+    #     kernels do, so these limits are the noise floor of bf16 rounding.
+    for seed in DDPMPP_GRAD_SEEDS:
+        rule = ddpmpp_grad_rule(cfg, model, batch, seed, device)
+        print(json.dumps({"ddpmpp_kernel_vs_plain": rule}), flush=True)
+        out.setdefault("grad_rule", []).append(rule)
+        check(rule["attention_params_nonzero_grads"] == rule["attention_params"],
+              "a DDPM++ attention parameter has a zero gradient")
+        check(math.isfinite(rule["loss_kernel"]) and abs(rule["loss_kernel"] - rule["loss_plain"])
+              <= BF16_STEP / 2 * abs(rule["loss_plain"]),
+              f"ddpmpp loss kernel {rule['loss_kernel']} vs plain {rule['loss_plain']}")
+        check(rule["grad_ratio"] <= 0.5, f"ddpmpp gradients: kernel-plain {rule}")
+        check(rule["worst_ratios"][0][0] <= 1.0,
+              f"a ddpmpp parameter's gradient: kernel-plain / spread {rule['worst_ratios']}")
+
+    # (2) training steps twice from the same state, bit for bit
+    state = init_train_state(model, cfg)
+    step = make_train_step_on_device(get_sde(cfg), use_labels=False, batch_size=TILED_BATCH,
+                                     reduce_mean=cfg.training.reduce_mean,
+                                     likelihood_weighting=cfg.training.likelihood_weighting)
+    saved, counts = [t.detach().clone() for t in _state_tensors(state)], _counts(state)
+    deterministic = torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+    zero_tiled_launches()
+    runs = []
+    for _ in range(2):
+        with torch.no_grad():
+            for t, s in zip(_state_tensors(state), saved):
+                t.copy_(s)
+        state.step, state.optimizer.count, state.optimizer.schedule_count, \
+            state.ema.num_updates = counts
+        gen = torch.Generator(device=device).manual_seed(22)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        losses = [float(step(state, images, labels, gen)) for _ in range(DDPMPP_TRAIN_STEPS)]
+        torch.cuda.synchronize()
+        runs.append((losses, [t.detach().clone() for t in _state_tensors(state)],
+                     (time.perf_counter() - t0) * 1e3 / DDPMPP_TRAIN_STEPS))
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = deterministic
+    train_launches = tiled_launch_counts()
+    bit_equal = runs[0][0] == runs[1][0] and all(
+        torch.equal(a, b) for a, b in zip(runs[0][1], runs[1][1]))
+    out.update(train_steps=DDPMPP_TRAIN_STEPS, losses=runs[0][0], train_bit_equal=bit_equal,
+               ms_per_step=[r[2] for r in runs], train_launches=train_launches)
+    del saved, runs
+    n = 2 * DDPMPP_TRAIN_STEPS * DDPMPP_ATTN_BLOCKS
+    check(bit_equal and all(math.isfinite(v) for v in out["losses"]),
+          f"ddpmpp training: finite and bit for bit {out['losses']}")
+    check(train_launches["fused_attn_block_tiled"] == n
+          and train_launches["fused_attn_block_bwd_tiled"] == n
+          and train_launches["fused_resblock_tiled"] == 0,
+          f"ddpmpp training launches {train_launches}")
+
+    # (3) PC sampling with the EMA weights, all three kernels, twice
+    sde = get_sde(cfg)
+    sampling_fn = get_sampling_fn(cfg, sde, (TILED_BATCH, 3, 32, 32), SAMPLING_EPS)
+    zero_tiled_launches()
+    samples = []
+    with torch.no_grad(), state.ema.average_parameters(state.params):
+        score_fn = get_score_fn(sde, state.model)
+        for _ in range(2):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            samples.append(sampling_fn(score_fn, torch.Generator(device=device)
+                                       .manual_seed(23))[0].float())
+            torch.cuda.synchronize()
+            out.setdefault("sampling_s", []).append(time.perf_counter() - t0)
+    sample_launches = tiled_launch_counts()
+    forwards = sample_launches["fused_attn_block_tiled"] // (2 * DDPMPP_ATTN_BLOCKS)
+    out.update(sampling_steps=DDPMPP_SAMPLING_STEPS, sampling_forwards=forwards,
+               sampling_launches=sample_launches,
+               samples_bit_equal=bool(torch.equal(samples[0], samples[1])),
+               sample_min=float(samples[0].min()), sample_max=float(samples[0].max()))
+    check(out["samples_bit_equal"] and bool(torch.isfinite(samples[0]).all()),
+          "ddpmpp samples not finite or not repeatable")
+    check(forwards >= DDPMPP_SAMPLING_STEPS - 1
+          and sample_launches["fused_attn_block_tiled"] == 2 * DDPMPP_ATTN_BLOCKS * forwards
+          and sample_launches["fused_resblock_tiled"] == 2 * DDPMPP_RESBLOCKS * forwards,
+          f"ddpmpp sampling launches {sample_launches}")
+    out["launches"] = {k: train_launches[k] + sample_launches[k] for k in train_launches}
+    del state, model
+    torch.cuda.empty_cache()
+    return out
 
 
 def kernels_per_card_phase() -> dict:
@@ -2386,7 +2905,21 @@ def main() -> int:
     emit("run_train_families", t0, **run_train_families_phase())
 
     t0 = time.perf_counter()
+    emit("run_train_ddpmpp_kernels", t0, **run_train_families_phase(DDPMPP_KERNEL_ARGS))
+
+    t0 = time.perf_counter()
+    tiled_attn, tiled_rb = kernel_tiled_phase(device)
+    emit("kernel_tiled", t0, attn_cases=len(tiled_attn), resblock_cases=len(tiled_rb),
+         ddpmpp_resblocks_per_forward_at_b64={
+             k: ddpmpp_forward_sum(tiled_rb, k) for k in ("ms", "plain_ms", "module_ms",
+                                                          "bound_ms")})
+
+    t0 = time.perf_counter()
     emit("ddpmpp_attn_routing", t0, **ddpmpp_attn_routing_phase(device))
+
+    t0 = time.perf_counter()
+    ddpmpp = ddpmpp_phase(device)
+    emit("ddpmpp", t0, **ddpmpp)
     one_way = mcf["transpose_pair"]["one_way"]
     dots = {K: micro_cf_entry(f"cf_dots K={K}", 111, mcf, "cf_dots",
                               mcf_cases[f"dots_k{K}"], mcf[f"dots_k{K}"]) for K in (64, 192)}
@@ -2529,6 +3062,69 @@ def main() -> int:
                        mcf_cases["roll"], mcf["roll"]),
         dots[64],
     ]
+    ta, ta32 = tiled_attn[0], tiled_attn[2]
+    rb_main = [c for c in tiled_rb if c["B"] == TILED_BATCH and "ms" in c]
+    rb_forward = {k: ddpmpp_forward_sum(tiled_rb, k)
+                  for k in ("ms", "plain_ms", "module_ms", "bound_ms")}
+    tiled_note = (f"launches: phase ddpmpp (model=ddpmpp, bf16, both kernels): "
+                  f"{DDPMPP_TRAIN_STEPS} training steps at batch {TILED_BATCH} run twice, then "
+                  f"PC sampling (N {DDPMPP_SAMPLING_STEPS}) at batch {TILED_BATCH} run twice")
+    kernels += [{
+        "name": "fused_attn_block (tiled body)",
+        "route": "cuda",
+        "source": "rdm_tpu_torch/csrc/fused_attn_block_tiled.cu",
+        "replaces": "rdm_tpu/ops/pallas/attention.py:42::_fused_block_kernel",
+        "launches": ddpmpp["launches"]["fused_attn_block_tiled"],
+        "launches_note": tiled_note + "; 17 a forward (C 256, L 256)",
+        "max_abs_err": ta["max_abs_err"], "ms": ta["ms"], "plain_ms": ta["plain_ms"],
+        "bound_ms": ta["bound_ms"], "bound_by": ta["bound_by"], "library_ms": None,
+        "module_ms": ta["library_ms"],
+        "module_note": "the unfused block from PyTorch calls: F.group_norm, the NINs as "
+                       "matmuls, F.scaled_dot_product_attention (no single call)",
+        "timing": "cold: x rotates over more than twice the L2, CUDA-graph slopes",
+        "share_of_bound": ta["share_of_bound"],
+        "nf32": {k: ta32[k] for k in ("B", "C", "L", "max_abs_err", "ms", "plain_ms",
+                                      "library_ms", "bound_ms", "bound_by")},
+        "shape": "B=64 C=256 L=256 groups=32 bfloat16",
+    }, {
+        "name": "fused_attn_block_bwd (tiled body)",
+        "route": "cuda",
+        "source": "rdm_tpu_torch/csrc/fused_attn_block_tiled.cu",
+        "replaces": "rdm_tpu/ops/pallas/attention.py:101::_fused_block_bwd_kernel",
+        "launches": ddpmpp["launches"]["fused_attn_block_bwd_tiled"],
+        "launches_note": tiled_note + "; 17 a training step",
+        "max_abs_err": max(ta["dx_max_abs_err"], ta["param_max_abs_err"]),
+        "ms": ta["bwd_ms"], "plain_ms": ta["bwd_plain_ms"], "bound_ms": ta["bwd_bound_ms"],
+        "bound_by": ta["bwd_bound_by"], "library_ms": None,
+        "module_ms": ta["bwd_library_ms"],
+        "module_note": "autograd through the unfused library block (its forward included, "
+                       "as the kernel recomputes the forward)",
+        "timing": "cold: x and g rotate over more than twice the L2, CUDA-graph slopes",
+        "share_of_bound": ta["bwd_share_of_bound"],
+        "nf32": {k: ta32[k] for k in ("dx_max_abs_err", "param_max_abs_err", "bwd_ms",
+                                      "bwd_plain_ms", "bwd_library_ms", "bwd_bound_ms")},
+        "shape": "B=64 C=256 L=256 groups=32 bfloat16",
+    }, {
+        "name": "fused_resblock (tiled body)",
+        "route": "cuda",
+        "source": "rdm_tpu_torch/csrc/fused_resblock_tiled.cu",
+        "replaces": "rdm_tpu/ops/pallas/resblock.py:51::_kernel",
+        "launches": ddpmpp["launches"]["fused_resblock_tiled"],
+        "launches_note": tiled_note + "; 70 a forward (the training steps keep the module "
+                         "path under the config's dropout)",
+        "max_abs_err": max(c["max_abs_err"] for c in rb_main),
+        "ms": rb_forward["ms"] / DDPMPP_RESBLOCKS,
+        "plain_ms": rb_forward["plain_ms"] / DDPMPP_RESBLOCKS,
+        "bound_ms": rb_forward["bound_ms"] / DDPMPP_RESBLOCKS,
+        "bound_by": "operations" if all(c["bound_by"] == "operations" for c in rb_main)
+                    else "bytes",
+        "library_ms": None, "module_ms": rb_forward["module_ms"] / DDPMPP_RESBLOCKS,
+        "module_note": "the unfused ResnetBlockDDPMpp (cuDNN convolutions)",
+        "timing": "cold: x and tembv rotate over more than twice the L2, CUDA-graph slopes",
+        "per_forward_ms": rb_forward,
+        "shape": "mean per launch over DDPM++'s 70 blocks of one forward, B=64 bfloat16 "
+                 "(per shape: the tiled_resblock_case lines)",
+    }]
     for k in kernels[4:6]:
         k["launches_note"] += "; one wrapper and one count for both directions"
     shoot_note = ("launches: one 1024-lane grading of the round-2 samples at 8 basin hops, "

@@ -18,7 +18,8 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops import fir as fir_ops
-from ..ops.attention import SUPPORTED_CHANNELS, FusedAttnBlockFn, round_to
+from ..ops import attention as attn_ops
+from ..ops.attention import FusedAttnBlockFn, round_to
 from ..ops.resblock import FusedResblockFn, fused_resblock
 from ..ops.resize import upsample2x_nearest
 
@@ -170,12 +171,15 @@ class AttnBlockpp(nn.Module):
     takes its TPU kernel only under bfloat16, because float32 tiles trip a
     Mosaic layout check there; that is a limit of the TPU compiler, not part
     of what the block computes, so the CUDA kernel serves both types.)
-    The kernels take the widths of ``ops.attention.SUPPORTED_CHANNELS``; a
-    block of another width is routed to the plain versions here, once, with
-    a log line, as the JAX package routes by type."""
+    The kernels take the shapes of ``ops.attention.attn_body`` (C 64 or 128
+    up to 128 tokens; in bfloat16 also C 32 or 256, and up to 256 tokens:
+    every attention block of the flagship, of DDPM++ and of the nf-32
+    NCSN++); a block of ``tokens`` tokens that no kernel takes in ``dtype``
+    is routed to the plain versions here, once, with a log line, as the JAX
+    package routes by type."""
 
     def __init__(self, channels: int, skip_rescale: bool = False, init_scale: float = 0.0,
-                 use_kernel: bool = False, dtype=torch.float32):
+                 use_kernel: bool = False, dtype=torch.float32, *, tokens: int):
         super().__init__()
         self.GroupNorm_0 = GroupNorm(group_count(channels), channels, dtype=dtype)
         self.NIN_0 = NIN(channels, channels, dtype=dtype)
@@ -183,10 +187,14 @@ class AttnBlockpp(nn.Module):
         self.NIN_2 = NIN(channels, channels, dtype=dtype)
         self.NIN_3 = NIN(channels, channels, init_scale=init_scale, dtype=dtype)
         self.skip_rescale = skip_rescale
-        if use_kernel and channels not in SUPPORTED_CHANNELS:
-            logger.warning("attention block of width %d: the CUDA kernels take widths %s; "
-                           "this block runs the plain versions", channels, SUPPORTED_CHANNELS)
-            use_kernel = False
+        if use_kernel:
+            try:
+                attn_ops.attn_body(channels, tokens, dtype)
+            except ValueError:
+                logger.warning("attention block of width %d, %d tokens, %s: no CUDA kernel "
+                               "takes this shape; this block runs the plain versions",
+                               channels, tokens, dtype)
+                use_kernel = False
         self.use_kernel = use_kernel
         self.dtype = dtype
 

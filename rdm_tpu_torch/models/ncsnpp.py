@@ -65,23 +65,26 @@ class NCSNpp(nn.Module):
         levels = len(self.ch_mult)
 
         def resblock(in_ch, out_ch, level):
-            # The block's nominal resolution decides, once, whether the CUDA
-            # kernel takes its shape; a block it does not take runs the
-            # fused block's plain version on any device.
+            # The block's nominal resolution and the model's type decide,
+            # once, whether a CUDA kernel takes its shape (every block of the
+            # flagship, of DDPM++ and of the nf-32 NCSN++ in bfloat16); a
+            # block none takes runs the fused block's plain version on any
+            # device.
             res = self._resolution(level)
-            fused = rb_ops.route(res, res, in_ch, out_ch)
+            fused = rb_ops.route(res, res, in_ch, out_ch, dtype)
             if resblock_kernel and fused is not rb_ops.fused_resblock:
-                logger.warning("resblock %dx%d, %d -> %d channels: the CUDA kernel does not "
-                               "take this shape; the block runs the fused block's plain "
-                               "version", res, res, in_ch, out_ch)
+                logger.warning("resblock %dx%d, %d -> %d channels, %s: no CUDA kernel takes "
+                               "this shape; the block runs the fused block's plain version",
+                               res, res, in_ch, out_ch, dtype)
             return ResnetBlockDDPMpp(act, in_ch, out_ch, temb_dim=4 * nf, dropout=dropout,
                                      skip_rescale=skip_rescale, init_scale=init_scale,
                                      use_kernel=resblock_kernel, fused_forward=fused,
                                      dtype=dtype)
 
-        def attnblock(ch):
+        def attnblock(ch, level):
+            res = self._resolution(level)
             return AttnBlockpp(ch, skip_rescale=skip_rescale, init_scale=init_scale,
-                               use_kernel=attn_kernel, dtype=dtype)
+                               use_kernel=attn_kernel, dtype=dtype, tokens=res * res)
 
         # Registration order is the reference's parameters() order, which the
         # EMA shadow list follows.
@@ -99,7 +102,7 @@ class NCSNpp(nn.Module):
             for _ in range(num_res_blocks):
                 down_blocks.append(resblock(in_ch, nf * mult, i))
                 in_ch = nf * mult
-                down_attn.append(attnblock(in_ch) if self._has_attn(i) else None)
+                down_attn.append(attnblock(in_ch, i) if self._has_attn(i) else None)
                 hs_ch.append(in_ch)
             hs_ch.append(in_ch)
             if i != levels - 1:
@@ -110,7 +113,7 @@ class NCSNpp(nn.Module):
 
         self.mid_block1 = resblock(in_ch, in_ch, levels - 1)
         if self._has_attn(levels - 1):
-            self.mid_attn = attnblock(in_ch)
+            self.mid_attn = attnblock(in_ch, levels - 1)
         self.mid_block2 = resblock(in_ch, in_ch, levels - 1)
 
         up_blocks, up_attn, upsample = [], [], []
@@ -119,7 +122,7 @@ class NCSNpp(nn.Module):
             for _ in range(num_res_blocks + 1):
                 up_blocks.append(resblock(in_ch + hs_ch.pop(), out_ch, i))
                 in_ch = out_ch
-                up_attn.append(attnblock(in_ch) if self._has_attn(i) else None)
+                up_attn.append(attnblock(in_ch, i) if self._has_attn(i) else None)
             if i != 0:
                 upsample.append(Upsample(in_ch, with_conv=resamp_with_conv, dtype=dtype))
         self.up_blocks = nn.ModuleList(up_blocks)

@@ -32,6 +32,17 @@ products a sample run on the tensor cores, one block of warps per gradient
 slot stages the weights once and keeps float32 weight and bias gradients on
 the chip for all of its samples (``bwd_plan``; see its source).
 
+In bfloat16 at the widths a sample does not fit a block at (C in {32, 64,
+128, 256} up to 256 tokens, outside the two bodies above: DDPM++'s C 256,
+L 256 and the nf-32 NCSN++'s C 32, L 81) both directions take the tiled body,
+``csrc/fused_attn_block_tiled.cu`` (``fused_attn_block_tiled`` and
+``fused_attn_block_bwd_tiled``): a few launches that meet in global memory,
+each intermediate stored in bfloat16 where the TPU kernel rounds it, the
+softmax exact in float32 over every key, and the parameter gradients as
+float32 partials summed in a fixed order (``tiled_plan``; see the source).
+``attn_body`` states the envelope of all three bodies, the one place that
+decides which body a shape takes.
+
 ``attention_core`` launches ``csrc/attention_core.cu`` on CUDA tensors
 and runs ``attention_core_reference`` on CPU tensors.  It replaces the TPU
 kernel ``_attn_kernel`` of the same file; memory bounds it.  In bfloat16 it
@@ -56,8 +67,12 @@ import torch
 
 from . import _build
 
+# the scalar body: float32 or bfloat16 at these widths and up to MAX_TOKENS
 SUPPORTED_CHANNELS = (64, 128)
 MAX_TOKENS = 128
+# the tiled body: bfloat16 at these widths and up to TILED_MAX_TOKENS
+TILED_CHANNELS = (32, 64, 128, 256)
+TILED_MAX_TOKENS = 256
 CORE_MAX_CHANNELS = 128
 # ring stages of each consumer group of the bfloat16 attention-core kernel
 CORE_STAGES_PER_GROUP = 2
@@ -65,6 +80,8 @@ CORE_STAGES_PER_GROUP = 2
 TC_CHANNELS = 64
 TC_MAX_TOKENS = 96
 GN_EPS = 1e-6
+# the ten parameters of the block, in the order of every function here
+PARAM_NAMES = ("gamma", "beta", "wq", "bq", "wk", "bk", "wv", "bv", "wp", "bp")
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 
@@ -205,12 +222,62 @@ def rows_per_chunk(C: int, L: int) -> int:
 
 
 def attn_body(C: int, L: int, dtype: torch.dtype) -> str:
-    """Which body of ``csrc/fused_attn_block.cu`` and of
-    ``csrc/fused_attn_block_bwd.cu`` the forward and the backward kernel run
-    for a shape, fixed by the shape: ``"tensor_cores"`` (bfloat16, C 64,
-    L <= 96) or ``"scalar"`` (every other shape, and float32)."""
-    tc = dtype == torch.bfloat16 and C == TC_CHANNELS and L <= TC_MAX_TOKENS
-    return "tensor_cores" if tc else "scalar"
+    """Which body the forward and the backward kernel run for a shape, fixed
+    by the shape: ``"tensor_cores"`` (bfloat16, C 64, L <= 96) or
+    ``"scalar"`` (C 64 or 128 up to 128 tokens otherwise, float32 too) of
+    ``csrc/fused_attn_block.cu`` and ``csrc/fused_attn_block_bwd.cu``, or
+    ``"tiled"`` (bfloat16 at the other widths of ``TILED_CHANNELS`` and
+    tokens up to 256) of ``csrc/fused_attn_block_tiled.cu``; raises on a
+    shape no body takes."""
+    bf16 = dtype == torch.bfloat16
+    if bf16 and C == TC_CHANNELS and L <= TC_MAX_TOKENS:
+        return "tensor_cores"
+    if C in SUPPORTED_CHANNELS and L <= MAX_TOKENS and dtype in _DTYPE_CODES:
+        return "scalar"
+    if bf16 and C in TILED_CHANNELS and L <= TILED_MAX_TOKENS:
+        return "tiled"
+    raise ValueError(f"fused_attn_block: no kernel takes C={C}, L={L} in {dtype} (C in "
+                     f"{SUPPORTED_CHANNELS} up to {MAX_TOKENS} tokens, or bfloat16 with C in "
+                     f"{TILED_CHANNELS} up to {TILED_MAX_TOKENS} tokens)")
+
+
+class TiledPlan(NamedTuple):
+    """Launch plan of the tiled body (``fused_attn_block_tiled.cu``:
+    ``rdm_attn_tiled_plan``), computed here the way the source does."""
+    fwd_launches: int       # GroupNorm, q/k/v product, attention, output product
+    bwd_launches: int       # the forward's first three, then twelve more kernels
+    fwd_smem_bytes: int     # the attention kernel: 64 query rows and every key row
+    bwd_smem_bytes: int     # the ds kernel: 64 rows of q and of do, every key row
+    query_tiles: int        # the attention kernels' grid: (query_tiles, B)
+    key_tiles: int          # keys in 16-rows the kernel is built for (4, 8 or 16)
+    padded_tokens: int      # L rounded up to 16: rows of a sample in the workspace
+    grad_chunk: int         # token rows of one split of the weight-gradient products
+    grad_splits: int        # their number: float32 partials summed in this order
+    gemm_tiles: tuple       # (M, N) 64 x 64 tiles of each product: qkv, proj, do,
+                            # dq, dk, dv, dh (grid z: B), weights, proj weights (z: splits)
+
+
+TILED_QUERY_ROWS = 64
+GEMM_TILE = 64
+
+
+def tiled_plan(B: int, C: int, L: int) -> TiledPlan:
+    """The tiled body's plan at (B, C, L); ``tests`` hold it against the
+    built library's on the card."""
+    if not (C in TILED_CHANNELS and 1 <= L <= TILED_MAX_TOKENS and B >= 1):
+        raise ValueError(f"fused_attn_block_tiled: no plan for B={B}, C={C}, L={L}")
+    cdiv = lambda a, b: -(-a // b)
+    lp = cdiv(L, 16) * 16
+    kt = lp // 16
+    rows = B * lp
+    splits = min(max(cdiv(rows, 512), 1), 64)
+    chunk = cdiv(cdiv(rows, splits), 32) * 32
+    tiles = lambda m, n: (cdiv(m, GEMM_TILE), cdiv(n, GEMM_TILE))
+    return TiledPlan(4, 16, (TILED_QUERY_ROWS + lp) * (C + 8) * 2,
+                     (2 * TILED_QUERY_ROWS + lp) * (C + 8) * 2, cdiv(L, TILED_QUERY_ROWS),
+                     4 if kt <= 4 else 8 if kt <= 8 else 16, lp, chunk, cdiv(rows, chunk),
+                     (tiles(L, 3 * C), tiles(L, C), tiles(L, C), tiles(L, C), tiles(L, C),
+                      tiles(L, C), tiles(L, C), tiles(C + 1, 3 * C), tiles(C + 1, C)))
 
 
 class BwdPlan(NamedTuple):
@@ -244,11 +311,10 @@ def check_activations(name, x):
         raise ValueError(f"{name}: x must be contiguous")
 
 
-def _check_width(name, C, L):
-    if C not in SUPPORTED_CHANNELS:
-        raise ValueError(f"{name}: unsupported C={C}")
-    if L > MAX_TOKENS:
-        raise ValueError(f"{name}: {L} tokens exceed {MAX_TOKENS}")
+def _check_width(name, C, L, dtype):
+    """Raise unless the scalar or the tensor-core body takes the shape."""
+    if attn_body(C, L, dtype) == "tiled":
+        raise ValueError(f"{name}: C={C}, L={L} takes the tiled body")
 
 
 def _cast_params(name, params, C, dtype, device):
@@ -281,7 +347,7 @@ def _launcher(gn_scale, gn_bias, wq, bq, wk, bk, wv, bv, wp, bp, *, C: int, L: i
     device = wq.device
     if device.type != "cuda" or dtype not in _DTYPE_CODES:
         raise ValueError(f"{name}: unsupported device {device} or dtype {dtype}")
-    _check_width(name, C, L)
+    _check_width(name, C, L, dtype)
     if C % groups != 0:
         raise ValueError(f"{name}: C={C} is not divisible by groups={groups}")
     params = _cast_params(name, (gn_scale, gn_bias, wq, bq, wk, bk, wv, bv, wp, bp), C, dtype,
@@ -320,17 +386,22 @@ def fused_attn_block(x, gn_scale, gn_bias, wq, bq, wk, bk, wv, bv, wp, bp,
     """The fused attention block on NCHW ``x``.
 
     CPU tensors take the plain version.  CUDA tensors launch the kernel; it
-    takes float32 or bfloat16, C in {64, 128} divisible by ``groups`` and
-    at most 128 tokens, contiguous, and raises on anything else.  Which
-    body runs is fixed by the shape (``attn_body``).
+    takes the shapes of ``attn_body`` (float32 or bfloat16 at C in {64, 128} up
+    to 128 tokens, bfloat16 at C in {32, 64, 128, 256} up to 256 tokens)
+    with C divisible by ``groups``, contiguous, and raises on anything else.
+    Which body runs is fixed by the shape (``attn_body``); the tiled body
+    goes through ``fused_attn_block_tiled``.
     """
     raw = (gn_scale, gn_bias, wq, bq, wk, bk, wv, bv, wp, bp)
     if x.device.type == "cpu":
         return fused_attn_block_reference(x, *raw, groups=groups, skip_rescale=skip_rescale)
     check_activations("fused_attn_block", x)
     B, C, H, W = x.shape
-    out = _launcher(*raw, C=C, L=H * W, dtype=x.dtype, groups=groups,
-                    skip_rescale=skip_rescale)(x)
+    if attn_body(C, H * W, x.dtype) == "tiled":
+        out = fused_attn_block_tiled(x, *raw, groups=groups, skip_rescale=skip_rescale)
+    else:
+        out = _launcher(*raw, C=C, L=H * W, dtype=x.dtype, groups=groups,
+                        skip_rescale=skip_rescale)(x)
     if B > 0:
         fused_attn_block.launches += 1
     return out
@@ -376,7 +447,7 @@ def _bwd_launcher(gn_scale, gn_bias, wq, bq, wk, bk, wv, bv, wp, bp, *, C: int, 
     device = wq.device
     if device.type != "cuda" or dtype not in _DTYPE_CODES:
         raise ValueError(f"{name}: unsupported device {device} or dtype {dtype}")
-    _check_width(name, C, L)
+    _check_width(name, C, L, dtype)
     if C % groups != 0:
         raise ValueError(f"{name}: C={C} is not divisible by groups={groups}")
     params = _bwd_args((gn_scale, gn_bias, wq, bq, wk, bk, wv, bv, wp, bp), C, L, dtype, device)
@@ -431,6 +502,11 @@ def fused_attn_block_bwd(x, g, gn_scale, gn_bias, wq, bq, wk, bk, wv, bv, wp, bp
                                               skip_rescale=skip_rescale)
     check_activations("fused_attn_block_bwd", x)
     B, C, H, W = x.shape
+    if attn_body(C, H * W, x.dtype) == "tiled":
+        out = fused_attn_block_bwd_tiled(x, g, *raw, groups=groups, skip_rescale=skip_rescale)
+        if B > 0:
+            fused_attn_block_bwd.launches += 1
+        return out
     dx, grads = _bwd_launcher(*raw, C=C, L=H * W, dtype=x.dtype, groups=groups,
                               skip_rescale=skip_rescale)(x, g)
     if B > 0:
@@ -444,6 +520,122 @@ def fused_attn_block_bwd(x, g, gn_scale, gn_bias, wq, bq, wk, bk, wv, bv, wp, bp
 
 
 fused_attn_block_bwd.launches = 0
+
+
+def _tiled_library():
+    return _build.library("fused_attn_block_tiled", "rdm_attn_tiled_fwd",
+                          [ctypes.c_void_p] * 9 + [ctypes.c_int] * 4 + [ctypes.c_float] * 3
+                          + [ctypes.c_void_p],
+                          extra=[("rdm_attn_tiled_bwd",
+                                  [ctypes.c_void_p] * 11 + [ctypes.c_int] * 4
+                                  + [ctypes.c_float] * 4 + [ctypes.c_void_p], ctypes.c_int),
+                                 ("rdm_attn_tiled_workspace", [ctypes.c_int] * 5,
+                                  ctypes.c_longlong),
+                                 ("rdm_attn_tiled_plan", [ctypes.c_int] * 4 + [ctypes.c_void_p],
+                                  ctypes.c_int)])
+
+
+def built_tiled_plan(B: int, C: int, L: int, groups: int) -> tuple:
+    """The built library's plan (``rdm_attn_tiled_plan``, needs ``nvcc``):
+    the first nine fields of ``tiled_plan``."""
+    out = (ctypes.c_int * 9)()
+    lib = _tiled_library()
+    _build.raise_on(lib, lib.rdm_attn_tiled_plan(B, C, L, groups, out), "fused_attn_block_tiled plan")
+    return tuple(out)
+
+
+def _tiled_args(name, x, raw, groups, bwd):
+    """Checks for the tiled body, and its parameters cast to bfloat16 in the
+    layouts the source reads: gamma, beta, [Wq | Wk | Wv]^T, [bq | bk | bv],
+    Wp^T, bp, and for the backward also [Wq | Wk | Wv] and Wp."""
+    check_activations(name, x)
+    B, C, H, W = x.shape
+    if attn_body(C, H * W, x.dtype) != "tiled":
+        raise ValueError(f"{name}: C={C}, L={H * W} in {x.dtype} is not a tiled shape")
+    if C % groups != 0 or not 1 <= groups <= 32:
+        raise ValueError(f"{name}: C={C} is not divisible by groups={groups} (at most 32)")
+    gamma, beta, wq, bq, wk, bk, wv, bv, wp, bp = _cast_params(name, raw, C, x.dtype, x.device)
+    wqkv = torch.cat([wq, wk, wv], 1)
+    args = [gamma, beta, wqkv.t().contiguous(), torch.cat([bq, bk, bv])]
+    args += [wqkv, wp] if bwd else [wp.t().contiguous(), bp]
+    return args
+
+
+def fused_attn_block_tiled(x, gn_scale, gn_bias, wq, bq, wk, bk, wv, bv, wp, bp,
+                           *, groups: int, skip_rescale: bool = True):
+    """The fused block's tiled body (``csrc/fused_attn_block_tiled.cu``):
+    bfloat16 NCHW ``x`` at a shape ``attn_body`` gives ``"tiled"``.  CPU
+    tensors take the plain version; CUDA tensors launch the kernels or
+    raise."""
+    raw = (gn_scale, gn_bias, wq, bq, wk, bk, wv, bv, wp, bp)
+    if x.device.type == "cpu":
+        return fused_attn_block_reference(x, *raw, groups=groups, skip_rescale=skip_rescale)
+    name = "fused_attn_block_tiled"
+    args = _tiled_args(name, x, raw, groups, bwd=False)
+    B, C, H, W = x.shape
+    L = H * W
+    out = torch.empty_like(x)
+    if B == 0:
+        return out
+    lib = _tiled_library()
+    ws = torch.empty(lib.rdm_attn_tiled_workspace(B, C, L, groups, 0), dtype=torch.uint8,
+                     device=x.device)
+    with torch.cuda.device(x.device):
+        err = lib.rdm_attn_tiled_fwd(
+            x.data_ptr(), out.data_ptr(), *(a.data_ptr() for a in args), ws.data_ptr(), B, C, L,
+            groups, GN_EPS, float(C) ** -0.5, round_to(_rescale(skip_rescale), x.dtype),
+            torch.cuda.current_stream(x.device).cuda_stream)
+    _build.raise_on(lib, err, name)
+    fused_attn_block_tiled.launches += 1
+    return out
+
+
+fused_attn_block_tiled.launches = 0
+
+
+def fused_attn_block_bwd_tiled(x, g, gn_scale, gn_bias, wq, bq, wk, bk, wv, bv, wp, bp,
+                               *, groups: int, skip_rescale: bool = True):
+    """The backward's tiled body (``csrc/fused_attn_block_tiled.cu``), with
+    ``fused_attn_block_bwd``'s outputs.  CPU tensors take the plain
+    backward; CUDA tensors launch the kernels or raise.  The parameter
+    gradients are float32 partials summed in a fixed order: two runs on the
+    same inputs agree bit for bit."""
+    raw = (gn_scale, gn_bias, wq, bq, wk, bk, wv, bv, wp, bp)
+    if x.device.type == "cpu":
+        return fused_attn_block_bwd_reference(x, g, *raw, groups=groups,
+                                              skip_rescale=skip_rescale)
+    name = "fused_attn_block_bwd_tiled"
+    args = _tiled_args(name, x, raw, groups, bwd=True)
+    if g.shape != x.shape or g.device != x.device:
+        raise ValueError(f"{name}: g of shape {tuple(g.shape)} on {g.device} "
+                         f"does not match x {tuple(x.shape)} on {x.device}")
+    g = g.to(x.dtype).contiguous()
+    B, C, H, W = x.shape
+    L = H * W
+    dx = torch.empty_like(x)
+    n1, n2 = (C + 1) * 3 * C, (C + 1) * C
+    grads = torch.zeros(n1 + n2 + 2 * C, dtype=torch.float32, device=x.device)
+    if B > 0:
+        lib = _tiled_library()
+        ws = torch.empty(lib.rdm_attn_tiled_workspace(B, C, L, groups, 1), dtype=torch.uint8,
+                         device=x.device)
+        r = _rescale(skip_rescale)
+        with torch.cuda.device(x.device):
+            err = lib.rdm_attn_tiled_bwd(
+                x.data_ptr(), g.data_ptr(), dx.data_ptr(), *(a.data_ptr() for a in args),
+                grads.data_ptr(), ws.data_ptr(), B, C, L, groups, GN_EPS, float(C) ** -0.5,
+                round_to(r, x.dtype), r, torch.cuda.current_stream(x.device).cuda_stream)
+        _build.raise_on(lib, err, name)
+        fused_attn_block_bwd_tiled.launches += 1
+    wqkv = grads[:n1].view(C + 1, 3 * C)
+    dwp = grads[n1:n1 + n2].view(C + 1, C)
+    gb = grads[n1 + n2:]
+    out = (gb[:C], gb[C:], wqkv[:C, :C], wqkv[C, :C], wqkv[:C, C:2 * C], wqkv[C, C:2 * C],
+           wqkv[:C, 2 * C:], wqkv[C, 2 * C:], dwp[:C], dwp[C])
+    return (dx, *(o.contiguous().reshape(p.shape) for o, p in zip(out, raw)))
+
+
+fused_attn_block_bwd_tiled.launches = 0
 
 
 class FusedAttnBlockFn(torch.autograd.Function):

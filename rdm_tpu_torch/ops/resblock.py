@@ -33,8 +33,16 @@ rounding points in the working type T:
 Parameters use the module's layouts: convolution weights (C_out, C_in, 3,
 3), the NIN weight (C_in, C_out), one-dimensional scales and biases.
 
-In bfloat16 the kernel runs each convolution as an implicit GEMM on the
-tensor cores; the host hands it its weights and its 3x3 shift in its own
+Every other shape of DDPM++ on CIFAR-10 and of the nf-32 NCSN++ (bfloat16,
+H = W up to 64, C_in and C_out multiples of 32 up to 1024) takes the tiled
+body ``csrc/fused_resblock_tiled.cu`` (``fused_resblock_tiled``): a sample
+does not fit a block there, so GroupNorm, each convolution (an implicit GEMM
+over every sample's tokens) and the shortcut run as launches that meet in
+global memory, each intermediate stored in bfloat16 where the TPU kernel
+rounds it (``resblock_body`` names the body a shape takes).
+
+In bfloat16 the flagship's kernel runs each convolution as an implicit GEMM
+on the tensor cores; the host hands it its weights and its 3x3 shift in its own
 layouts: ``weight_panels`` (the weights as the stages its ring streams) and
 ``gather_table`` (each token row's neighbour row per tap, or the zero row).
 The kernel's geometry and ring live in its source alone; ``resblock_plan``
@@ -53,18 +61,73 @@ import torch.nn.functional as F
 from . import _build
 from .attention import GN_EPS, _DTYPE_CODES, _acc_dtype, _rescale, check_activations, round_to
 
-# (H, C_out) the kernel takes, with H = W; C_in is any of KERNEL_C_IN.
+# (H, C_out) the flagship's kernel takes, with H = W; C_in is any of KERNEL_C_IN.
 KERNEL_SHAPES = ((9, 64), (4, 128), (2, 128))
 KERNEL_C_IN = (64, 128, 192, 256)
 MAX_GROUPS = 32
+# the tiled body (bfloat16): H = W up to TILED_MAX_H, widths multiples of 32 up to TILED_MAX_C
+TILED_MAX_H = 64
+TILED_MAX_C = 1024
 PANEL_K = 64            # input channels of one weight stage
 _ARGTYPES = [ctypes.c_void_p] * 15 + [ctypes.c_int] * 7 + [ctypes.c_float] * 2 + [ctypes.c_void_p]
 _PLAN_FN = ("rdm_fused_resblock_plan", [ctypes.c_int] * 3 + [ctypes.c_void_p], ctypes.c_int)
 
 
-def kernel_takes(H: int, W: int, c_in: int, c_out: int) -> bool:
-    """Whether the CUDA kernel takes this block shape."""
+def flagship_takes(H: int, W: int, c_in: int, c_out: int) -> bool:
+    """Whether ``csrc/fused_resblock.cu`` (float32 or bfloat16) takes the shape."""
     return H == W and (H, c_out) in KERNEL_SHAPES and c_in in KERNEL_C_IN
+
+
+def resblock_body(H: int, W: int, c_in: int, c_out: int, dtype: torch.dtype) -> str:
+    """The body a shape takes, the one place that decides it:
+    ``"tensor_cores"`` (the flagship's shapes in bfloat16), ``"scalar"``
+    (the same in float32) or ``"tiled"`` (bfloat16, H = W up to
+    ``TILED_MAX_H``, widths multiples of 32 up to ``TILED_MAX_C``); raises
+    where none does."""
+    if flagship_takes(H, W, c_in, c_out) and dtype in _DTYPE_CODES:
+        return "tensor_cores" if dtype == torch.bfloat16 else "scalar"
+    if (dtype == torch.bfloat16 and H == W and 1 <= H <= TILED_MAX_H
+            and all(32 <= c <= TILED_MAX_C and c % 32 == 0 for c in (c_in, c_out))):
+        return "tiled"
+    raise ValueError(f"fused_resblock: no kernel takes H={H}, W={W}, C_in={c_in}, "
+                     f"C_out={c_out} in {dtype}")
+
+
+class TiledResblockPlan(NamedTuple):
+    """Launches of the tiled body at (B, H, C_in, C_out), as
+    ``fused_resblock_tiled.cu``'s ``rdm_resblock_tiled_plan`` gives them."""
+    launches: int       # GroupNorm, conv0, GroupNorm, [NIN], conv1
+    conv0_grid: tuple   # (M tiles, N tiles, 1): M = B H W token rows, N = C_out
+    nin_grid: tuple     # (L tiles, N tiles, B), (0, 0, 0) without a NIN
+    conv1_grid: tuple
+    gn0_blocks: int     # one block a (sample, group)
+    gn1_blocks: int
+    gemm_threads: int
+    gn_threads: int
+    gemm_smem_bytes: int  # static: one 64 x 32 stage of A and of B, rows padded to 40
+
+    def flat(self) -> tuple:
+        return (self.launches, *self.conv0_grid, *self.nin_grid, *self.conv1_grid,
+                self.gn0_blocks, self.gn1_blocks, self.gemm_threads, self.gn_threads,
+                self.gemm_smem_bytes)
+
+
+GEMM_TILE = 64
+
+
+def tiled_resblock_plan(B: int, H: int, c_in: int, c_out: int, groups0: int,
+                        groups1: int) -> TiledResblockPlan:
+    """The tiled body's plan, computed here as its source does."""
+    if not (_is_tiled(H, H, c_in, c_out, torch.bfloat16) and B >= 1
+            and _groups_ok(c_in, groups0) and _groups_ok(c_out, groups1)):
+        raise ValueError(f"fused_resblock_tiled: no plan for B={B}, H={H}, C_in={c_in}, "
+                         f"C_out={c_out}, groups {groups0}, {groups1}")
+    t = lambda n: -(-n // GEMM_TILE)
+    nin = c_in != c_out
+    return TiledResblockPlan(5 if nin else 4, (t(B * H * H), t(c_out), 1),
+                             (t(H * H), t(c_out), B) if nin else (0, 0, 0),
+                             (t(B * H * H), t(c_out), 1), B * groups0, B * groups1, 128, 256,
+                             2 * GEMM_TILE * 40 * 2)
 
 
 def _bias(b):
@@ -165,9 +228,9 @@ def _plan(lib, H: int, c_in: int, c_out: int) -> ResblockPlan:
 
 
 def resblock_plan(H: int, c_in: int, c_out: int) -> ResblockPlan:
-    """The bfloat16 kernel's plan for a block shape the kernel takes, from
-    the built library (it needs ``nvcc``)."""
-    if not kernel_takes(H, H, c_in, c_out):
+    """The bfloat16 kernel's plan for a block shape the flagship's kernel
+    takes, from the built library (it needs ``nvcc``)."""
+    if not flagship_takes(H, H, c_in, c_out):
         raise ValueError(f"fused_resblock: no kernel plan for H={H}, C_in={c_in}, C_out={c_out}")
     return _plan(_library(), H, c_in, c_out)
 
@@ -238,12 +301,17 @@ def weight_panels(conv0_w, conv1_w, nin_w=None):
 
 def _check_params(params, H, c_in, device, name):
     """Raise unless the ten parameters (None for an absent NIN) fit a block
-    shape the kernel takes, on ``device``; return C_out."""
+    shape the flagship's kernel takes, on ``device``; return C_out."""
     c_out = params[2].shape[0]
-    if not kernel_takes(H, H, c_in, c_out):
+    if not flagship_takes(H, H, c_in, c_out):
         raise ValueError(f"{name}: unsupported shape H={H}, W={H}, C_in={c_in}, "
                          f"C_out={c_out}; the kernel takes H = W with (H, C_out) in "
                          f"{KERNEL_SHAPES} and C_in in {KERNEL_C_IN}")
+    _check_param_shapes(params, c_in, c_out, device, name)
+    return c_out
+
+
+def _check_param_shapes(params, c_in, c_out, device, name):
     nin_w, nin_b = params[8], params[9]
     if (nin_w is None) != (c_in == c_out) or (nin_w is None) != (nin_b is None):
         raise ValueError(f"{name}: a NIN shortcut is needed exactly when C_in != C_out")
@@ -253,11 +321,17 @@ def _check_params(params, H, c_in, device, name):
         if p is not None and (p.device != device or tuple(p.shape) != shape):
             raise ValueError(f"{name}: parameter of shape {tuple(p.shape)} on {p.device}, "
                              f"expected {shape} on {device}")
-    return c_out
 
 
 def _groups_ok(C, groups):
     return 1 <= groups <= MAX_GROUPS and C % groups == 0
+
+
+def _is_tiled(H, W, c_in, c_out, dtype):
+    try:
+        return resblock_body(H, W, c_in, c_out, dtype) == "tiled"
+    except ValueError:
+        return False
 
 
 def _launcher(gn0_w, gn0_b, conv0_w, conv0_b, gn1_w, gn1_b, conv1_w, conv1_b, nin_w=None,
@@ -329,19 +403,21 @@ def fused_resblock(x, tembv, gn0_w, gn0_b, conv0_w, conv0_b, gn1_w, gn1_b,
     """The fused resblock on NCHW ``x`` with the block's ``tembv`` (B, C_out).
 
     CPU tensors take the plain version.  CUDA tensors launch the kernel; it
-    takes float32 or bfloat16, the shapes of ``kernel_takes`` (every block
-    of the flagship NCSN++), any batch, at most 32 groups, contiguous x, and
-    raises on anything else.  bfloat16 runs the tensor-core body, float32
-    the scalar one.
+    takes the shapes of ``resblock_body`` (every block of the flagship
+    NCSN++ in float32 or bfloat16; every block of DDPM++ and of the nf-32
+    NCSN++ in bfloat16, through ``fused_resblock_tiled``), any batch, at
+    most 32 groups, contiguous x, and raises on anything else.
     """
     raw = (gn0_w, gn0_b, conv0_w, conv0_b, gn1_w, gn1_b, conv1_w, conv1_b, nin_w, nin_b)
     kw = dict(groups0=groups0, groups1=groups1, skip_rescale=skip_rescale)
     if x.device.type == "cpu":
         return fused_resblock_reference(x, tembv, *raw, **kw)
     check_activations("fused_resblock", x)
-    if x.shape[2] != x.shape[3]:
-        raise ValueError(f"fused_resblock: unsupported shape H={x.shape[2]}, W={x.shape[3]}")
-    out = _launcher(*raw, H=x.shape[2], dtype=x.dtype, **kw)(x, tembv)
+    B, c_in, H, W = x.shape
+    if resblock_body(H, W, c_in, conv0_w.shape[0], x.dtype) == "tiled":
+        out = fused_resblock_tiled(x, tembv, *raw, **kw)
+    else:
+        out = _launcher(*raw, H=H, dtype=x.dtype, **kw)(x, tembv)
     if x.shape[0] > 0:
         fused_resblock.launches += 1
     return out
@@ -350,12 +426,94 @@ def fused_resblock(x, tembv, gn0_w, gn0_b, conv0_w, conv0_b, gn1_w, gn1_b,
 fused_resblock.launches = 0
 
 
-def route(H: int, W: int, c_in: int, c_out: int):
-    """The fused block's forward for a block shape, chosen once when the
-    model is built: ``fused_resblock`` where the kernel takes the shape,
-    else ``fused_resblock_reference`` on any device (the TPU kernel computes
+_TILED_ARGTYPES = ([ctypes.c_void_p] * 14 + [ctypes.c_int] * 6 + [ctypes.c_float] * 2
+                   + [ctypes.c_void_p])
+
+
+def _tiled_library():
+    return _build.library("fused_resblock_tiled", "rdm_resblock_tiled", _TILED_ARGTYPES,
+                          extra=[("rdm_resblock_tiled_workspace", [ctypes.c_int] * 4,
+                                  ctypes.c_longlong),
+                                 ("rdm_resblock_tiled_plan",
+                                  [ctypes.c_int] * 6 + [ctypes.c_void_p], ctypes.c_int)])
+
+
+def built_tiled_resblock_plan(B: int, H: int, c_in: int, c_out: int, groups0: int,
+                              groups1: int) -> tuple:
+    """The built library's plan (needs ``nvcc``), as ``TiledResblockPlan.flat``."""
+    out = (ctypes.c_int * 15)()
+    lib = _tiled_library()
+    _build.raise_on(lib, lib.rdm_resblock_tiled_plan(B, H, c_in, c_out, groups0, groups1, out),
+                    "fused_resblock_tiled plan")
+    return tuple(out)
+
+
+def fused_resblock_tiled(x, tembv, gn0_w, gn0_b, conv0_w, conv0_b, gn1_w, gn1_b,
+                         conv1_w, conv1_b, nin_w=None, nin_b=None, *, groups0: int,
+                         groups1: int, skip_rescale: bool = True):
+    """The fused block's tiled body (``csrc/fused_resblock_tiled.cu``):
+    bfloat16 NCHW ``x`` at a shape ``resblock_body`` gives ``"tiled"``.  CPU tensors take the
+    plain version; CUDA tensors launch the kernels or raise.  The weights go
+    in as (C_out, 9 C) matrices with column tap * C + c (tap (dy + 1) * 3 +
+    (dx + 1)) and the NIN as Wn^T."""
+    raw = (gn0_w, gn0_b, conv0_w, conv0_b, gn1_w, gn1_b, conv1_w, conv1_b, nin_w, nin_b)
+    kw = dict(groups0=groups0, groups1=groups1, skip_rescale=skip_rescale)
+    if x.device.type == "cpu":
+        return fused_resblock_reference(x, tembv, *raw, **kw)
+    name = "fused_resblock_tiled"
+    check_activations(name, x)
+    B, c_in, H, W = x.shape
+    c_out = conv0_w.shape[0]
+    if not _is_tiled(H, W, c_in, c_out, x.dtype):
+        raise ValueError(f"{name}: unsupported {x.dtype} x of shape {tuple(x.shape)} -> "
+                         f"C_out={c_out}; the tiled body takes bfloat16, H = W <= "
+                         f"{TILED_MAX_H}, widths multiples of 32 up to {TILED_MAX_C}")
+    _check_param_shapes(raw, c_in, c_out, x.device, name)
+    if not (_groups_ok(c_in, groups0) and _groups_ok(c_out, groups1)):
+        raise ValueError(f"{name}: groups {groups0}, {groups1} do not divide "
+                         f"C_in={c_in}, C_out={c_out} or exceed {MAX_GROUPS}")
+    if tembv.shape != (B, c_out) or tembv.device != x.device:
+        raise ValueError(f"{name}: tembv {tuple(tembv.shape)} on {tembv.device} does not fit "
+                         f"({B}, {c_out}) on {x.device}")
+    bf = torch.bfloat16
+    cast = [None if p is None else p.to(bf) for p in raw]
+    cast[2], cast[6] = (w.permute(0, 2, 3, 1).reshape(c_out, -1) for w in (cast[2], cast[6]))
+    if cast[8] is not None:
+        cast[8] = cast[8].t()
+    args = [None if p is None else p.contiguous() for p in cast]
+    tembv = tembv.to(bf).contiguous()
+    out = torch.empty((B, c_out, H, W), dtype=bf, device=x.device)
+    if B == 0:
+        return out
+    lib = _tiled_library()
+    ws = torch.empty(lib.rdm_resblock_tiled_workspace(B, H, c_in, c_out), dtype=torch.uint8,
+                     device=x.device)
+    with torch.cuda.device(x.device):
+        err = lib.rdm_resblock_tiled(
+            x.data_ptr(), tembv.data_ptr(), out.data_ptr(),
+            *(None if p is None else p.data_ptr() for p in args), ws.data_ptr(), B, H, c_in,
+            c_out, groups0, groups1, GN_EPS, round_to(_rescale(skip_rescale), bf),
+            torch.cuda.current_stream(x.device).cuda_stream)
+    _build.raise_on(lib, err, name)
+    fused_resblock_tiled.launches += 1
+    return out
+
+
+fused_resblock_tiled.launches = 0
+
+
+def route(H: int, W: int, c_in: int, c_out: int, dtype: torch.dtype):
+    """The fused block's forward for a block shape in the model's type,
+    chosen once when the model is built: ``fused_resblock`` where
+    ``resblock_body`` names a body (every block of the flagship, and in
+    bfloat16 of DDPM++ and of the nf-32 NCSN++), else
+    ``fused_resblock_reference`` on any device (the TPU kernel computes
     every shape; nothing falls back at launch time)."""
-    return fused_resblock if kernel_takes(H, W, c_in, c_out) else fused_resblock_reference
+    try:
+        resblock_body(H, W, c_in, c_out, dtype)
+    except ValueError:
+        return fused_resblock_reference
+    return fused_resblock
 
 
 class FusedResblockFn(torch.autograd.Function):

@@ -87,7 +87,7 @@ def test_module_matches_jax_xla_attnblock(B, C, groups):
               "v": {"W": p["wv"], "b": p["bv"]}, "proj": {"W": p["wp"], "b": p["bp"]}}
     theirs = np.asarray(JAttnBlockpp(skip_rescale=True).apply(
         {"params": jax.tree.map(jnp.asarray, params)}, jnp.asarray(x)))
-    blk = AttnBlockpp(C, skip_rescale=True, use_kernel=True)
+    blk = AttnBlockpp(C, skip_rescale=True, use_kernel=True, tokens=81)
     sd = {"GroupNorm_0.weight": p["gamma"], "GroupNorm_0.bias": p["beta"]}
     for i, n in enumerate("qkvp"):
         sd[f"NIN_{i}.W"], sd[f"NIN_{i}.b"] = p["w" + n], p["b" + n]
@@ -115,24 +115,31 @@ def test_wrapper_raises_on_other_devices():
 
 
 def test_unsupported_width_routes_to_plain_at_construction(caplog):
-    """A width the kernels do not take is routed to the plain versions once,
-    when the block is built, with a log line; the kernel widths keep it."""
+    """A shape no kernel takes is routed to the plain versions once, when the
+    block is built, with a log line: a width outside the envelope (48) and
+    float32 at C 32 (the tiled body is bfloat16 only).  C 32 in bfloat16
+    (the nf-32 NCSN++) and the flagship's width keep the kernel."""
     with caplog.at_level(logging.WARNING, logger="rdm_tpu_torch.models.layers"):
-        narrow = AttnBlockpp(32, skip_rescale=True, use_kernel=True)
-        wide = AttnBlockpp(64, skip_rescale=True, use_kernel=True)
-    assert not narrow.use_kernel and wide.use_kernel
-    logged = [r.getMessage() for r in caplog.records if "width 32" in r.getMessage()]
-    assert len(logged) == 1, logged
-    x, _ = make_inputs(2, 32, 9, 9, seed=4)
+        narrow = AttnBlockpp(32, skip_rescale=True, use_kernel=True, dtype=torch.bfloat16,
+                             tokens=81)
+        odd = AttnBlockpp(48, skip_rescale=True, use_kernel=True, dtype=torch.bfloat16,
+                          tokens=81)
+        narrow32 = AttnBlockpp(32, skip_rescale=True, use_kernel=True, tokens=81)
+        wide = AttnBlockpp(64, skip_rescale=True, use_kernel=True, tokens=81)
+    assert narrow.use_kernel and wide.use_kernel
+    assert not odd.use_kernel and not narrow32.use_kernel
+    logged = [r.getMessage() for r in caplog.records]
+    assert len(logged) == 2 and "width 48" in logged[0] and "width 32" in logged[1], logged
+    x, _ = make_inputs(2, 48, 9, 9, seed=4)
     xt = torch.from_numpy(x.transpose(0, 3, 1, 2).copy())
     before = attn_ops.fused_attn_block.launches
     with torch.no_grad():
-        out = narrow(xt)
-    assert out.shape == xt.shape and torch.isfinite(out).all()
+        out = odd(xt)
+    assert out.shape == xt.shape and torch.isfinite(out.float()).all()
     assert attn_ops.fused_attn_block.launches == before
-    model = NCSNpp(nf=32, attn_kernel=True)
+    model = NCSNpp(nf=32, attn_kernel=True, dtype=torch.bfloat16)
     blocks = [m for m in model.modules() if isinstance(m, AttnBlockpp)]
-    assert blocks and not any(m.use_kernel for m in blocks)
+    assert blocks and all(m.use_kernel for m in blocks)
 
 
 def test_rows_per_chunk():

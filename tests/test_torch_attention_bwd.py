@@ -202,7 +202,7 @@ def test_module_gradients_reach_every_parameter():
     input get gradients (a kernel output filled outside autograd would leave
     everything below the block without one)."""
     blk = AttnBlockpp(64, skip_rescale=True, init_scale=0.1, use_kernel=True,
-                      dtype=torch.bfloat16)
+                      dtype=torch.bfloat16, tokens=81)
     with torch.no_grad():
         for prm in blk.parameters():
             prm.normal_(0.0, 0.3, generator=torch.Generator().manual_seed(prm.numel()))
@@ -374,7 +374,8 @@ def test_bwd_kernel_is_deterministic(cuda_device):
 
 @pytest.mark.gpu
 def test_module_on_card_launches_both_kernels(cuda_device):
-    blk = AttnBlockpp(64, skip_rescale=True, use_kernel=True, dtype=torch.bfloat16)
+    blk = AttnBlockpp(64, skip_rescale=True, use_kernel=True, dtype=torch.bfloat16,
+                      tokens=81)
     blk.to(cuda_device)
     x = torch.randn(8, 64, 9, 9, device=cuda_device, requires_grad=True)
     f0, b0 = attn_ops.fused_attn_block.launches, attn_ops.fused_attn_block_bwd.launches

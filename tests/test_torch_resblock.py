@@ -377,8 +377,14 @@ def test_wrapper_takes_plain_version_on_cpu_and_raises_elsewhere():
     params = [None if t is None else t.to("meta") for t in torch_params(p)]
     with pytest.raises(ValueError):
         rb_ops.fused_resblock(xm, torch.empty((2, 64), device="meta"), *params, **kw(64, 64))
-    assert rb_ops.kernel_takes(9, 9, 192, 64) and not rb_ops.kernel_takes(9, 9, 64, 128)
-    assert all(rb_ops.kernel_takes(H, H, ci, co) for H, ci, co in FLAGSHIP_SHAPES)
+    # (9, 64 -> 128) is no flagship shape, but the tiled body takes it;
+    # C_out 48 is no multiple of 32, which no body takes
+    bf = torch.bfloat16
+    assert rb_ops.resblock_body(9, 9, 192, 64, bf) == "tensor_cores"
+    assert rb_ops.resblock_body(9, 9, 64, 128, bf) == "tiled"
+    assert rb_ops.route(9, 9, 64, 48, bf) is rb_ops.fused_resblock_reference
+    assert all(rb_ops.resblock_body(H, H, ci, co, torch.float32) == "scalar"
+               for H, ci, co in FLAGSHIP_SHAPES)
 
 
 # ---------------------------------------------------------------------------
@@ -418,11 +424,16 @@ def test_kernel_matches_plain(cuda_device, H, ci, co, B, dtype):
 
 @pytest.mark.gpu
 def test_kernel_rejects_unsupported(cuda_device):
-    x, p, _ = make_inputs(2, 9, 64, 128, seed=0)     # (9, C_out 128) is not a kernel shape
+    x, p, _ = make_inputs(2, 9, 64, 48, seed=0)      # C_out 48: no body takes it
     xt = nchw(x, torch.bfloat16, cuda_device)
     tv = torch.from_numpy(p["tembv"]).to(cuda_device)
     with pytest.raises(ValueError):
-        rb_ops.fused_resblock(xt, tv, *torch_params(p, cuda_device), **kw(64, 128))
+        rb_ops.fused_resblock(xt, tv, *torch_params(p, cuda_device), **kw(64, 48))
+    x, p, _ = make_inputs(2, 9, 64, 128, seed=0)     # a tiled shape, but in float32
+    with pytest.raises(ValueError):
+        rb_ops.fused_resblock(nchw(x, torch.float32, cuda_device),
+                              torch.from_numpy(p["tembv"]).to(cuda_device),
+                              *torch_params(p, cuda_device), **kw(64, 128))
     x, p, _ = make_inputs(2, 9, 64, 64, seed=0)
     xt = nchw(x, torch.float16, cuda_device)
     tv = torch.from_numpy(p["tembv"]).to(cuda_device)

@@ -1,13 +1,14 @@
 """With ``model.resblock_pallas`` on, NCSN++ asks once per resblock, when it
-builds the block, whether the CUDA kernel takes the block's shape
-(``ops.resblock.route``); a block it does not take (every block at
-nf 32) runs the fused block's plain version on any device, and the
-flagship's 17 blocks keep the kernel.
+builds the block, whether a CUDA kernel takes the block's shape
+(``ops.resblock.route``): the flagship's 17 blocks take the tensor-core
+body, every block at nf 32 (and of DDPM++) the tiled body, and a shape no
+body takes would run the fused block's plain version on any device.
 
 CPU: the routing decision, which function each block's forward reaches, and
 an nf-32 NCSN++ against the JAX package with ``resblock_pallas`` on (its
 Pallas resblock in interpret mode).  Card (marker ``gpu``): one nf-32
-forward runs without raising and launches the resblock kernel 0 times.
+forward launches the resblock kernel once for each of its 17 blocks, all
+through the tiled body.
 """
 import logging
 import math
@@ -45,25 +46,26 @@ def port_forward(model, device="cpu"):
 
 
 def test_nf32_routes_every_resblock_to_the_plain_fused_block(caplog, monkeypatch):
-    # the forward must reach the fused block's plain version, never the
-    # wrapper that launches the kernel; the routing reads both when the model
-    # is built, so they are replaced first
-    plain = []
-    ref = rb_ops.fused_resblock_reference
-    monkeypatch.setattr(rb_ops, "fused_resblock", lambda *a, **k: pytest.fail("kernel wrapper"))
+    """Every nf-32 resblock is routed to the kernel wrapper (the tiled body
+    takes its shapes), with no routing log line; on the CPU the wrapper runs
+    the fused block's plain version, once a block.  The routing reads the
+    wrappers when the model is built, so they are replaced first."""
+    calls, plain = [], []
+    wrapper, ref = rb_ops.fused_resblock, rb_ops.fused_resblock_reference
+    monkeypatch.setattr(rb_ops, "fused_resblock",
+                        lambda *a, **k: calls.append(1) or wrapper(*a, **k))
     monkeypatch.setattr(rb_ops, "fused_resblock_reference",
                         lambda *a, **k: plain.append(1) or ref(*a, **k))
     with caplog.at_level(logging.WARNING, logger="rdm_tpu_torch.models.ncsnpp"):
         model = create_model(load_config("train", NF32))
     blocks = resblocks(model)
     assert len(blocks) == 17
-    assert all(b.use_kernel and b.fused_forward is rb_ops.fused_resblock_reference
-               for b in blocks)
-    routed = [r for r in caplog.records if "does not take this shape" in r.getMessage()]
-    assert len(routed) == 17                    # one line per block, at construction
+    assert all(b.use_kernel and b.fused_forward is rb_ops.fused_resblock for b in blocks)
+    assert not [r for r in caplog.records if "takes this shape" in r.getMessage()]
     model.init_weights(torch.Generator().manual_seed(0)).eval()
     out = port_forward(model)
-    assert len(plain) == 17 and out.shape == (4, 9, 9, 1) and np.isfinite(out).all()
+    assert len(calls) == 17 and len(plain) == 17
+    assert out.shape == (4, 9, 9, 1) and np.isfinite(out).all()
 
 
 def test_flagship_keeps_all_17_resblocks_on_the_kernel(caplog, monkeypatch):
@@ -136,12 +138,13 @@ def test_nf32_matches_jax_resblock_pallas_bf16():
 
 
 @pytest.mark.gpu
-def test_nf32_forward_on_the_card_launches_no_resblock_kernel():
+def test_nf32_forward_on_the_card_launches_the_resblock_kernel_for_every_block():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
     model = create_model(load_config("train", NF32)).init_weights(
         torch.Generator().manual_seed(0)).to("cuda").eval()
     rb_ops.fused_resblock.launches = 0
+    rb_ops.fused_resblock_tiled.launches = 0
     out = port_forward(model, "cuda")
-    assert rb_ops.fused_resblock.launches == 0
+    assert rb_ops.fused_resblock.launches == 17 and rb_ops.fused_resblock_tiled.launches == 17
     assert out.shape == (4, 9, 9, 1) and np.isfinite(out).all()
