@@ -222,7 +222,21 @@ Phases, each printing one JSON line with its elapsed seconds:
               steps at batch 64 twice from one state bit for bit (102
               forward and 102 backward launches), ten PC steps with the EMA
               weights and all three kernels twice bit for bit, samples finite
-36. kernels   one line {"kernels": [...]} with each kernel's launches on its
+36. legacy_1d the legacy 1-D pipeline at the published width (dim 128, mults
+              4-4-8, class MLP 256-512, 500 timesteps; 73,802,497 parameters):
+              tests/golden/unet1d_golden.npz loaded with strict=True against
+              its outputs; the full-width U-Net's guided forward (w 5) on the
+              card against the same module on the CPU at batch 8; python -m
+              rdm_tpu_torch.train_1d for one epoch on the 80,073-row pickle
+              (every third row: 52 steps at batch 512), run twice with one
+              seed (ms a step, falling and finite losses, the two loss
+              sequences compared); python -m rdm_tpu_torch.sample_1d on its
+              model-epoch-1.pt at w 5 with 500 ancestral steps, 256 samples
+              at batch 256 (cut from the CLI's 1000), run twice (bit for bit,
+              the physical ranges, trajectories/s); the checkpoint restored
+              on the card and written and restored again (the EMA forward
+              bit for bit); no hand-written kernel runs on this path
+37. kernels   one line {"kernels": [...]} with each kernel's launches on its
               path (sampling for the forward kernels, with the ODE path's
               count beside the attention forward's and the DP paths' counts a
               rank beside both attention kernels'; training for the
@@ -241,6 +255,7 @@ the repository around it.
 from __future__ import annotations
 
 import ast
+import copy
 import hashlib
 import json
 import logging
@@ -256,6 +271,7 @@ import time
 import numpy as np
 import torch
 import torch.distributed as dist
+from torch.utils.flop_counter import FlopCounterMode
 
 import rdm_tpu_torch
 from rdm_tpu_torch import datagen
@@ -270,6 +286,7 @@ from rdm_tpu_torch.models import adm as adm_lib
 from rdm_tpu_torch.models import vdm as vdm_lib
 from rdm_tpu_torch.models.layers import NIN, AttnBlockpp, ResnetBlockDDPMpp, default_init_
 from rdm_tpu_torch.models.registry import get_cf_score_fn, get_score_fn
+from rdm_tpu_torch.models.unet1d import UNet1D
 from rdm_tpu_torch.ops import _build
 from rdm_tpu_torch.ops import attention as attn_ops
 from rdm_tpu_torch.ops import cr3bp as shoot_ops
@@ -286,6 +303,8 @@ from rdm_tpu_torch.sampling import get_sampling_fn
 from rdm_tpu_torch.scripts import micro_cf as micro_cf_script
 from rdm_tpu_torch.sde import RVESDE, get_sde
 from rdm_tpu_torch.training import checkpoints
+from rdm_tpu_torch.training.checkpoints import (restore_unet1d_checkpoint,
+                                                save_unet1d_checkpoint)
 from rdm_tpu_torch.training.losses import (get_loss_fn, make_eval_step,
                                            make_train_step_on_device)
 from rdm_tpu_torch.training.state import init_train_state
@@ -2652,6 +2671,195 @@ def kernels_per_card_phase() -> dict:
     return {"cards": n, "ran": True, "per_card": cards}
 
 
+# ---------------------------------------------------------------------------
+# the legacy 1-D pipeline at the published width
+
+# the flagship's training pickle, which four earlier phases read too (the
+# legacy set of 76,668 rows has the same [N, 67] rows; the smoke keeps to one)
+LEGACY_1D_PKL = os.path.join(ROOT, "datasets", "training_data_boundary_80073.pkl")
+UNET1D_GOLDEN = os.path.join(ROOT, "tests", "golden", "unet1d_golden.npz")
+# the published configuration (root train_1d.py's docstring, sample_1d.py's
+# defaults): the U-Net's flags of both CLIs
+LEGACY_1D_NET = dict(dim=128, channels=1, dim_mults=(4, 4, 8), embed_class_layers_dims=(256, 512),
+                     class_dim=1, cond_drop_prob=0.1, mask_val=-1.0, seq_length=66, legacy=True)
+LEGACY_1D_FLAGS = ["--unet_dim", "128", "--unet_dim_mults", "4,4,8",
+                   "--embed_class_layers_dims", "256,512", "--timesteps", "500"]
+LEGACY_1D_PARAMS = 73_802_497
+LEGACY_1D_ROWS = 26_691         # the CLI's stride: 80,073 // 26,000 = 3
+LEGACY_1D_STEPS = 52            # one epoch: 26,691 // 512
+LEGACY_1D_SAMPLES = 256         # cut from the CLI's 1000 for time, at batch 256
+# the card's guided forward against the CPU's, float32, TF32 off: of the CPU
+# output's largest magnitude
+LEGACY_1D_CARD_TOL = 1e-4
+# the two training runs of one seed are not bit-equal: cuDNN's default
+# backward algorithms and the nearest resize's backward add with atomics,
+# so the gradients differ from the first step in the last bits.  The early
+# loss spikes of this configuration (1.9 at step 1, then up to 294 by step
+# 4) amplify that: the runs drift apart about tenfold every ten steps and,
+# after a later spike, by tens of percent.  Held: each of the first 10
+# steps' losses within 1e-3 of the other run's; the whole drift is printed.
+LEGACY_1D_RERUN_STEPS = 10
+LEGACY_1D_RERUN_TOL = 1e-3
+
+
+def _legacy_1d_train(tmp, tag) -> dict:
+    out = os.path.join(tmp, tag)
+    run_module(["rdm_tpu_torch.train_1d", "--data_path", LEGACY_1D_PKL, *LEGACY_1D_FLAGS,
+                "--batch_size", "512", "--max_epoch", "1", "--result_folder", out], tmp, 900)
+    (sub,) = os.listdir(out)
+    run = os.path.join(out, sub)
+    with open(os.path.join(run, "metrics.jsonl")) as f:
+        metrics = [json.loads(line) for line in f]
+    steps = [m for m in metrics if "train_loss" in m]
+    times = [m["time_s"] for m in steps]
+    return {"run": run, "losses": [m["train_loss"] for m in steps],
+            "val_loss": [m["val_loss"] for m in metrics if "val_loss" in m],
+            "ms_per_step": 1e3 * (times[-1] - times[0]) / (len(times) - 1),
+            "first_step_ms": 1e3 * times[0]}
+
+
+def _legacy_1d_sample(tmp, ckpt, tag):
+    path = os.path.join(tmp, f"{tag}.pkl")
+    stdout = run_module(["rdm_tpu_torch.sample_1d", "--checkpoint", ckpt,
+                         "--sample_num", str(LEGACY_1D_SAMPLES), "--batch_size",
+                         str(LEGACY_1D_SAMPLES), "--diffusion_w", "5.0", *LEGACY_1D_FLAGS,
+                         "--output", path], tmp, 900)
+    rate = float(re.search(r"\(([0-9.eE+-]+) trajectories/s\)", stdout).group(1))
+    with open(path, "rb") as f:
+        return pickle.load(f), rate
+
+
+def _ema_forward(ck, device):
+    with torch.device(device):
+        model = UNet1D(**LEGACY_1D_NET)
+    model.load_state_dict(ck.ema, strict=True)
+    model.eval()
+    gen = torch.Generator(device=device).manual_seed(3)
+    x = torch.rand((16, 1, 66), generator=gen, device=device) * 2 - 1
+    t = torch.randint(0, 500, (16,), generator=gen, device=device).float()
+    c = torch.rand((16, 1), generator=gen, device=device)
+    with torch.no_grad():
+        return model.forward_with_cond_scale(x, t, c, cond_scale=5.0, rescaled_phi=0.7)
+
+
+def all_kernel_launches() -> dict:
+    """The launch count of every hand-written kernel's wrapper."""
+    return {**tiled_launch_counts(), **{f.__name__: f.launches for f in (
+        attn_ops.attention_core, micro_cf.cf_transpose, micro_cf.cf_masked_roll_sum,
+        micro_cf.cf_dots, *SHOOT_KERNELS)}}
+
+
+def legacy_1d_phase(device) -> dict:
+    before = all_kernel_launches()
+    # the reference golden on the card
+    g = np.load(UNET1D_GOLDEN)
+    golden = UNet1D(dim=16, channels=1, dim_mults=(1, 2, 4), embed_class_layers_dims=(16, 16),
+                    class_dim=1, cond_drop_prob=0.0, mask_val=-1.0, seq_length=66, legacy=True)
+    golden.load_state_dict({k[3:]: torch.from_numpy(g[k]) for k in g.files
+                            if k.startswith("sd.")}, strict=True)
+    golden.to(device).eval()
+    x, t, c = (torch.from_numpy(g[k]).to(device) for k in ("x", "t", "classes"))
+    with torch.no_grad():
+        out = golden(x, t, c, cond_drop_prob=0.0).cpu().numpy()
+        out_cfg = golden.forward_with_cond_scale(x, t, c, cond_scale=5.0).cpu().numpy()
+    np.testing.assert_allclose(out, g["out"], rtol=5e-4, atol=5e-5)
+    np.testing.assert_allclose(out_cfg, g["out_cfg"], rtol=5e-4, atol=5e-4)
+    fields = {"golden_max_abs_err": float(np.abs(out - g["out"]).max()),
+              "golden_cfg_max_abs_err": float(np.abs(out_cfg - g["out_cfg"]).max())}
+
+    # the full-width guided forward, card against CPU (weights drawn on the card)
+    with torch.device(device):
+        card_model = UNet1D(**LEGACY_1D_NET)
+    card_model.init_weights(torch.Generator(device=device).manual_seed(0)).eval()
+    cpu_model = copy.deepcopy(card_model).cpu()
+    n_params = sum(p.numel() for p in cpu_model.parameters())
+    check(n_params == LEGACY_1D_PARAMS, f"the published U-Net has {n_params} parameters")
+    gen = torch.Generator().manual_seed(1)
+    x = torch.rand((8, 1, 66), generator=gen) * 2 - 1
+    t = torch.randint(0, 500, (8,), generator=gen).float()
+    c = torch.rand((8, 1), generator=gen)
+    with torch.no_grad():
+        ref = cpu_model.forward_with_cond_scale(x, t, c, cond_scale=5.0, rescaled_phi=0.7)
+        with FlopCounterMode(display=False) as flops:
+            card = card_model.forward_with_cond_scale(
+                x.to(device), t.to(device), c.to(device), cond_scale=5.0, rescaled_phi=0.7).cpu()
+    err = float((card - ref).abs().max())
+    scale = float(ref.abs().max())
+    check(err <= LEGACY_1D_CARD_TOL * scale, f"card against CPU: {err} of {scale}")
+    fields["card_vs_cpu"] = {"max_abs_err": err, "scale": scale, "tol": LEGACY_1D_CARD_TOL,
+                             "batch": 8, "cond_scale": 5.0, "rescaled_phi": 0.7}
+    # the products' operations of one sample's forward (convolutions, linears,
+    # attention products; torch's flop counter over the 16-row guided forward)
+    fields["gflop_per_sample_forward"] = flops.get_total_flops() / 16 / 1e9
+    del cpu_model, card_model
+
+    with tempfile.TemporaryDirectory() as tmp:
+        # training: one epoch, twice with one seed
+        runs = [_legacy_1d_train(tmp, tag) for tag in ("a", "b")]
+        for r in runs:
+            losses = np.asarray(r["losses"])
+            check(len(losses) == LEGACY_1D_STEPS and bool(np.isfinite(losses).all()),
+                  f"train_1d: {len(losses)} losses, finite {np.isfinite(losses).all()}")
+            check(losses[-10:].mean() < losses[:10].mean(),
+                  f"train_1d losses do not fall: {losses[:10].mean()} -> {losses[-10:].mean()}")
+            check(len(r["val_loss"]) == 1, "train_1d ran no validation")
+        a, b = (np.asarray(r["losses"]) for r in runs)
+        drift = np.abs(a - b) / np.abs(b)
+        head = float(drift[:LEGACY_1D_RERUN_STEPS].max())
+        check(head <= LEGACY_1D_RERUN_TOL,
+              f"train_1d reruns differ by {head} of a loss in their first "
+              f"{LEGACY_1D_RERUN_STEPS} steps")
+        ckpt = os.path.join(runs[0]["run"], "model-epoch-1.pt")
+        fields["train"] = {
+            "steps": len(a), "batch": 512, "rows": LEGACY_1D_ROWS,
+            "ms_per_step": [r["ms_per_step"] for r in runs],
+            "first_step_ms": [r["first_step_ms"] for r in runs],
+            "loss_first10_mean": float(a[:10].mean()), "loss_last10_mean": float(a[-10:].mean()),
+            "val_loss": [r["val_loss"][0] for r in runs],
+            "reruns_bit_equal": bool(np.array_equal(a, b)),
+            "reruns_first_differing_step": int(np.argmax(drift > 0)) + 1 if (drift > 0).any()
+            else None,
+            "reruns_rel_diff_first_steps": head, "rerun_steps_held": LEGACY_1D_RERUN_STEPS,
+            "rerun_tol": LEGACY_1D_RERUN_TOL, "reruns_rel_diff_max": float(drift.max()),
+            "losses": [a.tolist(), b.tolist()],
+            "timing": "host clock between the first and the last step's loss read-back"}
+
+        # sampling from the checkpoint, twice
+        (s1, rate1), (s2, rate2) = (_legacy_1d_sample(tmp, ckpt, tag) for tag in ("s1", "s2"))
+        check(s1.shape == (LEGACY_1D_SAMPLES, 67) and bool(np.isfinite(s1).all()),
+              f"sample_1d output {s1.shape}")
+        check(np.array_equal(s1, s2), "sample_1d reruns differ")
+        ctrl = s1[:, 4:64].reshape(-1, 20, 3)
+        check(bool((s1[:, 0] >= 0.008).all() and (s1[:, 0] <= 0.095).all()
+                   and (s1[:, 1] >= 0).all() and (s1[:, 1] <= 40).all()
+                   and (ctrl[:, :, 2] >= 0).all() and (ctrl[:, :, 2] <= 1.0).all()
+                   and (s1[:, 64] >= 408).all() and (s1[:, 64] <= 470).all()),
+              "sample_1d leaves the physical ranges")
+        fields["sample"] = {"n": LEGACY_1D_SAMPLES, "batch": LEGACY_1D_SAMPLES, "steps": 500,
+                            "w": 5.0, "trajectories_per_second": [rate1, rate2],
+                            "bit_equal": True,
+                            "sha256": hashlib.sha256(s1.tobytes()).hexdigest(),
+                            "cut": "sample_num 1000 -> 256, batch 1000 -> 256"}
+
+        # the checkpoint: restored on the card, written and restored again
+        ck = restore_unet1d_checkpoint(ckpt)
+        check(ck.step == LEGACY_1D_STEPS and ck.optimizer["count"] == LEGACY_1D_STEPS,
+              f"model-epoch-1.pt: step {ck.step}, Adam count {ck.optimizer['count']}")
+        first = _ema_forward(ck, device)
+        again = os.path.join(tmp, "again.pt")
+        save_unet1d_checkpoint(again, ck.step, ck.model, ck.ema, ck.optimizer)
+        ck2 = restore_unet1d_checkpoint(again)
+        check(all(torch.equal(ck.ema[k], ck2.ema[k]) and torch.equal(ck.model[k], ck2.model[k])
+                  for k in ck.model), "the checkpoint's round trip moved a weight")
+        check(torch.equal(first, _ema_forward(ck2, device)), "the restored EMA forward moved")
+        fields["checkpoint"] = {"step": ck.step, "adam_count": ck.optimizer["count"],
+                                "bytes": os.path.getsize(ckpt), "ema_forward_bit_equal": True}
+    after = all_kernel_launches()
+    check(after == before, f"the 1-D path launched a kernel: {before} -> {after}")
+    fields["launches"] = {k: after[k] - before[k] for k in after}
+    return fields
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2920,6 +3128,9 @@ def main() -> int:
     t0 = time.perf_counter()
     ddpmpp = ddpmpp_phase(device)
     emit("ddpmpp", t0, **ddpmpp)
+
+    t0 = time.perf_counter()
+    emit("legacy_1d", t0, **legacy_1d_phase(device))
     one_way = mcf["transpose_pair"]["one_way"]
     dots = {K: micro_cf_entry(f"cf_dots K={K}", 111, mcf, "cf_dots",
                               mcf_cases[f"dots_k{K}"], mcf[f"dots_k{K}"]) for K in (64, 192)}

@@ -9,6 +9,9 @@ parameters normalised to [0, 1].  Preprocessing follows the reference:
   reference's constants 0.4652 / 0.1811 by default; the flagship run sets
   0 / 1 and so trains on the unit cube), reshape to (1, 9, 9).
 
+The 1-D set of the legacy pipeline (``GTOHalo``) keeps the 67 columns as a
+sequence: standardised with the same constants, [N, 1, 67], dummy labels.
+
 The image sets are read whole into float arrays in [0, 1]: CIFAR-10 from
 its ``cifar-10-batches-py`` pickles, the ImageNet sets from folders of
 image files under ``config.dataroot`` (PIL, imported only there).
@@ -83,6 +86,21 @@ class GTOHaloImageDataset:
         return self.images[idx], self.labels[idx]
 
 
+class GTOHaloTrajectoryDataset:
+    """The GTO rows as standardised [N, 67] sequences with a dummy label 0."""
+
+    def __init__(self, pkl_path: str):
+        with open(pkl_path, "rb") as f:
+            data = pickle.load(f)
+        self.data = (np.asarray(data, np.float32) - GTO_MEAN) / GTO_STD
+
+    def __len__(self):
+        return self.data.shape[0]
+
+    def __getitem__(self, idx):
+        return self.data[idx], 0
+
+
 def load_cifar10(dataroot: str, train: bool = True):
     """CIFAR-10 from the ``cifar-10-batches-py`` pickles: (images [N, 3, 32,
     32] float32 in [0, 1], labels [N, 1] float32)."""
@@ -153,7 +171,8 @@ def _epoch_iterator(images, labels, batch: int, seed: int, shuffle: bool = True,
 
 def load_arrays(config, evaluation: bool = False) -> Tuple[np.ndarray, np.ndarray]:
     """The whole training (or, with ``evaluation``, validation) set as
-    (images NCHW, labels) numpy arrays; the GTO set has one split."""
+    (images NCHW, labels) numpy arrays; the GTO sets have one split, the 1-D
+    one is [N, 1, 67] with zero labels."""
     name = config.data.dataset
     if name == "GTOHaloImage":
         ds = GTOHaloImageDataset(config.data.pkl_path,
@@ -170,7 +189,8 @@ def load_arrays(config, evaluation: bool = False) -> Tuple[np.ndarray, np.ndarra
         split = "valid" if evaluation else "train"
         return load_image_folder_class(os.path.join(config.dataroot, "imagenet-64x64", split))
     if name == "GTOHalo":
-        raise NotImplementedError("the 1-D GTOHalo set (the legacy pipeline) is not ported")
+        ds = GTOHaloTrajectoryDataset(config.data.pkl_path)
+        return ds.data[:, None, :], np.zeros((len(ds), 1), np.float32)
     raise ValueError(f"{name} is not valid")
 
 

@@ -21,6 +21,11 @@
   interleave resblocks and attention blocks when attention is on, where the
   JAX package names them ``encK``/``enc_attnK``.  The buffers
   ``resample_filter`` and ``freqs`` are in neither.
+* ``unet1d_state_dict_from_jax`` / ``unet1d_tree_from_state_dict`` carry
+  the JAX package's 1-D U-Net (either variant) to the port's state dict,
+  in the legacy reference's names, and back: Flax conv kernels (k, I, O)
+  against torch's (O, I, k), dense kernels (I, O) against (O, I), RMSNorm
+  ``g`` (C,) against (1, C, 1), GroupNorm ``scale`` against ``weight``.
 * ``FAMILIES`` names each model's pair, for checkpoints.
 """
 from __future__ import annotations
@@ -331,6 +336,108 @@ def vdm_tree_from_state_dict(sd: dict) -> dict:
         norm = mods[-1] in _VDM_NORMS
         name, value = _edm_to_flax(leaf, _numpy(tensor), norm)
         _put(tree, mods + [name], value)
+    return tree
+
+
+# ---------------------------------------------------------------------------
+# the 1-D U-Net: module names of the JAX tree <-> the legacy reference's
+
+_UNET1D_SLOTS = ("block1", "block2", "attn")
+_UNET1D_TIME = {"0": "sinu_pos_emb", "1": "time_mlp0", "3": "time_mlp1"}
+
+
+def _unet1d_flax_path(key: str, value: np.ndarray) -> tuple:
+    """A state-dict key of the port's ``UNet1D`` -> (Flax path, value)."""
+    parts = key.split(".")
+    head, leaf = parts[0], parts[-1]
+    if head in ("downs", "ups"):
+        slot = int(parts[2])
+        name = (_UNET1D_SLOTS[slot] if slot < 3 else
+                "downsample" if head == "downs" else "upsample")
+        mods, rest = [f"{head[:-1]}{parts[1]}_{name}"], parts[3:-1]
+        if name == "upsample" and rest == ["1"]:     # Sequential(resize, conv)
+            rest = []
+    elif head == "time_mlp":
+        mods, rest = [_UNET1D_TIME[parts[1]]], parts[2:-1]
+    elif head == "classes_mlp":
+        mods, rest = [f"classes_mlp{int(parts[1]) // 2}"], parts[2:-1]
+    else:
+        mods, rest = [head], parts[1:-1]
+    rest = ".".join(rest)
+    for old, new in (("mlp.1", "cond_mlp"), ("fn.norm", "norm"), ("fn.fn", "fn"),
+                     ("to_out.0", "to_out"), ("to_out.1", "to_out_norm")):
+        rest = re.sub(rf"(^|\.){re.escape(old)}($|\.)", rf"\g<1>{new}\g<2>", rest)
+    mods += [r for r in rest.split(".") if r]
+    if leaf == "weight" and value.ndim == 3:
+        return mods + ["kernel"], np.transpose(value, (2, 1, 0))
+    if leaf == "weight" and value.ndim == 2:
+        return mods + ["kernel"], np.transpose(value)
+    if leaf == "weight":
+        return mods + ["scale"], value
+    if leaf == "g":
+        return mods + ["g"], value.reshape(-1)
+    return mods + [leaf], value
+
+
+def _unet1d_torch_key(path, value: np.ndarray, legacy: bool, n_levels: int) -> tuple:
+    """A Flax path of the JAX package's ``UNet1D`` -> (state-dict key,
+    value); the inverse of ``_unet1d_flax_path``."""
+    head, rest, leaf = path[0], list(path[1:-1]), path[-1]
+    block = re.fullmatch(r"(down|up)(\d+)_(block1|block2|attn|downsample|upsample)", head)
+    if block:
+        stage, lvl, name = block.groups()
+        slot = {"block1": "0", "block2": "1", "attn": "2"}.get(name, "3")
+        mods = [stage + "s", lvl, slot]
+        if name == "upsample" and int(lvl) != n_levels - 1:
+            mods.append("1")
+    elif head in _UNET1D_TIME.values():
+        mods = ["time_mlp", next(k for k, v in _UNET1D_TIME.items() if v == head)]
+    elif head.startswith("classes_mlp"):
+        mods = ["classes_mlp", str(2 * int(head[len("classes_mlp"):]))]
+    else:
+        mods = [head]
+    attention = head.endswith("_attn")
+    for r in rest:
+        if r == "cond_mlp":
+            mods += ["mlp", "1"]
+        elif attention and r in ("norm", "fn"):
+            mods += ["fn", r]
+        elif r == "to_out" and legacy and head != "mid_attn":
+            mods += ["to_out", "0"]
+        elif r == "to_out_norm":
+            mods += ["to_out", "1"]
+        else:
+            mods.append(r)
+    if leaf == "kernel":
+        value = np.transpose(value, (2, 1, 0)) if value.ndim == 3 else np.transpose(value)
+        leaf = "weight"
+    elif leaf == "scale":
+        leaf = "weight"
+    elif leaf == "g":
+        value = value.reshape(1, -1, 1)
+    return ".".join(mods + [leaf]), value
+
+
+def unet1d_state_dict_from_jax(params: dict, legacy: bool) -> dict:
+    """The JAX package's ``UNet1D`` Flax params (``legacy`` names the
+    variant) -> the port's state dict."""
+    n_levels = sum(1 for k in params if re.fullmatch(r"up\d+_block1", k))
+    out: dict = {}
+    for path, value in _walk(params):
+        key, value = _unet1d_torch_key(path, np.asarray(value, np.float32), legacy, n_levels)
+        out[key] = _t(value)
+    return out
+
+
+def unet1d_tree_from_state_dict(sd: dict, legacy: bool) -> dict:
+    """The port's ``UNet1D`` state dict -> the JAX package's Flax params
+    tree; the inverse of ``unet1d_state_dict_from_jax``."""
+    if legacy != any(".mlp.1." in k for k in sd):
+        raise ValueError(f"the state dict is not of the {'legacy' if legacy else 'RDM'} variant")
+    tree: dict = {}
+    for key, tensor in sd.items():
+        path, value = _unet1d_flax_path(key, _numpy(tensor))
+        _put(tree, path, value)
     return tree
 
 

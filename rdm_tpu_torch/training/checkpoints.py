@@ -20,6 +20,18 @@ and VDM checkpoints with an empty ``model`` and the weights only in
 then reads (the family named by the caller, else by the checkpoint's
 config).
 
+The legacy 1-D pipeline's ``model-epoch-N.pt`` is the JAX package's
+``Trainer1D`` layout ``{step, model, opt, ema, scaler: None, version}``:
+``model`` and ``ema`` are Flax trees of numpy arrays and ``opt`` is optax's
+``(EmptyState(), (ScaleByAdamState(count, mu, nu), EmptyState()))`` for
+``chain(clip_by_global_norm, adam)``.  ``restore_unet1d_checkpoint`` and
+``save_unet1d_checkpoint`` read and write it (the U-Net's variant is read
+from the weights' names), so either package's sampler and trainer take
+the other's files.
+
+The port writes pickle protocol 4 (``PICKLE_PROTOCOL``); either package
+reads any protocol.
+
 ``restore_checkpoint`` reads ``step``, ``model``, ``ema`` and the optimizer
 state of either package and ignores the rest.  It unpickles through a
 restricted unpickler: the optax state classes become
@@ -39,7 +51,8 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
-from ..models.convert import FAMILIES, adam_state_from_jax, ema_state_dict
+from ..models.convert import (FAMILIES, adam_state_from_jax, ema_state_dict,
+                              unet1d_state_dict_from_jax, unet1d_tree_from_state_dict)
 
 _OPTAX_EMPTY = ("optax._src.base", "EmptyState")
 _OPTAX_ADAM = ("optax._src.transform", "ScaleByAdamState")
@@ -47,6 +60,10 @@ _OPTAX_SCHEDULE = ("optax._src.transform", "ScaleByScheduleState")
 _OPTAX_STATE_CLASSES = {_OPTAX_EMPTY, _OPTAX_ADAM, _OPTAX_SCHEDULE}
 
 _ALLOWED_ROOTS = ("torch", "numpy", "collections", "_codecs")
+# the pickle protocol of the checkpoints the port writes: 4 stores the numpy
+# arrays' bytes as they are, where protocol 2 (torch's default) encodes them
+# as latin-1 text, half as large again and slower to write and read
+PICKLE_PROTOCOL = 4
 _NUMPY_MAJOR = int(np.__version__.split(".")[0])
 
 
@@ -253,7 +270,7 @@ def save_checkpoint(path: str, state, config=None) -> None:
         "native_ema_shadow": to_tree(ema_state_dict(model_sd, shadows)),
     }
     tmp = f"{path}.{os.getpid()}.tmp"
-    torch.save(checkpoint, tmp, pickle_module=optax_pickle)
+    torch.save(checkpoint, tmp, pickle_module=optax_pickle, pickle_protocol=PICKLE_PROTOCOL)
     os.replace(tmp, path)
 
 
@@ -289,3 +306,75 @@ def latest_checkpoint(checkpoint_dir: str) -> Optional[str]:
             if k > best_k:
                 best_k, best = k, os.path.join(checkpoint_dir, name)
     return best
+
+
+# ---------------------------------------------------------------------------
+# the legacy 1-D pipeline's model-epoch-N.pt
+
+UNET1D_CHECKPOINT_VERSION = "rdm_tpu-1"
+
+
+class Checkpoint1D(NamedTuple):
+    step: int
+    model: dict                  # the U-Net's state dict
+    ema: Optional[dict]          # the EMA weights as a state dict, or None
+    optimizer: Optional[dict]    # {count, schedule_count, mu, nu}, or None
+
+
+def _stubs(entry):
+    """Every optax state stub of a nested tuple, in order."""
+    if isinstance(entry, OptimizerStateStub):
+        return [entry]
+    if isinstance(entry, (tuple, list)):
+        return [s for e in entry for s in _stubs(e)]
+    raise ValueError(f"unrecognised optax state in checkpoint: {type(entry).__name__}")
+
+
+def restore_unet1d_checkpoint(path: str) -> Checkpoint1D:
+    """Read a 1-D ``model-epoch-N.pt`` of either package: the weights, the
+    EMA weights and Adam's count and moments, as state dicts of the port's
+    ``UNet1D``."""
+    loaded = torch.load(path, map_location="cpu", pickle_module=restricted_pickle,
+                        weights_only=False)
+    legacy = "cond_mlp" in loaded["model"]["mid_block1"]
+    model_sd = unet1d_state_dict_from_jax(loaded["model"], legacy)
+    ema = loaded.get("ema")
+    ema_sd = unet1d_state_dict_from_jax(ema, legacy) if ema is not None else None
+    optimizer = None
+    if loaded.get("opt") is not None:
+        adam = [s for s in _stubs(loaded["opt"]) if len(s.fields) == 3]
+        if len(adam) != 1:
+            raise ValueError("the checkpoint's optax state holds no single Adam state")
+        count, mu, nu = adam[0].fields
+        count = int(np.asarray(count))
+        optimizer = {"count": count, "schedule_count": count,
+                     "mu": unet1d_state_dict_from_jax(mu, legacy),
+                     "nu": unet1d_state_dict_from_jax(nu, legacy)}
+    return Checkpoint1D(step=int(loaded["step"]), model=model_sd, ema=ema_sd,
+                        optimizer=optimizer)
+
+
+def save_unet1d_checkpoint(path: str, step: int, model_sd: dict, ema_sd: dict,
+                           optimizer_state: dict) -> None:
+    """Write a 1-D ``model-epoch-N.pt`` in the JAX package's layout:
+    ``optimizer_state`` is ``ClipAdamWarmup.state_dict()`` of the U-Net's
+    parameters (clipping on, a constant learning rate)."""
+    legacy = any(".mlp.1." in k for k in model_sd)
+
+    def tree(sd):
+        return unet1d_tree_from_state_dict(sd, legacy)
+
+    adam = _OptaxState(_OPTAX_ADAM, np.asarray(optimizer_state["count"], np.int32),
+                       tree(optimizer_state["mu"]), tree(optimizer_state["nu"]))
+    checkpoint = {
+        "step": int(step),
+        "model": tree(model_sd),
+        "opt": (_OptaxState(_OPTAX_EMPTY), (adam, _OptaxState(_OPTAX_EMPTY))),
+        "ema": tree(ema_sd),
+        "scaler": None,
+        "version": UNET1D_CHECKPOINT_VERSION,
+    }
+    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+    tmp = f"{path}.{os.getpid()}.tmp"
+    torch.save(checkpoint, tmp, pickle_module=optax_pickle, pickle_protocol=PICKLE_PROTOCOL)
+    os.replace(tmp, path)

@@ -86,11 +86,17 @@ def test_load_arrays_and_unported_datasets(real_rows_pkl):
         warnings.simplefilter("ignore")
         images, labels = data.load_arrays(cfg)
     assert images.shape == (600, 1, 9, 9) and images.dtype == np.float32
-    # the image sets are ported (they need their files under dataroot); the
-    # 1-D set of the legacy pipeline is not yet
+    # the image sets are ported (they need their files under dataroot)
     cfg.data.dataset, cfg.dataroot = "CIFAR10", "/nonexistent"
     with pytest.raises(FileNotFoundError):
         data.load_arrays(cfg)
+    # the 1-D set of the legacy pipeline: [N, 1, 67] standardised rows and
+    # zero labels, as the JAX package loads them
     cfg.data.dataset = "GTOHalo"
-    with pytest.raises(NotImplementedError):
-        data.load_arrays(cfg)
+    seqs, seq_labels = data.load_arrays(cfg)
+    jcfg = jax_load_config("train", [f"data.pkl_path={real_rows_pkl}", "data.dataset=GTOHalo"])
+    jseqs, jlabels = jax_data.load_arrays(jcfg)
+    assert seqs.shape == (600, 1, 67) and seqs.dtype == np.float32
+    np.testing.assert_array_equal(seqs, jseqs)
+    np.testing.assert_array_equal(seq_labels, jlabels)
+    assert not seq_labels.any()

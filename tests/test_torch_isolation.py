@@ -1,5 +1,7 @@
 """The port runs where JAX, flax, optax, PyYAML, sklearn and matplotlib are
-absent, and imports nothing of the JAX package or of its ``scripts/``."""
+absent, and imports nothing of the JAX package or of its ``scripts/``; a
+1-D checkpoint that the JAX package wrote (in this process, before the
+blocked one starts) restores there."""
 import os
 import re
 import subprocess
@@ -130,14 +132,66 @@ SCRIPT = textwrap.dedent("""
                                       "--result_folder", tmp + "/gd"])
         assert summary["n_feasible"] == 1
         assert datagen.prepare_training_data(tmp + "/gd") == 1
+
+    # the legacy 1-D pipeline: a checkpoint the JAX package wrote restores
+    # (optax's state classes through the restricted unpickler), and the two
+    # CLIs train one epoch and sample from its checkpoint on the CPU
+    from rdm_tpu_torch import sample_1d, train_1d
+    from rdm_tpu_torch.diffusion1d import GaussianDiffusion1D
+    from rdm_tpu_torch.diffusion1d.trainer1d import Trainer1D
+    from rdm_tpu_torch.models.unet1d import UNet1D
+    ck1 = checkpoints.restore_unet1d_checkpoint({jax_1d!r})
+    assert ck1.step == 3 and ck1.optimizer["count"] == 1 and ck1.ema is not None
+    m1 = UNet1D(dim=8, dim_mults=(1, 2), embed_class_layers_dims=(8, 8), seq_length=66,
+                legacy=True)
+    m1.load_state_dict(ck1.model, strict=True)
+    assert all(float(v.abs().max()) > 0 for v in ck1.optimizer["nu"].values())
+    flags = ["--unet_dim", "8", "--unet_dim_mults", "1,2", "--embed_class_layers_dims", "8,8",
+             "--timesteps", "4", "--device", "cpu"]
+    with tempfile.TemporaryDirectory() as tmp:
+        pkl = make_synthetic_gto_pkl(os.path.join(tmp, "d.pkl"), n=32)
+        tr = train_1d.main(["--data_path", pkl, "--batch_size", "8", "--max_epoch", "1",
+                            "--training_data_num", "32", "--result_folder", tmp, *flags])
+        ckpt = os.path.join(str(tr.results_folder), "model-epoch-1.pt")
+        full = sample_1d.main(["--checkpoint", ckpt, "--sample_num", "4", "--batch_size", "4",
+                               "--output", os.path.join(tmp, "s.pkl"), *flags])
+    assert full.shape == (4, 67) and np.isfinite(full).all()
     assert not [m for m in sys.modules if blocked(m)]
     print("ISOLATED-OK")
 """)
 
 
-def test_port_runs_without_jax_optax_yaml():
+def write_jax_1d_checkpoint(folder) -> str:
+    """A ``model-epoch-1.pt`` written by the JAX package's ``Trainer1D.save``
+    at dim 8: constant weights, one Adam update, step 3."""
+    import pathlib
+
+    import jax
+    import numpy as np
+    import optax
+
+    from rdm_tpu.diffusion1d.trainer1d import Trainer1D
+    from rdm_tpu.models.unet1d import UNet1D
+
+    model = UNet1D(dim=8, dim_mults=(1, 2), embed_class_layers_dims=(8, 8), seq_length=66,
+                   legacy=True)
+    shapes = jax.eval_shape(model.init, {"params": jax.random.PRNGKey(0)},
+                            np.zeros((2, 66, 1), np.float32), np.zeros(2, np.float32),
+                            np.zeros((2, 1), np.float32))["params"]
+    params = jax.tree.map(lambda s: np.full(s.shape, 0.1, np.float32), shapes)
+    tx = optax.chain(optax.clip_by_global_norm(1.0), optax.adam(1e-4, b1=0.9, b2=0.99))
+    jt = Trainer1D.__new__(Trainer1D)
+    jt.results_folder, jt.step = pathlib.Path(folder), 3
+    jt.params = jt.ema_params = params
+    jt.opt_state = jax.jit(lambda p: tx.update(p, tx.init(p), p)[1])(params)
+    jt.save("epoch-1")
+    return str(jt.results_folder / "model-epoch-1.pt")
+
+
+def test_port_runs_without_jax_optax_yaml(tmp_path):
+    jax_1d = write_jax_1d_checkpoint(tmp_path)
     env = dict(os.environ, PYTHONPATH=ROOT, OMP_NUM_THREADS="1")
-    proc = subprocess.run([sys.executable, "-c", SCRIPT.format(blocked=BLOCKED)],
+    proc = subprocess.run([sys.executable, "-c", SCRIPT.format(blocked=BLOCKED, jax_1d=jax_1d)],
                           cwd=ROOT, env=env, capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr[-4000:]
     assert "ISOLATED-OK" in proc.stdout
