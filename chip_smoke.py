@@ -114,9 +114,23 @@ Phases, each printing one JSON line with its elapsed seconds:
               the resblock kernel (17 launches); a checkpoint round trip; ms
               per step
 19. run_train python -m rdm_tpu_torch.run_train for four steps at batch 4096
-              from a temporary directory: log lines, a checkpoint the port
-              restores, snapshot samples (NHWC)
-20. dp_train  data parallelism of the flagship's training step (checkpoint_10.pth,
+              from a temporary directory, through the stall supervisor
+              rdm_tpu_torch/launch/train_with_resume.sh ("completed after 0
+              restart(s)"): log lines, a checkpoint the port restores,
+              snapshot samples (NHWC)
+20. trace     python -m rdm_tpu_torch.benchmark.trace in process at its
+              defaults: 50-step PC sampling at batch 1024, then 5 training
+              steps at batch 1024, each recorded by torch.profiler into a
+              Chrome trace: 245 attention-forward launches in the sampling
+              trace (5 a forward), 25 forward and 25 backward launches in the
+              training trace, the same by the wrappers' counts; the trace's
+              bytes, device ms and idle share per step, the top kernels
+21. train_decomp  python -m rdm_tpu_torch.benchmark.profile_train_decomp
+              --batch 4096 --skip_scaling in process: the five components'
+              slopes (finite, positive, full above loss), GFLOP and GB of one
+              iteration (counted and modeled), effective GB/s, device ms and
+              idle share
+22. dp_train  data parallelism of the flagship's training step (checkpoint_10.pth,
               phase train's batch of 4096 rows with its t, z and masks, bf16,
               both attention kernels; cuDNN's deterministic algorithms for the
               checked step): one process gives phase train's gradients bit for
@@ -130,17 +144,17 @@ Phases, each printing one JSON line with its elapsed seconds:
               difference is the order of the batch's sum); ms per step,
               time-sliced, not a speed figure; (iii) the same over NCCL with a
               rank a card when there are two cards, else one line saying so
-21. dp_sample  two ranks on the card sample 512 trajectories each from the
+23. dp_sample  two ranks on the card sample 512 trajectories each from the
               flagship's EMA weights (1000 steps, w = 0, a seed a rank); the 1024
               gathered lie in the unit cube, within KS 0.11 of the JAX package's
               samples, 4,995 attention launches a rank
-22. dp_oracle  phase oracle_gpu's float64 grading with each tile split over
+24. dp_oracle  phase oracle_gpu's float64 grading with each tile split over
               [cuda:0, cuda:0] (a thread a part; with two cards also over
               [cuda:0, cuda:1]): the result equals phase oracle_gpu's, lane for
               lane; wall s beside phase oracle_gpu's
-23. run_train_torchrun  phase run_train's command under python -m
+25. run_train_torchrun  phase run_train's command under python -m
               torch.distributed.run --standalone --nproc_per_node 1 (NCCL)
-24. kernel_micro_cf  the channels-first kernels of csrc/micro_cf.cu at the
+26. kernel_micro_cf  the channels-first kernels of csrc/micro_cf.cu at the
               TPU script's shapes (C 64, N 20,736 = 81 x 256, bfloat16), each
               against its plain version on the same seeded inputs: both
               transposes and the roll sum bit for bit, the dots at K 64 and
@@ -154,12 +168,12 @@ Phases, each printing one JSON line with its elapsed seconds:
               python -m rdm_tpu_torch.scripts.micro_cf once, in process, as
               its path, with its chained and cold times, bounds and library
               times, and the plain versions' cold times beside them
-25. kernels_per_card  each model kernel (attention forward and backward,
+27. kernels_per_card  each model kernel (attention forward and backward,
               resblock, attention core, the channels-first dots) launched on
               every card after the first from this one process, against its
               plain version (each launcher sets its shared-memory limit once
               per card); with one card, one line saying so
-26. datagen   python -m rdm_tpu_torch.generate_data --backend tpu on 4096
+28. datagen   python -m rdm_tpu_torch.generate_data --backend tpu on 4096
               uniform guesses (seeds 0-4095, optimal mode, float32) as a
               subprocess, then prepare_training_data on its folder: every
               shooting kernel launched; the native oracle on all 4096
@@ -173,32 +187,45 @@ Phases, each printing one JSON line with its elapsed seconds:
               pickle equal to normalize_result of the files and finite; the
               yield, ms per sample beside the native oracle's s per sample (a
               host number) and the launches
-27. datagen_fleet  python -m rdm_tpu_torch.scripts.generate_dataset --batch
+29. datagen_fleet  python -m rdm_tpu_torch.scripts.generate_dataset --batch
               4096 --target 1100 --max_minutes 4 --optimal_pass --n_devices 0
               into a temporary directory: all 11 alpha bins filled, 256 rows
               of its state file at least 0.98 inside the float64 defect
               check's feasible tier (the shares below the tighter bounds
               printed), the pickle [N, 67] and finite; rows per second
-28. family_golden  tests/golden/adm_golden.npz and vdm_golden.npz in the
+30. studies   the card-side study scripts of rdm_tpu_torch/scripts in
+              process at n = 64 into a temporary directory: nfe_sweep (10 and
+              20 steps, 5 LM iterations, no basin hops; the JAX artifact's
+              keys), clip_excess (250 steps), regrade_benchmark on a 64-row
+              copy of the round-2 record (float64 on the card) and
+              gt_roundtrip_control on the card: finite JSON, the shooting
+              kernels launched by each grading
+31. launch    rdm_tpu_torch/launch/datagen_fanout.sh with 2 workers of 64
+              seeds (--backend tpu, infeasible results kept): the merged
+              pickle [N, 67], finite, equal to prepare_training_data of the
+              folder; beside it the supervisor's line from phase run_train
+32. family_golden  tests/golden/adm_golden.npz and vdm_golden.npz in the
               port's ADM and VDM (strict=True, float32 on the card) against
               the stored outputs at the JAX package's tolerance
-29. family_adm  model=adm data=imagenet64c at the config's full width
+33. family_adm  model=adm data=imagenet64c at the config's full width
               (bfloat16): the JAX package's parameter count, one training
               step twice from the same state and generator bit for bit, ten
               steps at batch 64 on seeded 64 x 64 images with dropout, label
               dropout and EMA, a checkpoint round trip, guided PC sampling
               (w = 1, one-hot labels) at batch 64 with N 50 in the unit
-              cube; ms per step, samples/s, peak memory
-30. family_vdm  the same for model=vdm data=cifar10 (float32, unguided)
-31. run_train_families  python -m rdm_tpu_torch.run_train data=cifar10
+              cube; ms per step, samples/s, peak memory; the
+              checkpoint round trip on an ADM of the golden's width (the
+              full width's checkpoint is 7.1 GB)
+34. family_vdm  the same for model=vdm data=cifar10 (float32, unguided)
+35. run_train_families  python -m rdm_tpu_torch.run_train data=cifar10
               model=ddpmpp (full width, float32 as the config ships, no
               kernels) for four steps at batch 64 on seeded CIFAR-10 pickles:
               log lines, a checkpoint the run's model loads strictly,
               snapshot samples
-32. run_train_ddpmpp_kernels  the same with model.precision=bfloat16
+36. run_train_ddpmpp_kernels  the same with model.precision=bfloat16
               model.attn_pallas=true model.resblock_pallas=true (the tiled
               kernels)
-33. kernel_tiled  the tiled bodies against their plain versions, bfloat16:
+37. kernel_tiled  the tiled bodies against their plain versions, bfloat16:
               attention forward and backward (the backward twice bit for bit)
               at C 256, L 256 (DDPM++) and C 32, L 81 (nf 32), each at B 64
               and a ragged B; the resblock at DDPM++'s ten block shapes at
@@ -207,11 +234,11 @@ Phases, each printing one JSON line with its elapsed seconds:
               of its scale and more than 99 % of its elements within one; at
               B 64 timed cold beside the plain versions, the unfused library
               block or cuDNN module and the bound
-34. ddpmpp_attn_routing  model=ddpmpp with both kernels on, bfloat16: every
+38. ddpmpp_attn_routing  model=ddpmpp with both kernels on, bfloat16: every
               block keeps its kernel, no routing log line; one evaluation
               forward on the card launches the attention kernel 17 times and
               the resblock kernel 70 times, all tiled
-35. ddpmpp    model=ddpmpp at full width (104,701,571 parameters, bf16, both
+39. ddpmpp    model=ddpmpp at full width (104,701,571 parameters, bf16, both
               kernels, random weights from a seed, the config's zero-scale
               layers drawn at scale 1): for two seeds one training loss and
               gradient through the attention kernels against the plain
@@ -222,29 +249,30 @@ Phases, each printing one JSON line with its elapsed seconds:
               steps at batch 64 twice from one state bit for bit (102
               forward and 102 backward launches), ten PC steps with the EMA
               weights and all three kernels twice bit for bit, samples finite
-36. legacy_1d the legacy 1-D pipeline at the published width (dim 128, mults
+40. legacy_1d the legacy 1-D pipeline at the published width (dim 128, mults
               4-4-8, class MLP 256-512, 500 timesteps; 73,802,497 parameters):
               tests/golden/unet1d_golden.npz loaded with strict=True against
               its outputs; the full-width U-Net's guided forward (w 5) on the
               card against the same module on the CPU at batch 8; python -m
-              rdm_tpu_torch.train_1d for one epoch on the 80,073-row pickle
+              rdm_tpu_torch.train_1d (in process) for one epoch on the 80,073-row pickle
               (every third row: 52 steps at batch 512), run twice with one
               seed (ms a step, falling and finite losses, the two loss
-              sequences compared); python -m rdm_tpu_torch.sample_1d on its
-              model-epoch-1.pt at w 5 with 500 ancestral steps, 256 samples
-              at batch 256 (cut from the CLI's 1000), run twice (bit for bit,
+              sequences compared); rdm_tpu_torch.sample_1d (in process) on
+              its model-epoch-1.pt at w 5 with 500 ancestral steps, 64
+              samples at batch 64 (cut from the CLI's 1000), run twice (bit for bit,
               the physical ranges, trajectories/s); the checkpoint restored
               on the card and written and restored again (the EMA forward
               bit for bit); no hand-written kernel runs on this path
-37. kernels   one line {"kernels": [...]} with each kernel's launches on its
+41. kernels   one line {"kernels": [...]} with each kernel's launches on its
               path (sampling for the forward kernels, with the ODE path's
               count beside the attention forward's and the DP paths' counts a
               rank beside both attention kernels'; training for the
               backward, one entry-point call for the attention core, the
               micro_cf script for its three kernels: the wrappers' counts,
               and beside them the kernel runs of the script's CUDA-graph
-              replays; phase 16's float64 grading for the shooting kernels,
-              the float32 grading's and phase 26's beside them; phase 35's
+              replays, and phase trace's counts beside the attention
+              kernels'; phase 16's float64 grading for the shooting kernels,
+              the float32 grading's and phase 28's beside them; phase 39's
               training and sampling for the three tiled bodies), error, times
               and bound
 
@@ -255,14 +283,17 @@ the repository around it.
 from __future__ import annotations
 
 import ast
+import contextlib
 import copy
 import hashlib
+import io
 import json
 import logging
 import math
 import os
 import pickle
 import re
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -276,7 +307,10 @@ from torch.utils.flop_counter import FlopCounterMode
 import rdm_tpu_torch
 from rdm_tpu_torch import datagen
 from rdm_tpu_torch.benchmark import GTOHaloBenchmarker, GTOHaloBenchmarkConfig
+from rdm_tpu_torch.benchmark import costs as cost_lib
 from rdm_tpu_torch.benchmark import dp_check
+from rdm_tpu_torch.benchmark import profile_train_decomp as decomp_lib
+from rdm_tpu_torch.benchmark import trace as trace_lib
 from rdm_tpu_torch.benchmark.common import (SAMPLING_EPS, LoadedModel, generate_raw_samples,
                                             load_training_run)
 from rdm_tpu_torch.config import ConfigDict, load_config, load_hydra_config_from_run
@@ -300,6 +334,10 @@ from rdm_tpu_torch.physics import oracle as oracle_lib
 from rdm_tpu_torch.physics import solver_gpu
 from rdm_tpu_torch.physics.oracle import evaluate_warmstarts_native
 from rdm_tpu_torch.sampling import get_sampling_fn
+from rdm_tpu_torch import sample_1d as sample_1d_cli
+from rdm_tpu_torch import train_1d as train_1d_cli
+from rdm_tpu_torch.scripts import (clip_excess, gt_roundtrip_control, nfe_sweep,
+                                   regrade_benchmark)
 from rdm_tpu_torch.scripts import micro_cf as micro_cf_script
 from rdm_tpu_torch.sde import RVESDE, get_sde
 from rdm_tpu_torch.training import checkpoints
@@ -405,10 +443,10 @@ def attn_inputs(B, C, L, groups, dtype, seed, device):
 
 def attn_bound_ms(B, C, L, dtype) -> tuple:
     """Least time for the block: each input read once, the output written
-    once, against the card's peak rates; and which of the two bounds it."""
+    once, against the card's peak rates; and which of the two bounds it
+    (the bytes and operations of ``benchmark.costs.attn_fwd_cost``)."""
     elt = torch.tensor([], dtype=dtype).element_size()
-    nbytes = (2 * B * C * L + 4 * C * C + 6 * C) * elt
-    flops = B * (4 * 2 * L * C * C + 2 * 2 * L * L * C)
+    nbytes, flops = cost_lib.attn_fwd_cost(B, C, L, elt)
     t_bytes = nbytes / PEAK_BYTES * 1e3
     t_ops = flops / PEAK_FLOPS[dtype] * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
@@ -471,11 +509,10 @@ def attn_bwd_bound_ms(B, C, L, dtype) -> tuple:
     """Least time for the backward: x and g read once, dx written once (the
     parameters and their float32 gradients beside them), against the card's
     peak rates; the operations are those the backward needs: the recomputed
-    q, k, v, scores and p.v (6 L C^2 + 4 L^2 C per sample) and the backward
-    products (16 L C^2 + 8 L^2 C)."""
+    q, k, v, scores and p.v and the backward products
+    (``benchmark.costs.attn_bwd_cost``)."""
     elt = torch.tensor([], dtype=dtype).element_size()
-    nbytes = 3 * B * C * L * elt + (4 * C * C + 6 * C) * (elt + 4)
-    flops = B * (22 * L * C * C + 12 * L * L * C)
+    nbytes, flops = cost_lib.attn_bwd_cost(B, C, L, elt)
     t_bytes = nbytes / PEAK_BYTES * 1e3
     t_ops = flops / PEAK_FLOPS[dtype] * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
@@ -568,13 +605,9 @@ def resblock_inputs(B, H, ci, co, dtype, seed, device):
 def resblock_bound_ms(B, H, ci, co, dtype) -> tuple:
     """Least time for one launch: x, tembv and the parameters read once, the
     output written once; the operations of the two 3x3 convolutions and the
-    NIN shortcut (multiply-adds count 2)."""
+    NIN shortcut (``benchmark.costs.resblock_cost``)."""
     elt = torch.tensor([], dtype=dtype).element_size()
-    L = H * H
-    shortcut = ci * co if ci != co else 0
-    weights = 9 * ci * co + 9 * co * co + shortcut + 2 * ci + 4 * co + (co if shortcut else 0)
-    nbytes = (B * L * (ci + co) + B * co + weights) * elt
-    flops = 2 * B * L * (9 * ci * co + 9 * co * co + shortcut)
+    nbytes, flops = cost_lib.resblock_cost(B, H, ci, co, elt)
     t_bytes = nbytes / PEAK_BYTES * 1e3
     t_ops = flops / PEAK_FLOPS[dtype] * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
@@ -1299,9 +1332,14 @@ def with_precision(cfg, precision):
     return ConfigDict.wrap(plain)
 
 
-def run_train_phase(launcher=()) -> dict:
+SUPERVISOR = os.path.join(ROOT, "rdm_tpu_torch", "launch", "train_with_resume.sh")
+
+
+def run_train_phase(launcher=(), supervised=False) -> dict:
     """The training CLI on the card, from a temporary working directory,
-    started by ``launcher`` (a torchrun command line) or as one process."""
+    started by ``launcher`` (a torchrun command line), through the stall
+    supervisor ``rdm_tpu_torch/launch/train_with_resume.sh`` (``supervised``)
+    or as one process."""
     pkl = os.path.join(ROOT, "datasets", "training_data_boundary_80073.pkl")
     args = ["model.precision=bfloat16", "model.attn_pallas=true", f"data.pkl_path={pkl}",
             "data.gto_mean=0", "data.gto_std=1", "training.n_iters=3",
@@ -1309,11 +1347,16 @@ def run_train_phase(launcher=()) -> dict:
             "training.snapshot_freq_for_preemption=1000", "sde.num_scales=100",
             "eval.batch_size=4096"]
     with tempfile.TemporaryDirectory() as tmp:
-        env = dict(os.environ, PYTHONPATH=ROOT)
-        proc = subprocess.run([sys.executable, *launcher, "-m", "rdm_tpu_torch.run_train",
-                               *args], cwd=tmp, env=env, capture_output=True, text=True,
-                              timeout=600)
+        env = dict(os.environ, PYTHONPATH=ROOT, PYTHON=sys.executable)
+        command = (["bash", SUPERVISOR] if supervised else
+                   [sys.executable, *launcher, "-m", "rdm_tpu_torch.run_train"])
+        proc = subprocess.run([*command, *args], cwd=tmp, env=env, capture_output=True,
+                              text=True, timeout=600)
         check(proc.returncode == 0, f"run_train failed:\n{proc.stderr[-3000:]}")
+        supervisor = [ln for ln in proc.stdout.splitlines() if "[train_with_resume]" in ln]
+        check(not supervised or supervisor == [
+            "[train_with_resume] completed after 0 restart(s)"],
+            f"the supervisor said {supervisor}")
         runs = os.listdir(os.path.join(tmp, "Training Runs"))
         check(len(runs) == 1, f"run_train made {runs}")
         run = os.path.join(tmp, "Training Runs", runs[0])
@@ -1331,7 +1374,9 @@ def run_train_phase(launcher=()) -> dict:
           f"snapshot samples {sample.dtype} {sample.shape}")
     return {"steps": steps, "eval_lines": len(evals), "checkpoint_step": ck.step,
             "sample_shape": list(sample.shape), "sample_min": int(sample.min()),
-            "sample_max": int(sample.max())}
+            "sample_max": int(sample.max()),
+            **({"supervisor": SUPERVISOR[len(ROOT) + 1:], "supervisor_lines": supervisor}
+               if supervised else {})}
 
 
 # ---------------------------------------------------------------------------
@@ -1944,14 +1989,23 @@ def _counts(state):
             state.ema.num_updates)
 
 
-def family_phase(device, data: str, model_name: str) -> dict:
+# ADM's full-width checkpoint is 7.1 GB and its round trip takes about 44 s: the
+# round trip runs on an ADM of the golden's width instead (the same family
+# code: save_checkpoint's Flax trees, restore_checkpoint, load_into_state)
+ADM_ROUND_TRIP = ["model.model_channels=32", "model.channel_mult=[1,2]",
+                  "model.num_blocks=1", "model.attn_resolutions=[32]"]
+
+
+def family_phase(device, data: str, model_name: str, round_trip_overrides=()) -> dict:
     """One family at its config's full width on the card: the parameter
     count, one training step run twice from the same state and generator
     (bit for bit, cuDNN's deterministic algorithms), FAMILY_STEPS steps at
     FAMILY_BATCH on seeded images (dropout, label dropout where the data has
-    classes, EMA), a checkpoint round trip, and PC sampling at FAMILY_BATCH
-    with N FAMILY_SAMPLING_STEPS (guided, w = 1, with one-hot labels where
-    the data has classes)."""
+    classes, EMA), a checkpoint round trip (of the trained state, or with
+    ``round_trip_overrides`` of a model of those widths after one step on the
+    same images), and PC sampling at FAMILY_BATCH with N
+    FAMILY_SAMPLING_STEPS (guided, w = 1, with one-hot labels where the data
+    has classes)."""
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats(device)
     cfg = load_config("train", [f"data={data}", f"model={model_name}",
@@ -2011,17 +2065,26 @@ def family_phase(device, data: str, model_name: str) -> dict:
 
     # checkpoint round trip
     t = time.perf_counter()
+    rt_cfg, rt_state = cfg, state
+    if round_trip_overrides:
+        rt_cfg = load_config("train", [f"data={data}", f"model={model_name}",
+                                       f"training.batch_size={FAMILY_BATCH}",
+                                       *round_trip_overrides])
+        rt_state = init_train_state(create_model(rt_cfg).to(device).init_weights(
+            torch.Generator(device=device).manual_seed(0)), rt_cfg)
+        step(rt_state, images, labels, torch.Generator(device=device).manual_seed(10))
     with tempfile.TemporaryDirectory() as tmp:
         path = os.path.join(tmp, "checkpoint.pth")
-        checkpoints.save_checkpoint(path, state, config=cfg)
+        checkpoints.save_checkpoint(path, rt_state, config=rt_cfg)
         size = os.path.getsize(path)
-        fresh = init_train_state(create_model(cfg).to(device), cfg)
+        fresh = init_train_state(create_model(rt_cfg).to(device), rt_cfg)
         checkpoints.load_into_state(fresh, checkpoints.restore_checkpoint(path))
     round_trip_s = time.perf_counter() - t
-    same = _counts(fresh) == _counts(state) and all(
-        torch.equal(a, b) for a, b in zip(_state_tensors(fresh), _state_tensors(state)))
+    same = _counts(fresh) == _counts(rt_state) and all(
+        torch.equal(a, b) for a, b in zip(_state_tensors(fresh), _state_tensors(rt_state)))
     check(same, f"{model_name}: the checkpoint round trip changed the state")
-    del fresh
+    round_trip_params = sum(p.numel() for p in rt_state.model.parameters())
+    del fresh, rt_state
 
     # PC sampling with the EMA weights
     shape = (FAMILY_BATCH, C, S, S)
@@ -2048,6 +2111,7 @@ def family_phase(device, data: str, model_name: str) -> dict:
             "losses": losses, "ms_per_step": ms,
             "train_samples_per_second": FAMILY_BATCH / ms * 1e3,
             "checkpoint_bytes": size, "checkpoint_round_trip_s": round_trip_s,
+            "checkpoint_round_trip_params": round_trip_params,
             "sampling": {"n": FAMILY_BATCH, "steps": FAMILY_SAMPLING_STEPS,
                          "guided_w": 1.0 if classes else None, "seconds": sample_s,
                          "samples_per_second": FAMILY_BATCH / sample_s,
@@ -2672,6 +2736,175 @@ def kernels_per_card_phase() -> dict:
 
 
 # ---------------------------------------------------------------------------
+# the trace, the training step's decomposition, the studies and the launchers
+
+TRACE_STEPS = 50                  # trace.main's defaults: batch 1024, 50 PC steps
+TRACE_BATCH = 1024
+
+
+def trace_phase() -> dict:
+    """``benchmark.trace`` at its defaults, sampling then training: the
+    trace holds 5 attention-forward launches for each of the sampler's
+    forwards, and 5 forward and 5 backward launches a training step, as do
+    the wrappers' counts."""
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for what in ("sample", "train"):
+            r = trace_lib.main(["--what", what, "--outdir", tmp])
+            r.pop("output")
+            per = r["steps_traced"]
+            want = {"fwd": ATTN_BLOCKS_PER_FORWARD * per,
+                    "bwd": ATTN_BLOCKS_PER_FORWARD * per if what == "train" else 0}
+            check(r["attn_launches_in_trace"] == want == r["attn_launches_by_wrapper"],
+                  f"trace {what}: {r['attn_launches_in_trace']} in the trace, "
+                  f"{r['attn_launches_by_wrapper']} by the wrappers, expected {want}")
+            check(r["device_ms_per_step"] > 0 and r["idle_share"] < 1,
+                  f"trace {what}: device {r['device_ms_per_step']} ms, idle {r['idle_share']}")
+            r["path"] = os.path.basename(r["path"])
+            out[what] = r
+    return out
+
+
+def train_decomp_phase() -> dict:
+    """``benchmark.profile_train_decomp`` at batch 4096 (its scaling runs
+    in a measuring call): every slope finite and positive, the full step
+    slower than the loss alone."""
+    r = decomp_lib.main(["--batch", "4096", "--skip_scaling"])
+    comps = r["components"]
+    check(list(comps) == list(decomp_lib.COMPONENTS), f"components {list(comps)}")
+    check(all(math.isfinite(c["ms"]) and c["ms"] > 0 for c in comps.values()),
+          f"decomposition slopes {[c['ms'] for c in comps.values()]}")
+    check(comps["full"]["ms"] > comps["loss"]["ms"],
+          f"full {comps['full']['ms']} ms is not above loss {comps['loss']['ms']} ms")
+    keys = ("ms", "gflop", "gb", "effective_gb_per_s", "device_ms", "idle_share", "launches")
+    return {"batch": r["batch"], "costs_note": r["costs_note"],
+            "components": {n: {**{k: c.get(k) for k in keys}, "costs": c["costs"],
+                               "top_kernels": c.get("top_kernels", [])[:3]}
+                           for n, c in comps.items()}}
+
+
+STUDY_N = 64
+NFE_SWEEP_KEYS = ("run_dir", "n", "sampler", "oracle", "row_key", "timing_note", "rows")
+
+
+def _finite_json(blob) -> bool:
+    if isinstance(blob, dict):
+        return all(_finite_json(v) for v in blob.values())
+    if isinstance(blob, list):
+        return all(_finite_json(v) for v in blob)
+    return not isinstance(blob, float) or math.isfinite(blob)
+
+
+def _shooting_launches() -> dict:
+    return {f.__name__: f.launches for f in SHOOT_KERNELS}
+
+
+def studies_phase() -> dict:
+    """The card-side study scripts in process at n = 64 in a temporary
+    directory: nfe_sweep (10 and 20 steps, 5 LM iterations, no basin hops),
+    clip_excess (250 steps), regrade_benchmark on a 64-row copy of the
+    round-2 record (float64 on the card, no basin hops) and
+    gt_roundtrip_control on the card.  Each JSON finite; nfe_sweep's with the
+    JAX artifact's keys; the shooting kernels launched by every grading."""
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        t = time.perf_counter()
+        before = _shooting_launches()
+        nfe = nfe_sweep.main([FLAGSHIP_RUN, str(STUDY_N), "--steps", "10,20", "--max_iters",
+                              "5", "--mbh_rounds", "0", "--out", os.path.join(tmp, "nfe.json")])
+        launched = {k: v - before[k] for k, v in _shooting_launches().items()}
+        check(tuple(nfe) == NFE_SWEEP_KEYS and _finite_json(nfe)
+              and [r["steps"] for r in nfe["rows"]] == [10, 20],
+              f"nfe_sweep wrote {list(nfe)}")
+        check(all(v > 0 for v in launched.values()), f"nfe_sweep launched {launched}")
+        out["nfe_sweep"] = {"rows": nfe["rows"], "launches": launched,
+                            "wall_s": time.perf_counter() - t}
+
+        t = time.perf_counter()
+        ce = clip_excess.main([FLAGSHIP_RUN, "250", str(STUDY_N),
+                               "--out", os.path.join(tmp, "ce.json")])
+        check(_finite_json(ce) and ce["triples"] == 20 * STUDY_N, f"clip_excess {ce}")
+        out["clip_excess"] = {**ce, "wall_s": time.perf_counter() - t}
+
+        t = time.perf_counter()
+        src = os.path.join(ROOT, "benchmark_results", "round2_flagship_1024", "gto_halo")
+        gto = os.path.join(tmp, "regrade", "gto_halo")
+        os.makedirs(gto)
+        np.save(os.path.join(gto, "generated_samples.npy"),
+                np.load(os.path.join(src, "generated_samples.npy"))[:STUDY_N])
+        shutil.copy(os.path.join(src, "gto_halo_results.json"), gto)
+        before = _shooting_launches()
+        (new,) = regrade_benchmark.main([os.path.join(tmp, "regrade"), "--mbh_rounds", "0"])
+        launched = {k: v - before[k] for k, v in _shooting_launches().items()}
+        with open(os.path.join(gto, "gto_halo_results.json")) as f:
+            updated = json.load(f)
+        check(math.isfinite(new["feasible_ratio"]) and math.isfinite(new["local_optimal_ratio"])
+              and new["total_tested"] == STUDY_N
+              and updated["physical_validation_pre_regrade"]["feasible_ratio"]
+              == new["regraded_from"]["feasible_ratio"]
+              and all(v > 0 for v in launched.values()), f"regrade {new}, launched {launched}")
+        out["regrade"] = {k: new.get(k) for k in ("feasible_ratio", "local_optimal_ratio",
+                                                   "oracle_backend", "regraded_from")}
+        out["regrade"].update(launches=launched, wall_s=time.perf_counter() - t)
+
+        t = time.perf_counter()
+        before = _shooting_launches()
+        gt = gt_roundtrip_control.main([os.path.join(ROOT, "datasets",
+                                                     "training_data_boundary_80073.pkl"),
+                                        str(STUDY_N), "tpu",
+                                        "--out", os.path.join(tmp, "gt.json")])
+        launched = {k: v - before[k] for k, v in _shooting_launches().items()}
+        check(_finite_json(gt) and gt["n"] == STUDY_N and all(v > 0 for v in launched.values()),
+              f"gt_roundtrip_control {gt}, launched {launched}")
+        out["gt_roundtrip_control"] = {**gt, "launches": launched,
+                                       "wall_s": time.perf_counter() - t}
+    return out
+
+
+FANOUT = os.path.join(ROOT, "rdm_tpu_torch", "launch", "datagen_fanout.sh")
+FANOUT_WORKERS, FANOUT_SEEDS = 2, 64
+
+
+def launch_phase(worker_args=("--backend", "tpu", "--save_infeasible")) -> dict:
+    """``rdm_tpu_torch/launch/datagen_fanout.sh`` with 2 workers of 64
+    seeds on the card (``--backend tpu``, infeasible results kept so that
+    the merge has rows): the merged pickle [N, 67], finite, equal to
+    prepare_training_data of the workers' result files."""
+    with tempfile.TemporaryDirectory() as tmp:
+        folder = os.path.join(tmp, "fan")
+        env = dict(os.environ, PYTHONPATH=ROOT, PYTHON=sys.executable,
+                   WORKERS=str(FANOUT_WORKERS), SEEDS_PER_WORKER=str(FANOUT_SEEDS),
+                   RESULT_FOLDER=folder)
+        t = time.perf_counter()
+        proc = subprocess.run(["bash", FANOUT, *worker_args], cwd=tmp, env=env,
+                              capture_output=True, text=True, timeout=600)
+        wall = time.perf_counter() - t
+        check(proc.returncode == 0, f"datagen_fanout failed:\n{proc.stderr[-3000:]}")
+        (name,) = [f for f in os.listdir(folder) if f.startswith("training_data_boundary_")]
+        with open(os.path.join(folder, name), "rb") as f:
+            merged = np.asarray(pickle.load(f))
+        # the workers' result files alone (the folder also holds the merge)
+        results = [f for f in os.listdir(folder) if f.endswith(".pkl") and f != name]
+        feasible = sum(f.startswith("feasible_") for f in results)
+        again = os.path.join(tmp, "again")
+        os.makedirs(again)
+        for f in results:
+            shutil.copy(os.path.join(folder, f), again)
+        n = datagen.prepare_training_data(again)
+        with open(os.path.join(again, f"training_data_boundary_{n}.pkl"), "rb") as f:
+            want = np.asarray(pickle.load(f))
+    check(merged.ndim == 2 and merged.shape[1] == 67 and bool(np.isfinite(merged).all())
+          and np.array_equal(merged, want),
+          f"the fan-out's pickle {merged.shape} against prepare_training_data's {want.shape}")
+    check(len(results) == FANOUT_WORKERS * FANOUT_SEEDS,
+          f"{len(results)} result files from {FANOUT_WORKERS} x {FANOUT_SEEDS} seeds")
+    return {"workers": FANOUT_WORKERS, "seeds_per_worker": FANOUT_SEEDS,
+            "worker_args": list(worker_args),
+            "result_files": len(results), "feasible": feasible, "rows": int(merged.shape[0]),
+            "wall_s": wall}
+
+
+# ---------------------------------------------------------------------------
 # the legacy 1-D pipeline at the published width
 
 # the flagship's training pickle, which four earlier phases read too (the
@@ -2687,7 +2920,7 @@ LEGACY_1D_FLAGS = ["--unet_dim", "128", "--unet_dim_mults", "4,4,8",
 LEGACY_1D_PARAMS = 73_802_497
 LEGACY_1D_ROWS = 26_691         # the CLI's stride: 80,073 // 26,000 = 3
 LEGACY_1D_STEPS = 52            # one epoch: 26,691 // 512
-LEGACY_1D_SAMPLES = 256         # cut from the CLI's 1000 for time, at batch 256
+LEGACY_1D_SAMPLES = 64          # cut from the CLI's 1000 for time, at batch 64
 # the card's guided forward against the CPU's, float32, TF32 off: of the CPU
 # output's largest magnitude
 LEGACY_1D_CARD_TOL = 1e-4
@@ -2702,10 +2935,27 @@ LEGACY_1D_RERUN_STEPS = 10
 LEGACY_1D_RERUN_TOL = 1e-3
 
 
+@contextlib.contextmanager
+def _cli_defaults():
+    """PyTorch's own TF32 settings (cuDNN on, matmuls off), which the 1-D
+    CLIs leave as they are, for a CLI run in this process (the smoke turns
+    TF32 off for its comparisons)."""
+    saved = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = False, True
+    try:
+        yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = saved
+
+
 def _legacy_1d_train(tmp, tag) -> dict:
     out = os.path.join(tmp, tag)
-    run_module(["rdm_tpu_torch.train_1d", "--data_path", LEGACY_1D_PKL, *LEGACY_1D_FLAGS,
-                "--batch_size", "512", "--max_epoch", "1", "--result_folder", out], tmp, 900)
+    with _cli_defaults():
+        trainer = train_1d_cli.main(["--data_path", LEGACY_1D_PKL, *LEGACY_1D_FLAGS,
+                                     "--batch_size", "512", "--max_epoch", "1",
+                                     "--result_folder", out])
+    del trainer
+    torch.cuda.empty_cache()
     (sub,) = os.listdir(out)
     run = os.path.join(out, sub)
     with open(os.path.join(run, "metrics.jsonl")) as f:
@@ -2720,11 +2970,13 @@ def _legacy_1d_train(tmp, tag) -> dict:
 
 def _legacy_1d_sample(tmp, ckpt, tag):
     path = os.path.join(tmp, f"{tag}.pkl")
-    stdout = run_module(["rdm_tpu_torch.sample_1d", "--checkpoint", ckpt,
-                         "--sample_num", str(LEGACY_1D_SAMPLES), "--batch_size",
-                         str(LEGACY_1D_SAMPLES), "--diffusion_w", "5.0", *LEGACY_1D_FLAGS,
-                         "--output", path], tmp, 900)
-    rate = float(re.search(r"\(([0-9.eE+-]+) trajectories/s\)", stdout).group(1))
+    said = io.StringIO()
+    with _cli_defaults(), contextlib.redirect_stdout(said):
+        sample_1d_cli.main(["--checkpoint", ckpt, "--sample_num", str(LEGACY_1D_SAMPLES),
+                            "--batch_size", str(LEGACY_1D_SAMPLES), "--diffusion_w", "5.0",
+                            *LEGACY_1D_FLAGS, "--output", path])
+    torch.cuda.empty_cache()
+    rate = float(re.search(r"\(([0-9.eE+-]+) trajectories/s\)", said.getvalue()).group(1))
     with open(path, "rb") as f:
         return pickle.load(f), rate
 
@@ -2839,7 +3091,9 @@ def legacy_1d_phase(device) -> dict:
                             "w": 5.0, "trajectories_per_second": [rate1, rate2],
                             "bit_equal": True,
                             "sha256": hashlib.sha256(s1.tobytes()).hexdigest(),
-                            "cut": "sample_num 1000 -> 256, batch 1000 -> 256"}
+                            "cut": f"sample_num 1000 -> {LEGACY_1D_SAMPLES}, batch 1000 -> "
+                                   f"{LEGACY_1D_SAMPLES}",
+                            "cli": "in process, PyTorch's TF32 defaults"}
 
         # the checkpoint: restored on the card, written and restored again
         ck = restore_unet1d_checkpoint(ckpt)
@@ -3059,7 +3313,15 @@ def main() -> int:
     emit("train", t0, **train)
 
     t0 = time.perf_counter()
-    emit("run_train", t0, **run_train_phase())
+    run_train_fields = run_train_phase(supervised=True)
+    emit("run_train", t0, **run_train_fields)
+
+    t0 = time.perf_counter()
+    traced = trace_phase()
+    emit("trace", t0, **traced)
+
+    t0 = time.perf_counter()
+    emit("train_decomp", t0, **train_decomp_phase())
 
     t0 = time.perf_counter()
     dp = dp_train_phase(device, train, yardstick)
@@ -3101,10 +3363,17 @@ def main() -> int:
     emit("datagen_fleet", t0, **datagen_fleet_phase())
 
     t0 = time.perf_counter()
+    emit("studies", t0, **studies_phase())
+
+    t0 = time.perf_counter()
+    emit("launch", t0, supervisor=run_train_fields["supervisor_lines"],
+         supervisor_phase="run_train", datagen_fanout=launch_phase())
+
+    t0 = time.perf_counter()
     emit("family_golden", t0, **family_golden_phase(device))
 
     t0 = time.perf_counter()
-    emit("family_adm", t0, **family_phase(device, "imagenet64c", "adm"))
+    emit("family_adm", t0, **family_phase(device, "imagenet64c", "adm", ADM_ROUND_TRIP))
 
     t0 = time.perf_counter()
     emit("family_vdm", t0, **family_phase(device, "cifar10", "vdm"))
@@ -3148,10 +3417,16 @@ def main() -> int:
         "launches_dp": {"dp_sample_per_rank": dps["launches"],
                         "dp_train_per_rank": [r[0] for r in
                                               dp["gloo_2_ranks_1_card"]["launches"]]},
+        "launches_trace": {w: {"in_trace": traced[w]["attn_launches_in_trace"]["fwd"],
+                               "by_wrapper": traced[w]["attn_launches_by_wrapper"]["fwd"]}
+                           for w in ("sample", "train")},
         "launches_note": "launches: one 1000-step PC sampling call at batch 1024 (5 a "
                          "forward); launches_ode: one ODE sampling call at batch 1024 "
                          f"(NFE {ode['nfe']}, 5 a forward); launches_dp: each rank of "
-                         "phase dp_sample (512 a rank) and of phase dp_train (ii)",
+                         "phase dp_sample (512 a rank) and of phase dp_train (ii); "
+                         "launches_trace: phase trace's traced run (sample: 49 forwards at "
+                         "batch 1024; train: 5 steps at batch 1024), kernels in the "
+                         "profiler's trace and the wrapper's count",
         "max_abs_err": main_case["max_abs_err"],
         "ms": main_case["ms"],
         "plain_ms": main_case["plain_ms"],
@@ -3181,8 +3456,12 @@ def main() -> int:
         "launches": train["bwd_launches"],
         "launches_dp": {"dp_train_per_rank": [r[1] for r in
                                               dp["gloo_2_ranks_1_card"]["launches"]]},
+        "launches_trace": {"train": {
+            "in_trace": traced["train"]["attn_launches_in_trace"]["bwd"],
+            "by_wrapper": traced["train"]["attn_launches_by_wrapper"]["bwd"]}},
         "launches_note": "launches: the 20 steps of phase train (5 a step); launches_dp: "
-                         "each rank's step in phase dp_train (ii)",
+                         "each rank's step in phase dp_train (ii); launches_trace: phase "
+                         "trace's 5 traced training steps at batch 1024",
         "max_abs_err": max(bwd_main["dx_max_abs_err"], bwd_main["param_max_abs_err"]),
         "ms": bwd_main["ms"],
         "plain_ms": bwd_main["plain_ms"],

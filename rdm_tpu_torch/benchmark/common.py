@@ -130,20 +130,30 @@ def sampling_efficiency_metrics(sampling_times: List[float]) -> dict:
     }
 
 
-def trace_kernels(fn, steps: int, top: int = 12) -> dict:
+def trace_kernels(fn, steps: int, top: int = 12, path: str | None = None,
+                  count: dict | None = None) -> dict:
     """Run ``fn()`` (``steps`` steps of work) under ``torch.profiler`` and
     sum the device kernels of the trace: device ms per step (one stream, so
     the kernels do not overlap), kernel launches per step, and the ``top``
-    kernels by device time, grouped by name."""
-    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    kernels by device time, grouped by name.  With ``path`` the Chrome trace
+    is kept there (its size is ``trace_bytes``).  ``count`` maps a key to a
+    test on a kernel's name; ``counted`` gives each key's kernel launches in
+    the whole trace.  Without a card only the host's activity is recorded
+    and the device sums are 0."""
+    cuda = torch.cuda.is_available()
+    acts = [torch.profiler.ProfilerActivity.CPU]
+    if cuda:
+        acts.append(torch.profiler.ProfilerActivity.CUDA)
     with torch.profiler.profile(activities=acts) as prof:
         fn()
-        torch.cuda.synchronize()
+        if cuda:
+            torch.cuda.synchronize()
     with tempfile.TemporaryDirectory() as tmp:
-        path = os.path.join(tmp, "trace.json")
-        prof.export_chrome_trace(path)
-        with open(path) as f:
+        out = path or os.path.join(tmp, "trace.json")
+        prof.export_chrome_trace(out)
+        with open(out) as f:
             trace = json.load(f)
+        trace_bytes = os.path.getsize(out)
     kernels = [e for e in trace.get("traceEvents", [])
                if e.get("cat") == "kernel" and e.get("ph") == "X"]
     by_name = defaultdict(lambda: [0.0, 0])
@@ -158,4 +168,7 @@ def trace_kernels(fn, steps: int, top: int = 12) -> dict:
         "top_kernels": [{"name": n[:90], "ms_per_step": v[0] / 1e3 / steps,
                          "share_of_device": v[0] / device_us if device_us else 0.0,
                          "launches_per_step": v[1] / steps} for n, v in ranked],
+        "trace_bytes": trace_bytes,
+        **({"counted": {k: sum(v[1] for n, v in by_name.items() if test(n))
+                        for k, test in count.items()}} if count else {}),
     }

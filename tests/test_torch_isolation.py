@@ -1,5 +1,6 @@
 """The port runs where JAX, flax, optax, PyYAML, sklearn and matplotlib are
-absent, and imports nothing of the JAX package or of its ``scripts/``; a
+absent, and imports nothing of the JAX package or of its ``scripts/`` and
+``telemetry/`` packages; a
 1-D checkpoint that the JAX package wrote (in this process, before the
 blocked one starts) restores there."""
 import os
@@ -9,8 +10,8 @@ import sys
 import textwrap
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-BLOCKED = ("jax", "jaxlib", "flax", "optax", "yaml", "rdm_tpu", "scripts", "sklearn",
-           "matplotlib")
+BLOCKED = ("jax", "jaxlib", "flax", "optax", "yaml", "rdm_tpu", "scripts", "telemetry",
+           "sklearn", "matplotlib")
 
 SCRIPT = textwrap.dedent("""
     import importlib.abc, sys
