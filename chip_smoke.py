@@ -213,9 +213,7 @@ Phases, each printing one JSON line with its elapsed seconds:
               steps at batch 64 on seeded 64 x 64 images with dropout, label
               dropout and EMA, a checkpoint round trip, guided PC sampling
               (w = 1, one-hot labels) at batch 64 with N 50 in the unit
-              cube; ms per step, samples/s, peak memory; the
-              checkpoint round trip on an ADM of the golden's width (the
-              full width's checkpoint is 7.1 GB)
+              cube; ms per step, samples/s, peak memory
 34. family_vdm  the same for model=vdm data=cifar10 (float32, unguided)
 35. run_train_families  python -m rdm_tpu_torch.run_train data=cifar10
               model=ddpmpp (full width, float32 as the config ships, no
@@ -1989,23 +1987,14 @@ def _counts(state):
             state.ema.num_updates)
 
 
-# ADM's full-width checkpoint is 7.1 GB and its round trip takes about 44 s: the
-# round trip runs on an ADM of the golden's width instead (the same family
-# code: save_checkpoint's Flax trees, restore_checkpoint, load_into_state)
-ADM_ROUND_TRIP = ["model.model_channels=32", "model.channel_mult=[1,2]",
-                  "model.num_blocks=1", "model.attn_resolutions=[32]"]
-
-
-def family_phase(device, data: str, model_name: str, round_trip_overrides=()) -> dict:
+def family_phase(device, data: str, model_name: str) -> dict:
     """One family at its config's full width on the card: the parameter
     count, one training step run twice from the same state and generator
     (bit for bit, cuDNN's deterministic algorithms), FAMILY_STEPS steps at
     FAMILY_BATCH on seeded images (dropout, label dropout where the data has
-    classes, EMA), a checkpoint round trip (of the trained state, or with
-    ``round_trip_overrides`` of a model of those widths after one step on the
-    same images), and PC sampling at FAMILY_BATCH with N
-    FAMILY_SAMPLING_STEPS (guided, w = 1, with one-hot labels where the data
-    has classes)."""
+    classes, EMA), a checkpoint round trip, and PC sampling at FAMILY_BATCH
+    with N FAMILY_SAMPLING_STEPS (guided, w = 1, with one-hot labels where
+    the data has classes)."""
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats(device)
     cfg = load_config("train", [f"data={data}", f"model={model_name}",
@@ -2065,26 +2054,17 @@ def family_phase(device, data: str, model_name: str, round_trip_overrides=()) ->
 
     # checkpoint round trip
     t = time.perf_counter()
-    rt_cfg, rt_state = cfg, state
-    if round_trip_overrides:
-        rt_cfg = load_config("train", [f"data={data}", f"model={model_name}",
-                                       f"training.batch_size={FAMILY_BATCH}",
-                                       *round_trip_overrides])
-        rt_state = init_train_state(create_model(rt_cfg).to(device).init_weights(
-            torch.Generator(device=device).manual_seed(0)), rt_cfg)
-        step(rt_state, images, labels, torch.Generator(device=device).manual_seed(10))
     with tempfile.TemporaryDirectory() as tmp:
         path = os.path.join(tmp, "checkpoint.pth")
-        checkpoints.save_checkpoint(path, rt_state, config=rt_cfg)
+        checkpoints.save_checkpoint(path, state, config=cfg)
         size = os.path.getsize(path)
-        fresh = init_train_state(create_model(rt_cfg).to(device), rt_cfg)
+        fresh = init_train_state(create_model(cfg).to(device), cfg)
         checkpoints.load_into_state(fresh, checkpoints.restore_checkpoint(path))
     round_trip_s = time.perf_counter() - t
-    same = _counts(fresh) == _counts(rt_state) and all(
-        torch.equal(a, b) for a, b in zip(_state_tensors(fresh), _state_tensors(rt_state)))
+    same = _counts(fresh) == _counts(state) and all(
+        torch.equal(a, b) for a, b in zip(_state_tensors(fresh), _state_tensors(state)))
     check(same, f"{model_name}: the checkpoint round trip changed the state")
-    round_trip_params = sum(p.numel() for p in rt_state.model.parameters())
-    del fresh, rt_state
+    del fresh
 
     # PC sampling with the EMA weights
     shape = (FAMILY_BATCH, C, S, S)
@@ -2111,7 +2091,6 @@ def family_phase(device, data: str, model_name: str, round_trip_overrides=()) ->
             "losses": losses, "ms_per_step": ms,
             "train_samples_per_second": FAMILY_BATCH / ms * 1e3,
             "checkpoint_bytes": size, "checkpoint_round_trip_s": round_trip_s,
-            "checkpoint_round_trip_params": round_trip_params,
             "sampling": {"n": FAMILY_BATCH, "steps": FAMILY_SAMPLING_STEPS,
                          "guided_w": 1.0 if classes else None, "seconds": sample_s,
                          "samples_per_second": FAMILY_BATCH / sample_s,
@@ -2768,7 +2747,9 @@ def trace_phase() -> dict:
 def train_decomp_phase() -> dict:
     """``benchmark.profile_train_decomp`` at batch 4096 (its scaling runs
     in a measuring call): every slope finite and positive, the full step
-    slower than the loss alone."""
+    slower than the loss alone; a cost count of one step at batch 64 adds
+    to the attention wrappers' counts the launches it modeled, 5 a
+    direction."""
     r = decomp_lib.main(["--batch", "4096", "--skip_scaling"])
     comps = r["components"]
     check(list(comps) == list(decomp_lib.COMPONENTS), f"components {list(comps)}")
@@ -2776,8 +2757,19 @@ def train_decomp_phase() -> dict:
           f"decomposition slopes {[c['ms'] for c in comps.values()]}")
     check(comps["full"]["ms"] > comps["loss"]["ms"],
           f"full {comps['full']['ms']} ms is not above loss {comps['loss']['ms']} ms")
+    # a cost count leaves the wrappers' launch counts as the launches made
+    full = decomp_lib.components(decomp_lib.Setup(64, "cuda"))["full"]
+    wrappers = (attn_ops.fused_attn_block, attn_ops.fused_attn_block_bwd)
+    before = [w.launches for w in wrappers]
+    modeled = cost_lib.count_costs(full)["modeled"]
+    torch.cuda.synchronize()
+    launched = [w.launches - b for w, b in zip(wrappers, before)]
+    want = [ATTN_BLOCKS_PER_FORWARD] * 2
+    check(launched == [modeled.get(w.__name__) for w in wrappers] == want,
+          f"count_costs: {launched} launched, {modeled} modeled, expected {want}")
     keys = ("ms", "gflop", "gb", "effective_gb_per_s", "device_ms", "idle_share", "launches")
     return {"batch": r["batch"], "costs_note": r["costs_note"],
+            "count_costs_launches": launched,
             "components": {n: {**{k: c.get(k) for k in keys}, "costs": c["costs"],
                                "top_kernels": c.get("top_kernels", [])[:3]}
                            for n, c in comps.items()}}
@@ -3373,7 +3365,7 @@ def main() -> int:
     emit("family_golden", t0, **family_golden_phase(device))
 
     t0 = time.perf_counter()
-    emit("family_adm", t0, **family_phase(device, "imagenet64c", "adm", ADM_ROUND_TRIP))
+    emit("family_adm", t0, **family_phase(device, "imagenet64c", "adm"))
 
     t0 = time.perf_counter()
     emit("family_vdm", t0, **family_phase(device, "cifar10", "vdm"))

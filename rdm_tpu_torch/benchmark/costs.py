@@ -13,11 +13,12 @@ dispatch modes:
 
 The hand-written attention kernels are called through ctypes from inside
 ``ops.attention``'s wrappers, where no dispatch mode sees them.  Inside
-``count_costs`` each wrapper call runs with the modes off (on the CPU, where
-the wrapper runs its plain version, those aten operations are not counted
-either, so a count does not depend on the device) and adds the kernel's
-bytes and operations from the formulas below, which are also the formulas of
-the smoke's bounds: ``modeled`` holds those, ``counted`` what the modes saw.
+``count_costs`` each direction of the block that calls a wrapper runs with
+the modes off (on the CPU, where the wrapper runs its plain version, those
+aten operations are not counted either, so a count does not depend on the
+device) and adds the kernel's bytes and operations from the formulas below,
+which are also the formulas of the smoke's bounds: ``modeled`` holds those,
+``counted`` what the modes saw.
 No L2 or HBM counter is readable on the card machine, so neither is a
 measured traffic.
 """
@@ -87,32 +88,37 @@ class ByteCounter(TorchDispatchMode):
 
 @contextlib.contextmanager
 def _modeled_attention(tally: dict):
-    """Route ``ops.attention``'s kernel wrappers through counting shims for
-    the duration (``FusedAttnBlockFn`` looks them up at each call); the
-    wrappers' launch counts carry over."""
-    fwd, bwd = attn_ops.fused_attn_block, attn_ops.fused_attn_block_bwd
+    """For the duration, each direction of ``ops.attention.FusedAttnBlockFn``
+    that takes the kernels' wrappers runs with the dispatch modes off and adds
+    the formulas' bytes and operations to ``tally``; the plain direction stays
+    counted by the modes.  The wrappers and their launch counts are left
+    alone."""
+    fn = attn_ops.FusedAttnBlockFn
+    saved = fn.__dict__["forward"], fn.__dict__["backward"]
+    fwd, bwd = fn.forward, fn.backward
 
-    def shim(wrapper, cost, key):
-        def call(x, *args, **kwargs):
-            B, C, H, W = x.shape
-            nbytes, flops = cost(B, C, H * W, x.element_size())
-            tally[key] = tally.get(key, 0) + 1
-            tally["bytes"] += nbytes
-            tally["flops"] += flops
-            call.launches = wrapper.launches
-            with _disable_current_modes():
-                out = wrapper(x, *args, **kwargs)
-            wrapper.launches = call.launches   # the wrapper counted on our name
-            return out
-        call.launches = wrapper.launches
-        return call
+    def modeled(direction, cost, key, x, use_kernel, *call):
+        if not use_kernel:
+            return direction(*call)
+        B, C, H, W = x.shape
+        nbytes, flops = cost(B, C, H * W, x.element_size())
+        tally[key] = tally.get(key, 0) + 1
+        tally["bytes"] += nbytes
+        tally["flops"] += flops
+        with _disable_current_modes():
+            return direction(*call)
 
-    attn_ops.fused_attn_block = shim(fwd, attn_fwd_cost, "fused_attn_block")
-    attn_ops.fused_attn_block_bwd = shim(bwd, attn_bwd_cost, "fused_attn_block_bwd")
+    def forward(ctx, x, *args):
+        return modeled(fwd, attn_fwd_cost, "fused_attn_block", x, args[-1], ctx, x, *args)
+
+    def backward(ctx, g):
+        return modeled(bwd, attn_bwd_cost, "fused_attn_block_bwd", g, ctx.opts[-1], ctx, g)
+
+    fn.forward, fn.backward = staticmethod(forward), staticmethod(backward)
     try:
         yield
     finally:
-        attn_ops.fused_attn_block, attn_ops.fused_attn_block_bwd = fwd, bwd
+        fn.forward, fn.backward = saved
 
 
 def count_costs(fn) -> dict:

@@ -21,10 +21,9 @@ Each component runs eagerly as a loop of K iterations that ends in one
 runs after a warm-up); its time per iteration is the slope.  No CUDA graph:
 the update reads its finiteness and norm back to the host every step.
 Every slope, the scaling rows' too, is timed before any component is
-counted or profiled, so that neither can bear on a slope;
-``--order_probe`` times the full step fresh, after a cost count, after a
-profiler session and on a new model.  Beside each slope, ``torch.profiler``'s device ms and idle
-share per iteration (the K = 10 loop traced once), and the costs of one iteration
+counted or profiled, so that neither can bear on a slope.  Beside each
+slope, ``torch.profiler``'s device ms and idle share per iteration (the
+K = 10 loop traced once), and the costs of one iteration
 from ``benchmark.costs``: operations (the products and convolutions that
 torch's flop counter sees, plus the attention kernels' by formula) and
 bytes (every aten operation's inputs and outputs, plus the attention
@@ -101,7 +100,7 @@ def components(s: Setup) -> dict:
     B = x.shape[0]
     _, time_cond = sde.marginal_prob(torch.zeros_like(x),
                                      torch.full((B,), T_FWD, device=x.device))
-    carry = {"fwd": x, "tgt": x}
+    carry = {"fwd": x}
     grads = [torch.full_like(p, FROZEN_GRAD) for p in s.state.params]
     one = torch.ones((), device=x.device)
 
@@ -118,11 +117,10 @@ def components(s: Setup) -> dict:
         carry["fwd"] = s.model(h, time_cond, labels, train=True, generator=gen).to(h.dtype)
 
     @torch.no_grad()
-    def target_and_draws():
-        h = carry["tgt"]
-        t = torch.rand((B,), generator=gen, device=h.device) * (sde.T - 1e-5) + 1e-5
-        z = torch.randn(h.shape, generator=gen, device=h.device)
-        carry["tgt"] = h + 0 * target(sde, h, t, z)
+    def target_and_draws():     # eager: the unused result is computed all the same
+        t = torch.rand((B,), generator=gen, device=x.device) * (sde.T - 1e-5) + 1e-5
+        z = torch.randn(x.shape, generator=gen, device=x.device)
+        target(sde, x, t, z)
 
     def opt():
         guarded_update(s.state, one, grads)
@@ -185,25 +183,6 @@ def add_profile(body, device, out: dict) -> dict:
     return out
 
 
-def order_probe(batch: int, device, overrides=()) -> dict:
-    """``full``'s slope on one model fresh, after one cost count, after one
-    profiler session, and on a new model."""
-    def slopes(body):
-        return [time_body(body, device)["ms"] for _ in range(2)]
-
-    s = Setup(batch, device, overrides)
-    full = components(s)["full"]
-    out = {"fresh": slopes(full)}
-    count_costs(full)
-    out["after_count_costs"] = slopes(full)
-    if device.type == "cuda":
-        trace_kernels(loop(full, K2, device), K2)
-        out["after_profiler"] = slopes(full)
-    del full, s
-    out["new_model"] = slopes(components(Setup(batch, device, overrides))["full"])
-    return out
-
-
 def peak_memory_gb(device) -> float | None:
     return torch.cuda.max_memory_allocated(device) / 1e9 if device.type == "cuda" else None
 
@@ -218,18 +197,9 @@ def main(argv=None) -> dict:
                         "section here")
     p.add_argument("--override", action="append", default=[],
                    help="a configuration override, e.g. model.nf=16 (repeatable)")
-    p.add_argument("--order_probe", action="store_true",
-                   help="only time the full step fresh, after a cost count, after a profiler "
-                        "session and on a new model")
     p.add_argument("--device", default=None, help="default: the CUDA card")
     args = p.parse_args(argv)
     device = resolve_device(args.device)
-    if args.order_probe:
-        probe = {"batch": args.batch,
-                 "full_ms": order_probe(args.batch, device, args.override)}
-        print(json.dumps(probe), flush=True)
-        return probe
-
     s = Setup(args.batch, device, args.override)
     bodies = components(s)
     result = {"batch": args.batch, "device": str(device), "components": {},

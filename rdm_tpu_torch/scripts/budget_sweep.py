@@ -9,9 +9,10 @@ hopping: ``physics.oracle.evaluate_warmstarts_native``) at every LM
 iteration budget x basin-hop count of the grid, so a comparison of sample
 sets can be read at any budget.  The sets: the flagship's round-2 physical
 samples, the reference's three checked-in sample artifacts (under
-``--reference_root``; a set whose file is absent is skipped with a line
-saying so), a uniform-guess floor and a ground-truth round-trip ceiling.
-All host work: no card.
+``--reference_root`` or ``$RDM_REFERENCE_ROOT``; without either, or where
+a file is absent, the set is skipped with a line saying so), a
+uniform-guess floor and a ground-truth round-trip ceiling.  All host
+work: no card.
 
 The artifact (default ``benchmark_results/torch/budget_sweep.json``) is
 written after every cell and resumed: a cell graded at no fewer rows than
@@ -28,8 +29,9 @@ import time
 import numpy as np
 
 from ..physics.oracle import evaluate_warmstarts_native
-from .study_common import (FLAGSHIP_SAMPLES, GT_PKL, REFERENCE_ROOT, default_out, gt_inverse,
-                           load_reference_set, load_rows, rounded_ci, write_json)
+from .study_common import (FLAGSHIP_SAMPLES, GT_PKL, default_out, gt_inverse,
+                           load_reference_set, load_rows, reference_path, reference_root,
+                           rounded_ci, write_json)
 
 REF_SETS = {   # the reference's checked-in sample artifacts, under --reference_root
     "ref_50samples_16workers":
@@ -69,16 +71,15 @@ def gt_ceiling(n: int, path: str = GT_PKL) -> np.ndarray:
     return np.concatenate([alpha_phys[:, None], out], axis=1)
 
 
-def sample_sets(n_flagship: int, n_control: int, reference_root: str,
+def sample_sets(n_flagship: int, n_control: int, ref_root: str | None,
                 flagship: str = FLAGSHIP_SAMPLES) -> dict:
-    """Every set of the sweep, by name, [N, 67] physical units."""
+    """Every set of the sweep, by name, [N, 67] physical units (the
+    reference's only under a ``ref_root`` that holds them)."""
     sets = {"flagship_rdm_tpu": np.load(flagship).astype(np.float64)[:n_flagship]}
     for name, rel in REF_SETS.items():
-        path = os.path.join(reference_root, rel)
-        if os.path.exists(path):
+        path = reference_path(ref_root, rel)
+        if path is not None:
             sets[name] = load_reference_set(path)
-        else:
-            print(f"{name}: {path} is absent; set skipped")
     sets["uniform_floor"] = uniform_floor(n_control)
     sets["gt_ceiling"] = gt_ceiling(n_control)
     return sets
@@ -106,7 +107,9 @@ def main(argv=None) -> dict | None:
     p.add_argument("--mbh", default=",".join(map(str, MBH_GRID)))
     p.add_argument("--out", default=default_out("budget_sweep.json"))
     p.add_argument("--sets", default=None, help="comma-separated names of the sets to run")
-    p.add_argument("--reference_root", default=REFERENCE_ROOT)
+    p.add_argument("--reference_root", default=reference_root(),
+                   help="a checkout of the reference (default: $RDM_REFERENCE_ROOT; "
+                        "without either its sets are skipped)")
     p.add_argument("--extra_set", action="append", default=[], metavar="NAME=PATH",
                    help="another [N, 67] physical-unit .npy to grade (repeatable)")
     p.add_argument("--n_extra", type=int, default=None, help="rows of each --extra_set")

@@ -4,7 +4,9 @@
         [--ref_samples PATH] [--backend native|tpu] [--out PATH]
 
 The reference's checked-in ``samples.npy`` (50 physical 67-vectors, graded
-0.86 feasible by its own SNOPT) and, with ``--model_path``, samples of a
+0.86 feasible by its own SNOPT; ``--ref_samples``, or its place under
+``$RDM_REFERENCE_ROOT``, and skipped without either) and, with
+``--model_path``, samples of a
 port run drawn through the benchmark's sampling and inverse pipeline
 (``GTOHaloBenchmarker.generate_samples``) are graded by the same local
 solve: LM with the mass ascent under monotonic basin hopping, on the host
@@ -23,10 +25,10 @@ import numpy as np
 
 from ..physics.oracle import evaluate_warmstarts_native
 from ..physics.solver_gpu import refine_warmstarts_gpu
-from .study_common import REFERENCE_ROOT, load_reference_set, write_json
+from .study_common import load_reference_set, reference_path, reference_root, write_json
 
-REF_SAMPLES = os.path.join(
-    REFERENCE_ROOT, "Benchmark/benchmark_results/gto_halo_50samples_16workers_results/samples.npy")
+# the reference's checked-in samples, under a checkout of it
+REF_SAMPLES = "Benchmark/benchmark_results/gto_halo_50samples_16workers_results/samples.npy"
 
 
 def grade(samples67: np.ndarray, label: str, args) -> dict:
@@ -57,14 +59,17 @@ def main(argv=None) -> dict:
     p.add_argument("--solver_mode", default="optimal", choices=["feasible", "optimal"])
     p.add_argument("--max_iters", type=int, default=30)
     p.add_argument("--mbh_rounds", type=int, default=8)
-    p.add_argument("--ref_samples", default=REF_SAMPLES)
+    p.add_argument("--ref_samples", default=None,
+                   help=f"the reference's samples (default: {REF_SAMPLES} under "
+                        "$RDM_REFERENCE_ROOT; without either that row is skipped)")
     p.add_argument("--device", default=None,
                    help="device of the sampling and of the tpu backend (default: the card)")
     p.add_argument("--out", default=None, help="write the JSON here too")
     args = p.parse_args(argv)
 
-    rows = [grade(load_reference_set(args.ref_samples),
-                  "reference model (checked-in samples.npy)", args)]
+    ref = args.ref_samples or reference_path(reference_root(), REF_SAMPLES)
+    rows = [] if ref is None else [grade(load_reference_set(ref),
+                                         "reference model (checked-in samples.npy)", args)]
     if args.model_path:
         from ..benchmark.gto_halo import GTOHaloBenchmarkConfig, GTOHaloBenchmarker
         b = GTOHaloBenchmarker(GTOHaloBenchmarkConfig(

@@ -36,7 +36,7 @@ from scipy.optimize import least_squares, minimize
 from .. import native
 from ..physics.oracle import _mbh_loop, _mission_constants, nlp_box
 from . import budget_sweep as bs
-from .study_common import REFERENCE_ROOT, default_out, wilson_ci, write_json
+from .study_common import default_out, reference_root, wilson_ci, write_json
 
 FEAS_TOL = 1e-3
 FD_STEP = 1e-6          # the C++ oracle's hstep = 1e-6 * (|g_v| + 1)
@@ -150,7 +150,9 @@ def main(argv=None) -> dict:
     p.add_argument("--n_control", type=int, default=256)
     p.add_argument("--mbh", default="0,8")
     p.add_argument("--sets", default=None)
-    p.add_argument("--reference_root", default=REFERENCE_ROOT)
+    p.add_argument("--reference_root", default=reference_root(),
+                   help="a checkout of the reference (default: $RDM_REFERENCE_ROOT; "
+                        "without either its sets are skipped)")
     p.add_argument("--out", default=default_out("second_solver_crosscheck.json"))
     args = p.parse_args(argv)
 

@@ -18,10 +18,9 @@ FLAGSHIP_SAMPLES = os.path.join(REPO_ROOT, "benchmark_results", "round2_flagship
                                 "gto_halo", "generated_samples.npy")
 GT_PKL = os.path.join(REPO_ROOT, "datasets", "training_data_boundary_80073.pkl")
 RESULTS = os.path.join(REPO_ROOT, "benchmark_results", "torch")
-# the reference repository, checked out beside this one (its sample
-# artifacts are inputs of the oracle studies; each script has a flag)
-REFERENCE_ROOT = os.environ.get("RDM_REFERENCE_ROOT",
-                                os.path.join(os.path.dirname(REPO_ROOT), "reference"))
+# a checkout of the reference repository, whose sample artifacts are inputs of
+# the oracle studies: only where --reference_root or this variable names one
+REFERENCE_ROOT_ENV = "RDM_REFERENCE_ROOT"
 
 
 def default_out(name: str) -> str:
@@ -81,6 +80,24 @@ def gt_inverse(rows: np.ndarray) -> tuple:
     bench.total_spherical_clips = bench.total_spherical_elements = 0
     phys = bench._inverse_pipeline(np.asarray(rows))
     return phys[:, 0], phys[:, 1:]
+
+
+def reference_root() -> str | None:
+    """The reference checkout that ``RDM_REFERENCE_ROOT`` names, or None."""
+    return os.environ.get(REFERENCE_ROOT_ENV) or None
+
+
+def reference_path(root: str | None, rel: str) -> str | None:
+    """``rel`` under the reference checkout ``root``, if it exists there;
+    otherwise None, with one line saying the set is skipped."""
+    if root is None:
+        print(f"{rel}: no --reference_root or {REFERENCE_ROOT_ENV} given; set skipped")
+        return None
+    path = os.path.join(root, rel)
+    if not os.path.exists(path):
+        print(f"{path} is absent; set skipped")
+        return None
+    return path
 
 
 def load_reference_set(path: str) -> np.ndarray:

@@ -84,6 +84,22 @@ def test_budget_sweep_skips_an_absent_reference_set(tmp_path, capsys):
     assert "set skipped" in capsys.readouterr().out
 
 
+def test_no_reference_root_reads_no_reference_file(monkeypatch, capsys):
+    """Without --reference_root or RDM_REFERENCE_ROOT the reference's sets
+    are skipped with a line each, and nothing is looked for around the
+    checkout."""
+    monkeypatch.delenv("RDM_REFERENCE_ROOT", raising=False)
+    looked, exists = [], os.path.exists
+    monkeypatch.setattr(os.path, "exists", lambda path: looked.append(str(path)) or exists(path))
+    sets = budget_sweep.sample_sets(2, 2, None)
+    assert set(sets) == {"flagship_rdm_tpu", "uniform_floor", "gt_ceiling"}
+    blob = same_oracle_baseline.main(["--max_iters", "1", "--mbh_rounds", "0"])
+    assert blob["rows"] == []
+    rels = [*budget_sweep.REF_SETS.values(), same_oracle_baseline.REF_SAMPLES]
+    assert not [p for p in looked if any(p.endswith(r) for r in rels)]
+    assert capsys.readouterr().out.count("RDM_REFERENCE_ROOT given; set skipped") == 4
+
+
 def test_same_oracle_baseline_matches_jax(tmp_path, monkeypatch, ref_samples):
     jso = load_script("same_oracle_baseline", monkeypatch)
     args = ["--ref_samples", str(ref_samples), "--max_iters", "3", "--mbh_rounds", "1"]

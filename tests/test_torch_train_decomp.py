@@ -21,6 +21,7 @@ from rdm_tpu_torch.benchmark import costs
 from rdm_tpu_torch.benchmark import profile_train_decomp as decomp
 from rdm_tpu_torch.models.convert import state_dict_from_jax
 from rdm_tpu_torch.models.layers import NIN, AttnBlockpp
+from rdm_tpu_torch.ops import attention as attn_ops
 from rdm_tpu_torch.training.state import init_train_state, trainable_parameters
 
 torch.set_num_threads(1)  # the suite runs in parallel worker processes
@@ -149,7 +150,40 @@ def test_fwd_flops_are_the_products_of_the_layers(nf):
     assert c["bytes"] > 0 and c["counted"]["aten_ops"] > 0
 
 
-def test_main_runs_every_component_on_the_cpu(capsys, monkeypatch):
+def _count_full_step(device):
+    """count_costs of one full step at nf 64 (the attention wrappers' path):
+    the wrappers' launches during it and what it modeled."""
+    s = decomp.Setup(B, device, ["model.nf=64", *SMALL[1:]])
+    full = decomp.components(s)["full"]
+    wrappers = (attn_ops.fused_attn_block, attn_ops.fused_attn_block_bwd)
+    saved = attn_ops.FusedAttnBlockFn.__dict__["forward"]
+    before = [w.launches for w in wrappers]
+    c = costs.count_costs(full)
+    if device == "cuda":
+        torch.cuda.synchronize()
+    assert (attn_ops.fused_attn_block, attn_ops.fused_attn_block_bwd) == wrappers
+    assert attn_ops.FusedAttnBlockFn.__dict__["forward"] is saved
+    n_attn = sum(isinstance(m, AttnBlockpp) for m in s.model.modules())
+    return ([w.launches - b for w, b in zip(wrappers, before)],
+            [c["modeled"].get(w.__name__) for w in wrappers], n_attn)
+
+
+def test_count_costs_leaves_the_wrappers_and_their_counts():
+    """On the CPU the wrappers run their plain versions and launch nothing:
+    a count models every call and leaves the counts as they were."""
+    launched, modeled, n_attn = _count_full_step("cpu")
+    assert launched == [0, 0] and modeled == [n_attn, n_attn] and n_attn > 0
+
+
+@pytest.mark.gpu
+def test_count_costs_adds_the_launches_it_models_on_the_card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    launched, modeled, n_attn = _count_full_step("cuda")
+    assert launched == modeled == [n_attn, n_attn]
+
+
+def test_main_runs_every_component_on_the_cpu(capsys):
     r = decomp.main(["--device", "cpu", "--batch", "2", "--batches", "2",
                      "--skip_rbg", *sum((["--override", o] for o in SMALL[:3]), [])])
     assert list(r["components"]) == list(decomp.COMPONENTS)
@@ -158,11 +192,3 @@ def test_main_runs_every_component_on_the_cpu(capsys, monkeypatch):
     assert r["components"]["full"]["gflop"] > r["components"]["fwd"]["gflop"] > 0
     assert r["scaling"][0]["batch"] == 2
     assert "none to compare" in capsys.readouterr().out
-    timed = []      # the probe's control flow (its timing is the card's business)
-    monkeypatch.setattr(decomp, "time_body", lambda body, device: timed.append(body) or
-                        {"ms": 1.0})
-    probe = decomp.main(["--device", "cpu", "--batch", "2", "--order_probe",
-                         *sum((["--override", o] for o in SMALL[:3]), [])])
-    assert probe["full_ms"] == {"fresh": [1.0, 1.0], "after_count_costs": [1.0, 1.0],
-                                "new_model": [1.0, 1.0]}
-    assert timed[0] is timed[3] and timed[4] is not timed[0]
