@@ -231,7 +231,11 @@ Phases, each printing one JSON line with its elapsed seconds:
               B 64, each twice bit for bit; each output within 4 bf16 steps
               of its scale and more than 99 % of its elements within one; at
               B 64 timed cold beside the plain versions, the unfused library
-              block or cuDNN module and the bound
+              block or cuDNN module and the bound: the wrapper (ms), the
+              kernels alone with their parameters prepared once (kernel_ms)
+              and each launch of the body (launch_ms: GroupNorm 0, conv0,
+              GroupNorm 1, NIN, conv1; GroupNorm, q/k/v, attention, output),
+              and their sums over one DDPM++ forward
 38. ddpmpp_attn_routing  model=ddpmpp with both kernels on, bfloat16: every
               block keeps its kernel, no routing log line; one evaluation
               forward on the card launches the attention kernel 17 times and
@@ -1089,6 +1093,24 @@ def time_cold(fn, reps=5) -> float:
         b.synchronize()
         times.append(a.elapsed_time(b))
     return float(np.mean(times))
+
+
+def launch_parts_ms(fn, reps=3) -> dict:
+    """ms of each part of one call of ``fn`` (which returns them by part: a
+    tiled body's launches timed by CUDA events between them), cold (the L2
+    flushed) and with the card kept busy for about a millisecond first, so
+    every launch is queued before the first event and the times are the
+    device's alone; the mean of ``reps`` calls after one warm-up."""
+    flush = torch.empty(64 * 2**20, dtype=torch.int32, device="cuda")
+    fn()
+    torch.cuda.synchronize()
+    out = {}
+    for _ in range(reps):
+        flush.zero_()
+        torch.cuda._sleep(4_000_000)
+        for k, v in fn().items():
+            out[k] = out.get(k, 0.0) + v / reps
+    return out
 
 
 def time_once(fn):
@@ -2325,7 +2347,9 @@ def tiled_attn_case(B, C, L, groups, seed, device, timed):
             ps = [p.detach().requires_grad_(True) for p in lib_params]
             return torch.autograd.grad(attn_library_block(xx, ps, groups), [xx, *ps], t[1])
 
+        launcher = attn_ops._tiled_fwd_launcher(*params, **kw)
         fwd = {"": lambda t: attn_ops.fused_attn_block(t, *params, **kw),
+               "kernel_": launcher,
                "plain_": lambda t: attn_ops.fused_attn_block_reference(t, *params, **kw),
                "library_": lambda t: attn_library_block(t, lib_params, groups)}
         bwd = {"bwd_": lambda t: attn_ops.fused_attn_block_bwd(*t, *params, **kw),
@@ -2336,6 +2360,8 @@ def tiled_attn_case(B, C, L, groups, seed, device, timed):
                 res[key + "ms"] = micro_cf_script.cold_us(fn, make, nbytes, device, (2, 8)) / 1e3
         for key, fn in bwd.items():
             res[key + "ms"] = micro_cf_script.cold_us(fn, make2, 2 * nbytes, device, (2, 6)) / 1e3
+        res["launch_ms"] = launch_parts_ms(lambda: attn_ops.tiled_attn_launch_ms(
+            x, *params, **kw, launcher=launcher))
         res["bound_ms"], res["bound_by"] = attn_bound_ms(B, C, L, torch.bfloat16)
         res["bwd_bound_ms"], res["bwd_bound_by"] = attn_bwd_bound_ms(B, C, L, torch.bfloat16)
         res["share_of_bound"] = res["bound_ms"] / res["ms"]
@@ -2383,12 +2409,16 @@ def tiled_resblock_case(B, H, ci, co, seed, device, timed):
                     (0.5 * torch.randn((B, co), generator=gen, device=device)).to(torch.bfloat16))
 
         nbytes = (x.numel() + tembv.numel()) * x.element_size()
+        launcher = rb_ops._tiled_launcher(*params, H=H, **kw)
         fns = {"": lambda t: rb_ops.fused_resblock(*t, *params, **kw),
+               "kernel_": lambda t: launcher(*t),
                "plain_": lambda t: rb_ops.fused_resblock_reference(*t, *params, **kw),
                "module_": lambda t: blk(t[0], temb)}
         with torch.no_grad():
             for key, fn in fns.items():
                 res[key + "ms"] = micro_cf_script.cold_us(fn, make, nbytes, device, (2, 6)) / 1e3
+            res["launch_ms"] = launch_parts_ms(lambda: rb_ops.tiled_resblock_launch_ms(
+                x, tembv, *params, **kw, launcher=launcher))
         res["bound_ms"], res["bound_by"] = resblock_bound_ms(B, H, ci, co, torch.bfloat16)
         res["share_of_bound"] = res["bound_ms"] / res["ms"]
     return res
@@ -2416,11 +2446,23 @@ def kernel_tiled_phase(device) -> tuple:
     return attn, rb
 
 
-def ddpmpp_forward_sum(cases, key) -> float:
-    """Sum of ``key`` over DDPM++'s 70 resblocks of one forward at B 64."""
-    return sum(c[key] * DDPMPP_RESBLOCK_SHAPES[(c["H"], c["C_in"], c["C_out"])]
+def ddpmpp_forward_sum(cases, key, part=None) -> float:
+    """Sum of ``key`` (of its ``part`` where given) over DDPM++'s 70
+    resblocks of one forward at B 64."""
+    return sum((c[key] if part is None else c[key][part])
+               * DDPMPP_RESBLOCK_SHAPES[(c["H"], c["C_in"], c["C_out"])]
                for c in cases if c["B"] == TILED_BATCH and (c["H"], c["C_in"], c["C_out"])
                in DDPMPP_RESBLOCK_SHAPES and key in c)
+
+
+def ddpmpp_forward_sums(cases) -> dict:
+    """The DDPM++ forward's resblock sums at B 64: the wrapper, the kernels
+    alone, the plain version, the cuDNN module, the bound, and each launch
+    of the body (the kernels alone, as the card runs them)."""
+    out = {k: ddpmpp_forward_sum(cases, k) for k in ("ms", "kernel_ms", "plain_ms",
+                                                     "module_ms", "bound_ms")}
+    out["launch_ms"] = {p: ddpmpp_forward_sum(cases, "launch_ms", p) for p in rb_ops.TILED_PARTS}
+    return out
 
 
 def ddpmpp_model(device, overrides=()):
@@ -3379,9 +3421,10 @@ def main() -> int:
     t0 = time.perf_counter()
     tiled_attn, tiled_rb = kernel_tiled_phase(device)
     emit("kernel_tiled", t0, attn_cases=len(tiled_attn), resblock_cases=len(tiled_rb),
-         ddpmpp_resblocks_per_forward_at_b64={
-             k: ddpmpp_forward_sum(tiled_rb, k) for k in ("ms", "plain_ms", "module_ms",
-                                                          "bound_ms")})
+         ddpmpp_resblocks_per_forward_at_b64=ddpmpp_forward_sums(tiled_rb),
+         attention_forward_at_b64={f"C{c['C']}_L{c['L']}": {
+             k: c[k] for k in ("ms", "kernel_ms", "library_ms", "bound_ms", "launch_ms")}
+             for c in tiled_attn if "launch_ms" in c})
 
     t0 = time.perf_counter()
     emit("ddpmpp_attn_routing", t0, **ddpmpp_attn_routing_phase(device))
@@ -3546,8 +3589,7 @@ def main() -> int:
     ]
     ta, ta32 = tiled_attn[0], tiled_attn[2]
     rb_main = [c for c in tiled_rb if c["B"] == TILED_BATCH and "ms" in c]
-    rb_forward = {k: ddpmpp_forward_sum(tiled_rb, k)
-                  for k in ("ms", "plain_ms", "module_ms", "bound_ms")}
+    rb_forward = ddpmpp_forward_sums(tiled_rb)
     tiled_note = (f"launches: phase ddpmpp (model=ddpmpp, bf16, both kernels): "
                   f"{DDPMPP_TRAIN_STEPS} training steps at batch {TILED_BATCH} run twice, then "
                   f"PC sampling (N {DDPMPP_SAMPLING_STEPS}) at batch {TILED_BATCH} run twice")
@@ -3558,15 +3600,17 @@ def main() -> int:
         "replaces": "rdm_tpu/ops/pallas/attention.py:42::_fused_block_kernel",
         "launches": ddpmpp["launches"]["fused_attn_block_tiled"],
         "launches_note": tiled_note + "; 17 a forward (C 256, L 256)",
-        "max_abs_err": ta["max_abs_err"], "ms": ta["ms"], "plain_ms": ta["plain_ms"],
+        "max_abs_err": ta["max_abs_err"], "ms": ta["ms"], "kernel_ms": ta["kernel_ms"],
+        "launch_ms": ta["launch_ms"], "plain_ms": ta["plain_ms"],
         "bound_ms": ta["bound_ms"], "bound_by": ta["bound_by"], "library_ms": None,
         "module_ms": ta["library_ms"],
         "module_note": "the unfused block from PyTorch calls: F.group_norm, the NINs as "
                        "matmuls, F.scaled_dot_product_attention (no single call)",
         "timing": "cold: x rotates over more than twice the L2, CUDA-graph slopes",
         "share_of_bound": ta["share_of_bound"],
-        "nf32": {k: ta32[k] for k in ("B", "C", "L", "max_abs_err", "ms", "plain_ms",
-                                      "library_ms", "bound_ms", "bound_by")},
+        "nf32": {k: ta32[k] for k in ("B", "C", "L", "max_abs_err", "ms", "kernel_ms",
+                                      "launch_ms", "plain_ms", "library_ms", "bound_ms",
+                                      "bound_by")},
         "shape": "B=64 C=256 L=256 groups=32 bfloat16",
     }, {
         "name": "fused_attn_block_bwd (tiled body)",
@@ -3596,6 +3640,7 @@ def main() -> int:
                          "path under the config's dropout)",
         "max_abs_err": max(c["max_abs_err"] for c in rb_main),
         "ms": rb_forward["ms"] / DDPMPP_RESBLOCKS,
+        "kernel_ms": rb_forward["kernel_ms"] / DDPMPP_RESBLOCKS,
         "plain_ms": rb_forward["plain_ms"] / DDPMPP_RESBLOCKS,
         "bound_ms": rb_forward["bound_ms"] / DDPMPP_RESBLOCKS,
         "bound_by": "operations" if all(c["bound_by"] == "operations" for c in rb_main)

@@ -7,18 +7,20 @@
 //
 //   tiled_gemm_kernel   C = A B on the tensor cores (mma.sync.m16n8k16, bf16
 //                       operands, f32 sums): 64 x 64 output tiles, four warps
-//                       of 32 x 32, K in steps of 32 through shared memory.
-//                       A and B are read through a Src (strided matrix, either
-//                       dimension contiguous, or the 3x3 neighbourhood of an
-//                       NHWC image: an implicit-GEMM convolution), the result
-//                       goes out through an Epi (round, + bias, + time
-//                       embedding, residual and rescale into NCHW, or float32).
-//                       With kchunk the grid's z runs over chunks of K and each
-//                       chunk writes its own float32 partial (split-K, summed
-//                       later in a fixed order by sum_partials_kernel).
+//                       of 32 x 32, K in steps of 32 through shared memory:
+//                       the attention backward's products (the forward's run
+//                       on wg_gemm.cuh).  A and B are read through a Src (a
+//                       strided matrix, either dimension contiguous), the
+//                       result goes out through an Epi (round and + bias, or
+//                       float32).  With kchunk the grid's z runs over chunks
+//                       of K and each chunk writes its own float32 partial
+//                       (split-K, summed later in a fixed order by
+//                       sum_partials_kernel).
 //   gn_apply_kernel     GroupNorm (f32 statistics, E[x^2] - mean^2), the bf16
-//                       scale and bias, optional SiLU, out token-major in bf16;
-//                       one block a (sample, group).
+//                       scale and bias, optional SiLU, out token-major in bf16
+//                       (and x itself token-major on request); one block a few
+//                       adjacent groups of a sample (launch_gn_apply), reads
+//                       and writes in pieces of up to 16 bytes.
 //   gn_bwd_kernel       GroupNorm's backward for one (sample, group), with
 //                       per-sample float32 partials of the scale and bias
 //                       gradients.
@@ -44,8 +46,7 @@ constexpr int kBN = 64;             // output columns of a GEMM block
 constexpr int kBK = 32;             // K of one shared-memory stage
 constexpr int kBKP = kBK + 8;       // a stage row: 80 bytes, ldmatrix free of bank conflicts
 constexpr int kGemmThreads = 128;   // four warps, 2 x 2 over the tile
-constexpr int kGemmSmemBytes = (kBM + kBN) * kBKP * 2;   // one A and one B stage, static
-constexpr int kRowThreads = 256;    // GroupNorm kernels: one block a (sample, group)
+constexpr int kRowThreads = 256;    // GroupNorm kernels
 
 __device__ __forceinline__ float bf(bf16 v) { return __bfloat162float(v); }
 __device__ __forceinline__ float rbf(float v) { return __bfloat162float(__float2bfloat16(v)); }
@@ -53,12 +54,10 @@ __device__ __forceinline__ float rbf(float v) { return __bfloat162float(__float2
 // Where the operands of tiled_gemm_kernel come from.  Element (r, k) of the
 // operand (r: a row of A or a column of B) of batch z lies at
 // p + z*sz + r*sr + k*sk; kKContig needs sk == 1, kRContig sr == 1, both with
-// 16-byte aligned rows where they read 8 values at once.  kConv3x3: row r is
-// token r of an NHWC tensor (samples of H x W tokens, c channels) and k =
-// tap * c + ch with tap = (dy + 1) * 3 + (dx + 1); a tap outside the image
-// reads 0.  Rows at or past `rows` read 0; ones_row (kRContig only) reads 1
-// at every k, so its output row sums the other operand over K.
-enum SrcKind : int { kKContig = 0, kRContig = 1, kConv3x3 = 2 };
+// 16-byte aligned rows where they read 8 values at once.  Rows at or past
+// `rows` read 0; ones_row (kRContig only) reads 1 at every k, so its output
+// row sums the other operand over K.
+enum SrcKind : int { kKContig = 0, kRContig = 1 };
 
 struct Src {
   const bf16* p;
@@ -66,29 +65,18 @@ struct Src {
   int rows;
   int kind;
   int ones_row;
-  int H, W, c;
 };
 
-// Epilogue kinds: kOutBf16 rounds the sum, adds bias[n] and temb[sample, n]
-// (each rounded), row-major out; kOutF32 stores the float32 sum; kOutResidual
-// rounds, adds bias[n], adds the residual res(sample, l, n) and multiplies by
-// rescale (T(1/sqrt 2)), each rounded, into NCHW out (sample, n, l).  A row m
-// is (sample z, token m), or with rps > 0 (sample m / rps, token m % rps).
-enum EpiKind : int { kOutBf16 = 0, kOutF32 = 1, kOutResidual = 2 };
+// Epilogue kinds: kOutBf16 rounds the sum and adds bias[n] (rounded), out
+// row-major; kOutF32 stores the float32 sum.  Row m of batch z goes to
+// out + z*soz + m*som.
+enum EpiKind : int { kOutBf16 = 0, kOutF32 = 1 };
 
 struct Epi {
   int kind;
   void* out;
   long long soz, som;
   const bf16* bias;
-  const bf16* temb;
-  int temb_ld;
-  int rps;
-  const bf16* res;
-  long long res_sb, res_sl, res_sn;
-  long long out_sb;
-  int out_L;
-  float rescale;
 };
 
 struct GemmArgs {
@@ -138,18 +126,7 @@ __device__ __forceinline__ void fill_stage(bf16 (*s)[kBKP], const Src& a, int z,
     const int r = r0 + rr, k = k0 + kk;
     uint4 u = zero4();
     if (r < a.rows && k < kend) {
-      if (a.kind == kKContig) {
-        u = *reinterpret_cast<const uint4*>(a.p + z * a.sz + static_cast<long long>(r) * a.sr + k);
-      } else {
-        const int L = a.H * a.W;
-        const int b = r / L, l = r - b * L;
-        const int y = l / a.W, x = l - y * a.W;
-        const int tap = k / a.c, ch = k - tap * a.c;
-        const int yy = y + tap / 3 - 1, xx = x + tap % 3 - 1;
-        if (yy >= 0 && yy < a.H && xx >= 0 && xx < a.W)
-          u = *reinterpret_cast<const uint4*>(
-              a.p + (static_cast<long long>(b) * L + yy * a.W + xx) * a.c + ch);
-      }
+      u = *reinterpret_cast<const uint4*>(a.p + z * a.sz + static_cast<long long>(r) * a.sr + k);
     }
     *reinterpret_cast<uint4*>(&s[rr][kk]) = u;
   }
@@ -162,32 +139,13 @@ __device__ __forceinline__ void epilogue(const Epi& e, int z, int m, int n, floa
     o[1] = v1;
     return;
   }
-  int sample = z, l = m;
-  if (e.rps > 0) {
-    sample = m / e.rps;
-    l = m - sample * e.rps;
-  }
   float r0 = rbf(v0), r1 = rbf(v1);
   if (e.bias) {
     r0 = rbf(r0 + bf(e.bias[n]));
     r1 = rbf(r1 + bf(e.bias[n + 1]));
   }
-  if (e.temb) {
-    const bf16* t = e.temb + static_cast<long long>(sample) * e.temb_ld + n;
-    r0 = rbf(r0 + bf(t[0]));
-    r1 = rbf(r1 + bf(t[1]));
-  }
-  if (e.kind == kOutBf16) {
-    bf16* o = static_cast<bf16*>(e.out) + z * e.soz + static_cast<long long>(m) * e.som + n;
-    *reinterpret_cast<__nv_bfloat162*>(o) = __floats2bfloat162_rn(r0, r1);
-    return;
-  }
-  const bf16* rp = e.res + sample * e.res_sb + l * e.res_sl + n * e.res_sn;
-  r0 = rbf(rbf(bf(rp[0]) + r0) * e.rescale);
-  r1 = rbf(rbf(bf(rp[e.res_sn]) + r1) * e.rescale);
-  bf16* o = static_cast<bf16*>(e.out) + sample * e.out_sb + static_cast<long long>(n) * e.out_L + l;
-  o[0] = __float2bfloat16(r0);
-  o[e.out_L] = __float2bfloat16(r1);
+  bf16* o = static_cast<bf16*>(e.out) + z * e.soz + static_cast<long long>(m) * e.som + n;
+  *reinterpret_cast<__nv_bfloat162*>(o) = __floats2bfloat162_rn(r0, r1);
 }
 
 // grid (ceil(M / 64), ceil(N / 64), batches or K chunks), 128 threads.
@@ -301,43 +259,309 @@ __device__ __forceinline__ float block_sum(float v, float* red) {
   return t;
 }
 
-// GroupNorm of one (sample, group) of x: element (c, l) of sample b at
-// x + b*sxb + c*sxc + l*sxl (NCHW: sxl = 1; token-major: sxc = 1).  Writes
-// T(f(((x - mean) * inv) * gamma + beta)) (f = SiLU or the identity, in f32)
-// token-major to out + b*sob + l*C + c, and (mean, inv) to stats when given.
+// GroupNorm of GPB adjacent groups of one sample of x: element (c, l) of
+// sample b at x + b*sxb + c*sxc + l*sxl (NCHW: sxc = L, sxl = 1; token-major:
+// sxc = 1, sxl = C).  Writes T(f(((x - mean) * inv) * gamma + beta)) (f = SiLU
+// or the identity, in f32) token-major to out + b*sob + l*C + c, (mean, inv)
+// of group g of sample b to stats[2 (b G + g)] when given, and with xt (NCHW
+// x only) x itself token-major at the same places of xt.
+//
+// Each group's statistics are the sums of a one-group block: thread t adds
+// the group's elements e = t, t + 256, ... (e = (c, l) = (e / L, e % L)
+// channel-major, (e % cg, e / cg) token-major) in that order, then the
+// butterfly and the warps' sums in order (block_sum), so their bits do not
+// depend on GPB.  GPB groups a block make a token's channels of the block
+// GPB cg * 2 >= 32 bytes wherever cg allows (cg 4: four groups): whole
+// sectors for the token-major reads and writes.  Where the block's values fit
+// in 48 KB (every shape of the configs) they are read once, every load in
+// flight, into shared memory, and the statistics and the output come from
+// there; otherwise NCHW input goes through shared memory in tiles of tokens,
+// read twice from device memory, loads eight ahead of the arithmetic.  Out
+// in pieces of up to 16 bytes.
+__device__ __forceinline__ void gn_copy(bf16* dst, const bf16* src, int vw) {
+  if (vw == 8) *reinterpret_cast<uint4*>(dst) = *reinterpret_cast<const uint4*>(src);
+  else if (vw == 4) *reinterpret_cast<uint2*>(dst) = *reinterpret_cast<const uint2*>(src);
+  else if (vw == 2) *reinterpret_cast<unsigned*>(dst) = *reinterpret_cast<const unsigned*>(src);
+  else *dst = *src;
+}
+
+constexpr int kGnTile = 4096;   // values of an apply tile: tokens x the block's channels
+constexpr int kGnSlab = 24000;  // values of a block kept whole in shared memory (48,000 bytes)
+
+template <int GPB>
 __global__ void __launch_bounds__(kRowThreads) gn_apply_kernel(
     const bf16* x, long long sxb, long long sxc, long long sxl, int C, int L, int G,
     const bf16* gamma, const bf16* beta, float eps, int silu, bf16* out, long long sob,
-    float* stats) {
+    float* stats, bf16* xt) {
   __shared__ float red[kRowThreads / 32];
-  const int b = blockIdx.x / G, grp = blockIdx.x - b * G, cg = C / G, n = cg * L;
-  const bf16* base = x + b * sxb + static_cast<long long>(grp) * cg * sxc;
+  __shared__ float mv[2][GPB];
+  const int per_sample = G / GPB;
+  const int b = blockIdx.x / per_sample, g0 = (blockIdx.x - b * per_sample) * GPB;
+  const int cg = C / G, n = cg * L, cw = GPB * cg;
   const bool channel_major = sxl == 1;
-  float s = 0.f, s2 = 0.f;
-  for (int e = threadIdx.x; e < n; e += kRowThreads) {
-    const int c = channel_major ? e / L : e % cg, l = channel_major ? e % L : e / cg;
-    const float v = bf(base[c * sxc + l * sxl]);
-    s += v;
-    s2 += v * v;
+  const bf16* base = x + b * sxb + static_cast<long long>(g0) * cg * sxc;   // the block's channel 0
+  float s[GPB], s2[GPB];
+#pragma unroll
+  for (int gi = 0; gi < GPB; ++gi) s[gi] = s2[gi] = 0.f;
+  auto add = [&](int gi, bf16 w) {
+    const float v = bf(w);
+    s[gi] += v;
+    s2[gi] += v * v;
+  };
+  constexpr int kAhead = GPB >= 8 ? 1 : 8 / GPB;   // loads of a group ahead of its sums
+  extern __shared__ __align__(16) bf16 slab[];
+  const bool whole = cw * L <= kGnSlab;
+  if (whole) {
+    // The block's values once into shared memory, every load in flight:
+    // channel-major as cw rows of L tokens (one contiguous run of x), token-major
+    // as L rows of cw channels.  The statistics then read them in the order above.
+    if (channel_major) {
+      const int total = cw * L;
+      if (L % 8 == 0) {
+        for (int i = threadIdx.x; i < total / 8; i += kRowThreads)
+          reinterpret_cast<uint4*>(slab)[i] = reinterpret_cast<const uint4*>(base)[i];
+      } else {
+        for (int i = threadIdx.x; i < total; i += kRowThreads) slab[i] = base[i];
+      }
+    } else {
+      const int vwl = (cw & 7) == 0 ? 8 : (cw & 3) == 0 ? 4 : (cw & 1) == 0 ? 2 : 1;
+      const int pl = cw / vwl;
+      for (int i = threadIdx.x; i < L * pl; i += kRowThreads) {
+        const int l = i / pl, j = (i - l * pl) * vwl;
+        gn_copy(slab + l * cw + j, base + static_cast<long long>(l) * sxl + j, vwl);
+      }
+    }
+    __syncthreads();
+    if (channel_major) {
+      for (int e = threadIdx.x; e < n; e += kRowThreads)
+#pragma unroll
+        for (int gi = 0; gi < GPB; ++gi) add(gi, slab[gi * n + e]);
+    } else if (kRowThreads % cg == 0) {
+      const int c = threadIdx.x % cg, step = kRowThreads / cg;
+      for (int l = threadIdx.x / cg; l < L; l += step)
+#pragma unroll
+        for (int gi = 0; gi < GPB; ++gi) add(gi, slab[l * cw + gi * cg + c]);
+    } else {
+      for (int e = threadIdx.x; e < n; e += kRowThreads)
+#pragma unroll
+        for (int gi = 0; gi < GPB; ++gi) add(gi, slab[(e / cg) * cw + gi * cg + e % cg]);
+    }
+  } else if (channel_major) {
+    int e = threadIdx.x;
+    for (; e + (kAhead - 1) * kRowThreads < n; e += kAhead * kRowThreads) {
+      bf16 w[GPB][kAhead];
+#pragma unroll
+      for (int gi = 0; gi < GPB; ++gi)
+#pragma unroll
+        for (int k = 0; k < kAhead; ++k) w[gi][k] = base[static_cast<long long>(gi) * n + e + k * kRowThreads];
+#pragma unroll
+      for (int gi = 0; gi < GPB; ++gi)
+#pragma unroll
+        for (int k = 0; k < kAhead; ++k) add(gi, w[gi][k]);
+    }
+    for (; e < n; e += kRowThreads)
+#pragma unroll
+      for (int gi = 0; gi < GPB; ++gi) add(gi, base[static_cast<long long>(gi) * n + e]);
+  } else if (kRowThreads % cg == 0) {
+    // a thread's channel is fixed: c = t % cg, tokens t / cg + k 256 / cg
+    const int c = threadIdx.x % cg, step = kRowThreads / cg;
+    const bf16* p = base + c;
+    int l = threadIdx.x / cg;
+    for (; l + (kAhead - 1) * step < L; l += kAhead * step) {
+      bf16 w[GPB][kAhead];
+#pragma unroll
+      for (int k = 0; k < kAhead; ++k)
+#pragma unroll
+        for (int gi = 0; gi < GPB; ++gi) w[gi][k] = p[static_cast<long long>(l + k * step) * sxl + gi * cg];
+#pragma unroll
+      for (int gi = 0; gi < GPB; ++gi)
+#pragma unroll
+        for (int k = 0; k < kAhead; ++k) add(gi, w[gi][k]);
+    }
+    for (; l < L; l += step)
+#pragma unroll
+      for (int gi = 0; gi < GPB; ++gi) add(gi, p[static_cast<long long>(l) * sxl + gi * cg]);
+  } else {
+    for (int e = threadIdx.x; e < n; e += kRowThreads)
+#pragma unroll
+      for (int gi = 0; gi < GPB; ++gi) add(gi, base[gi * cg + (e % cg) + (e / cg) * sxl]);
   }
   const float inv_n = 1.f / static_cast<float>(n);
-  s = block_sum(s, red);
-  s2 = block_sum(s2, red);
-  const float mean = __fmul_rn(s, inv_n);
-  const float var = __fsub_rn(__fmul_rn(s2, inv_n), __fmul_rn(mean, mean));
-  const float inv = 1.f / sqrtf(var + eps);
-  if (stats != nullptr && threadIdx.x == 0) {
-    stats[2 * blockIdx.x] = mean;
-    stats[2 * blockIdx.x + 1] = inv;
+  // every group's two sums as block_sum takes them (butterfly in each warp,
+  // then the warps' totals in order), through one exchange
+  __shared__ float part[2 * GPB][kRowThreads / 32];
+  {
+    const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+#pragma unroll
+    for (int gi = 0; gi < GPB; ++gi)
+#pragma unroll
+      for (int off = 16; off > 0; off >>= 1) {
+        s[gi] += __shfl_xor_sync(0xffffffffu, s[gi], off);
+        s2[gi] += __shfl_xor_sync(0xffffffffu, s2[gi], off);
+      }
+    if (lane == 0)
+#pragma unroll
+      for (int gi = 0; gi < GPB; ++gi) {
+        part[2 * gi][warp] = s[gi];
+        part[2 * gi + 1][warp] = s2[gi];
+      }
+    __syncthreads();
   }
-  for (int e = threadIdx.x; e < n; e += kRowThreads) {
-    const int c = channel_major ? e / L : e % cg, l = channel_major ? e % L : e / cg;
-    const int ch = grp * cg + c;
-    float t = __fmul_rn(__fsub_rn(bf(base[c * sxc + l * sxl]), mean), inv);
+#pragma unroll
+  for (int gi = 0; gi < GPB; ++gi) {
+    float t = 0.f, t2 = 0.f;
+    for (int i = 0; i < kRowThreads / 32; ++i) {
+      t += part[2 * gi][i];
+      t2 += part[2 * gi + 1][i];
+    }
+    if (threadIdx.x == 0) {
+      const float mean = __fmul_rn(t, inv_n);
+      const float var = __fsub_rn(__fmul_rn(t2, inv_n), __fmul_rn(mean, mean));
+      mv[0][gi] = mean;
+      mv[1][gi] = 1.f / sqrtf(var + eps);
+      if (stats != nullptr) {
+        stats[2 * (b * G + g0 + gi)] = mean;
+        stats[2 * (b * G + g0 + gi) + 1] = mv[1][gi];
+      }
+    }
+  }
+  __syncthreads();
+  auto apply = [&](bf16 v, int c) {   // c: the block's channel
+    const int gi = c / cg, ch = g0 * cg + c;
+    float t = __fmul_rn(__fsub_rn(bf(v), mv[0][gi]), mv[1][gi]);
     t = __fadd_rn(__fmul_rn(t, bf(gamma[ch])), bf(beta[ch]));
     if (silu) t = t / (1.f + expf(-t));
-    out[b * sob + static_cast<long long>(l) * C + ch] = __float2bfloat16(t);
+    return __float2bfloat16(t);
+  };
+  const int vw = (cw & 7) == 0 ? 8 : (cw & 3) == 0 ? 4 : (cw & 1) == 0 ? 2 : 1;
+  const int per = cw / vw;
+  const long long ob = b * sob + static_cast<long long>(g0) * cg;
+  if (whole) {
+    // each piece (token l, channels j .. j + vw - 1) from shared memory, out in
+    // one store (and x itself into xt)
+    for (int e = threadIdx.x; e < L * per; e += kRowThreads) {
+      const int l = e / per, j = (e - l * per) * vw;
+      __align__(16) bf16 v[8], w[8];
+#pragma unroll
+      for (int k = 0; k < 8; ++k)
+        if (k < vw) {
+          w[k] = channel_major ? slab[(j + k) * L + l] : slab[l * cw + j + k];
+          v[k] = apply(w[k], j + k);
+        }
+      const long long at = ob + static_cast<long long>(l) * C + j;
+      gn_copy(out + at, v, vw);
+      if (xt != nullptr) gn_copy(xt + at, w, vw);
+    }
+    return;
   }
+  bf16 (*tile)[kGnTile] = reinterpret_cast<bf16 (*)[kGnTile]>(slab);
+  if (channel_major) {
+    const int T = kGnTile / cw < L ? kGnTile / cw : L;
+    for (int l0 = 0; l0 < L; l0 += T) {
+      const int nt = L - l0 < T ? L - l0 : T;
+      // thread -> (channel, token) walking the tile's tokens, then channels;
+      // eight elements loaded ahead of the arithmetic
+      int c = threadIdx.x / nt, i = threadIdx.x - c * nt;
+      const int dc = kRowThreads / nt, di = kRowThreads - dc * nt;
+      while (c < cw) {
+        bf16 w[8];
+        int at[8];
+#pragma unroll
+        for (int k = 0; k < 8; ++k) {
+          at[k] = -1;
+          if (c < cw) {
+            w[k] = base[c * sxc + l0 + i];
+            at[k] = i * cw + c;
+            c += dc;
+            i += di;
+            if (i >= nt) {
+              i -= nt;
+              ++c;
+            }
+          }
+        }
+#pragma unroll
+        for (int k = 0; k < 8; ++k) {
+          if (at[k] < 0) break;
+          tile[0][at[k]] = apply(w[k], at[k] % cw);
+          if (xt != nullptr) tile[1][at[k]] = w[k];
+        }
+      }
+      __syncthreads();
+      for (int e = threadIdx.x; e < nt * per; e += kRowThreads) {
+        const int i2 = e / per, j = (e - i2 * per) * vw;
+        const long long at = ob + static_cast<long long>(l0 + i2) * C + j;
+        gn_copy(out + at, &tile[0][i2 * cw + j], vw);
+        if (xt != nullptr) gn_copy(xt + at, &tile[1][i2 * cw + j], vw);
+      }
+      __syncthreads();
+    }
+    return;
+  }
+  // token-major: a thread keeps one piece of vw of the block's channels (when
+  // per divides 256) and walks the tokens, four pieces loaded ahead
+  if (kRowThreads % per == 0) {
+    const int j = (threadIdx.x % per) * vw, lstep = kRowThreads / per;
+    for (int l = threadIdx.x / per; l < L; l += 4 * lstep) {
+      __align__(16) bf16 v[4][8];
+#pragma unroll
+      for (int k = 0; k < 4; ++k)
+        if (l + k * lstep < L)
+          gn_copy(v[k], base + static_cast<long long>(l + k * lstep) * sxl + j, vw);
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        if (l + k * lstep >= L) break;
+#pragma unroll
+        for (int q = 0; q < 8; ++q)
+          if (q < vw) v[k][q] = apply(v[k][q], j + q);
+        gn_copy(out + ob + static_cast<long long>(l + k * lstep) * C + j, v[k], vw);
+      }
+    }
+    return;
+  }
+  for (int e = threadIdx.x; e < L * per; e += kRowThreads) {
+    const int l = e / per, j = (e - l * per) * vw;
+    __align__(16) bf16 v[8];
+    gn_copy(v, base + static_cast<long long>(l) * sxl + j, vw);
+#pragma unroll
+    for (int q = 0; q < 8; ++q)
+      if (q < vw) v[q] = apply(v[q], j + q);
+    gn_copy(out + ob + static_cast<long long>(l) * C + j, v, vw);
+  }
+}
+
+// Groups a GroupNorm block takes: a power of two dividing G, as many as make
+// a token's channels of the block 16 values (32 bytes) where cg is small.
+inline int gn_groups_per_block(int C, int G) {
+  const int cg = C / G;
+  int gpb = 1;
+  while (2 * gpb * cg <= 16 && G % (2 * gpb) == 0) gpb *= 2;
+  return gpb;
+}
+
+// gn_apply_kernel over B samples and G groups (arguments as the kernel's).
+inline cudaError_t launch_gn_apply(const bf16* x, long long sxb, long long sxc, long long sxl,
+                                   int B, int C, int L, int G, const bf16* gamma,
+                                   const bf16* beta, float eps, int silu, bf16* out,
+                                   long long sob, float* stats, bf16* xt, cudaStream_t s) {
+  const int gpb = gn_groups_per_block(C, G);
+  const int blocks = B * (G / gpb), cw = gpb * (C / G);
+  const int smem = 2 * (cw * L <= kGnSlab ? cw * L : 2 * kGnTile);   // the block's values, or two tiles
+#define RDM_GN_CASE(N)                                                                      \
+  case N:                                                                                   \
+    gn_apply_kernel<N><<<blocks, kRowThreads, smem, s>>>(x, sxb, sxc, sxl, C, L, G, gamma, \
+                                                         beta, eps, silu, out, sob, stats, xt); \
+    break;
+  switch (gpb) {
+    RDM_GN_CASE(1)
+    RDM_GN_CASE(2)
+    RDM_GN_CASE(4)
+    RDM_GN_CASE(8)
+    RDM_GN_CASE(16)
+    default: return cudaErrorInvalidValue;
+  }
+#undef RDM_GN_CASE
+  return cudaGetLastError();
 }
 
 // GroupNorm's backward for one (sample, group), the forward's statistics

@@ -66,6 +66,7 @@ from typing import NamedTuple
 import torch
 
 from . import _build
+from .wg_gemm import GemmPlan, gemm_plan
 
 # the scalar body: float32 or bfloat16 at these widths and up to MAX_TOKENS
 SUPPORTED_CHANNELS = (64, 128)
@@ -244,21 +245,39 @@ def attn_body(C: int, L: int, dtype: torch.dtype) -> str:
 class TiledPlan(NamedTuple):
     """Launch plan of the tiled body (``fused_attn_block_tiled.cu``:
     ``rdm_attn_tiled_plan``), computed here the way the source does."""
-    fwd_launches: int       # GroupNorm, q/k/v product, attention, output product
-    bwd_launches: int       # the forward's first three, then twelve more kernels
-    fwd_smem_bytes: int     # the attention kernel: 64 query rows and every key row
+    fwd_launches: int       # GroupNorm, q/k/v product, attention, output product (+ split sums)
+    bwd_launches: int       # the forward's first three, then thirteen more kernels
+    fwd_smem_bytes: int     # the forward attention kernel: two q/k stages and two v stages
     bwd_smem_bytes: int     # the ds kernel: 64 rows of q and of do, every key row
-    query_tiles: int        # the attention kernels' grid: (query_tiles, B)
-    key_tiles: int          # keys in 16-rows the kernel is built for (4, 8 or 16)
+    fwd_query_tiles: int    # the forward attention kernel's grid: (fwd_query_tiles, B), 128 rows
+    fwd_key_tiles: int      # keys in 64-rows the forward kernel is built for (1, 2 or 4)
+    fwd_threads: int        # two consumer warpgroups and a producer warp
+    query_tiles: int        # the ds kernel's grid: (query_tiles, B), 64 rows
+    key_tiles: int          # keys in 16-rows the ds kernel is built for (4, 8 or 16)
     padded_tokens: int      # L rounded up to 16: rows of a sample in the workspace
     grad_chunk: int         # token rows of one split of the weight-gradient products
     grad_splits: int        # their number: float32 partials summed in this order
-    gemm_tiles: tuple       # (M, N) 64 x 64 tiles of each product: qkv, proj, do,
-                            # dq, dk, dv, dh (grid z: B), weights, proj weights (z: splits)
+    qkv: GemmPlan           # the forward's products on wg_gemm: B Lp rows x 3C
+    proj: GemmPlan          # and B Lp rows x C
+    gemm_tiles: tuple       # (M, N) 64 x 64 tiles of the backward's mma.sync products:
+                            # do, dq, dk, dv, dh (grid z: B), weights, proj weights (z: splits)
+
+    def flat(self) -> tuple:
+        """As the built library's plan: the first twelve fields, then the two products'."""
+        return (*self[:12], *self.qkv.flat(), *self.proj.flat())
 
 
+TILED_FWD_ROWS = 128
+TILED_FWD_THREADS = 288     # the forward attention kernel: two consumer warpgroups, a producer warp
 TILED_QUERY_ROWS = 64
 GEMM_TILE = 64
+
+
+def tiled_fwd_smem_bytes(key_tiles: int) -> int:
+    """The forward attention kernel's dynamic shared memory: two q/k stages
+    (64 channels of 128 queries and of 64 key_tiles keys), two v stages (64
+    channels of those keys), eight barriers, 1024 bytes of alignment."""
+    return 1024 + 2 * (TILED_FWD_ROWS * 128 + key_tiles * 8192) + 2 * key_tiles * 8192 + 64
 
 
 def tiled_plan(B: int, C: int, L: int) -> TiledPlan:
@@ -273,11 +292,17 @@ def tiled_plan(B: int, C: int, L: int) -> TiledPlan:
     splits = min(max(cdiv(rows, 512), 1), 64)
     chunk = cdiv(cdiv(rows, splits), 32) * 32
     tiles = lambda m, n: (cdiv(m, GEMM_TILE), cdiv(n, GEMM_TILE))
-    return TiledPlan(4, 16, (TILED_QUERY_ROWS + lp) * (C + 8) * 2,
-                     (2 * TILED_QUERY_ROWS + lp) * (C + 8) * 2, cdiv(L, TILED_QUERY_ROWS),
+    kt64 = cdiv(L, 64)
+    fwd_kt = 1 if kt64 <= 1 else 2 if kt64 <= 2 else 4
+    qkv, proj = gemm_plan(False, B, 0, rows, 3 * C, C), gemm_plan(False, B, 0, rows, C, C)
+    core = 3 + (qkv.splits > 1)    # GroupNorm, q/k/v (and its split sum), attention
+    return TiledPlan(core + 1 + (proj.splits > 1), core + 13, tiled_fwd_smem_bytes(fwd_kt),
+                     (2 * TILED_QUERY_ROWS + lp) * (C + 8) * 2, cdiv(L, TILED_FWD_ROWS), fwd_kt,
+                     TILED_FWD_THREADS, cdiv(L, TILED_QUERY_ROWS),
                      4 if kt <= 4 else 8 if kt <= 8 else 16, lp, chunk, cdiv(rows, chunk),
-                     (tiles(L, 3 * C), tiles(L, C), tiles(L, C), tiles(L, C), tiles(L, C),
-                      tiles(L, C), tiles(L, C), tiles(C + 1, 3 * C), tiles(C + 1, C)))
+                     qkv, proj,
+                     (tiles(L, C), tiles(L, C), tiles(L, C), tiles(L, C), tiles(L, C),
+                      tiles(C + 1, 3 * C), tiles(C + 1, C)))
 
 
 class BwdPlan(NamedTuple):
@@ -525,7 +550,7 @@ fused_attn_block_bwd.launches = 0
 def _tiled_library():
     return _build.library("fused_attn_block_tiled", "rdm_attn_tiled_fwd",
                           [ctypes.c_void_p] * 9 + [ctypes.c_int] * 4 + [ctypes.c_float] * 3
-                          + [ctypes.c_void_p],
+                          + [ctypes.c_void_p, ctypes.POINTER(ctypes.c_float)],
                           extra=[("rdm_attn_tiled_bwd",
                                   [ctypes.c_void_p] * 11 + [ctypes.c_int] * 4
                                   + [ctypes.c_float] * 4 + [ctypes.c_void_p], ctypes.c_int),
@@ -536,29 +561,33 @@ def _tiled_library():
 
 
 def built_tiled_plan(B: int, C: int, L: int, groups: int) -> tuple:
-    """The built library's plan (``rdm_attn_tiled_plan``, needs ``nvcc``):
-    the first nine fields of ``tiled_plan``."""
-    out = (ctypes.c_int * 9)()
+    """The built library's plan (``rdm_attn_tiled_plan``, needs ``nvcc``),
+    as ``TiledPlan.flat``."""
+    out = (ctypes.c_int * 40)()
     lib = _tiled_library()
     _build.raise_on(lib, lib.rdm_attn_tiled_plan(B, C, L, groups, out), "fused_attn_block_tiled plan")
     return tuple(out)
 
 
-def _tiled_args(name, x, raw, groups, bwd):
-    """Checks for the tiled body, and its parameters cast to bfloat16 in the
-    layouts the source reads: gamma, beta, [Wq | Wk | Wv]^T, [bq | bk | bv],
-    Wp^T, bp, and for the backward also [Wq | Wk | Wv] and Wp."""
+def _tiled_check(name, x, groups):
+    """Raise unless the tiled body takes ``x`` with ``groups``."""
     check_activations(name, x)
     B, C, H, W = x.shape
     if attn_body(C, H * W, x.dtype) != "tiled":
         raise ValueError(f"{name}: C={C}, L={H * W} in {x.dtype} is not a tiled shape")
     if C % groups != 0 or not 1 <= groups <= 32:
         raise ValueError(f"{name}: C={C} is not divisible by groups={groups} (at most 32)")
+
+
+def _tiled_bwd_args(name, x, raw, groups):
+    """Checks for the tiled backward, and its parameters cast to bfloat16 in
+    the layouts the source reads: gamma, beta, [Wq | Wk | Wv]^T, [bq | bk |
+    bv], [Wq | Wk | Wv] and Wp."""
+    _tiled_check(name, x, groups)
+    C = x.shape[1]
     gamma, beta, wq, bq, wk, bk, wv, bv, wp, bp = _cast_params(name, raw, C, x.dtype, x.device)
     wqkv = torch.cat([wq, wk, wv], 1)
-    args = [gamma, beta, wqkv.t().contiguous(), torch.cat([bq, bk, bv])]
-    args += [wqkv, wp] if bwd else [wp.t().contiguous(), bp]
-    return args
+    return [gamma, beta, wqkv.t().contiguous(), torch.cat([bq, bk, bv]), wqkv, wp]
 
 
 def fused_attn_block_tiled(x, gn_scale, gn_bias, wq, bq, wk, bk, wv, bv, wp, bp,
@@ -570,24 +599,92 @@ def fused_attn_block_tiled(x, gn_scale, gn_bias, wq, bq, wk, bk, wv, bv, wp, bp,
     raw = (gn_scale, gn_bias, wq, bq, wk, bk, wv, bv, wp, bp)
     if x.device.type == "cpu":
         return fused_attn_block_reference(x, *raw, groups=groups, skip_rescale=skip_rescale)
-    name = "fused_attn_block_tiled"
-    args = _tiled_args(name, x, raw, groups, bwd=False)
-    B, C, H, W = x.shape
-    L = H * W
-    out = torch.empty_like(x)
-    if B == 0:
-        return out
-    lib = _tiled_library()
-    ws = torch.empty(lib.rdm_attn_tiled_workspace(B, C, L, groups, 0), dtype=torch.uint8,
-                     device=x.device)
-    with torch.cuda.device(x.device):
-        err = lib.rdm_attn_tiled_fwd(
-            x.data_ptr(), out.data_ptr(), *(a.data_ptr() for a in args), ws.data_ptr(), B, C, L,
-            groups, GN_EPS, float(C) ** -0.5, round_to(_rescale(skip_rescale), x.dtype),
-            torch.cuda.current_stream(x.device).cuda_stream)
-    _build.raise_on(lib, err, name)
-    fused_attn_block_tiled.launches += 1
+    _tiled_check("fused_attn_block_tiled", x, groups)
+    out = _tiled_fwd_launcher(*raw, groups=groups, skip_rescale=skip_rescale)(x)
+    if x.shape[0] > 0:
+        fused_attn_block_tiled.launches += 1
     return out
+
+
+# the parts of the tiled forward that a launcher's launch_ms times, in order
+TILED_FWD_PARTS = ("groupnorm", "qkv", "attention", "output")
+
+
+def _tiled_fwd_launcher(gn_scale, gn_bias, wq, bq, wk, bk, wv, bv, wp, bp, *, groups: int,
+                        skip_rescale: bool = True):
+    """The tiled forward with its parameters prepared for CUDA tensors (cast
+    to bfloat16, [Wq | Wk | Wv]^T, [bq | bk | bv], Wp^T): returns
+    ``launch(x, launch_ms=None)`` for bfloat16 NCHW ``x`` of this width;
+    ``launch_ms``, a ctypes array of ``len(TILED_FWD_PARTS)`` floats, receives
+    each part's ms (CUDA events between the launches; the call then waits for
+    them).  ``fused_attn_block_tiled`` builds one each call and counts the
+    launch; the timing tools keep one to time the kernels without the
+    per-call preparation."""
+    name = "fused_attn_block_tiled"
+    raw = (gn_scale, gn_bias, wq, bq, wk, bk, wv, bv, wp, bp)
+    C, device, bf = wq.shape[0], wq.device, torch.bfloat16
+    if device.type != "cuda":
+        raise ValueError(f"{name}: unsupported device {device}")
+    if C % groups != 0 or not 1 <= groups <= 32:
+        raise ValueError(f"{name}: C={C} is not divisible by groups={groups} (at most 32)")
+    for p, shape in zip(raw, _param_shapes(C)):
+        if p.device != device or p.numel() != math.prod(shape):
+            raise ValueError(f"{name}: parameter on another device or "
+                             f"of the wrong size ({tuple(p.shape)} vs {shape})")
+    args = tiled_fwd_params(raw)
+    rescale = round_to(_rescale(skip_rescale), bf)
+    lib = _tiled_library()
+
+    def launch(x, launch_ms=None):
+        check_activations(name, x)
+        B, Cx, H, W = x.shape
+        L = H * W
+        if Cx != C or x.device != device or attn_body(C, L, x.dtype) != "tiled":
+            raise ValueError(f"{name}: x {tuple(x.shape)} in {x.dtype} on {x.device} is not "
+                             f"a tiled shape of width {C} on {device}")
+        out = torch.empty_like(x)
+        if B == 0:
+            return out
+        ws = torch.empty(lib.rdm_attn_tiled_workspace(B, C, L, groups, 0), dtype=torch.uint8,
+                         device=device)
+        with torch.cuda.device(device):
+            err = lib.rdm_attn_tiled_fwd(
+                x.data_ptr(), out.data_ptr(), *(a.data_ptr() for a in args), ws.data_ptr(), B, C,
+                L, groups, GN_EPS, float(C) ** -0.5, rescale,
+                torch.cuda.current_stream(device).cuda_stream, launch_ms)
+        _build.raise_on(lib, err, name)
+        return out
+
+    return launch
+
+
+def tiled_fwd_params(raw) -> list:
+    """The tiled forward's parameters as its source reads them, in bfloat16:
+    gamma, beta, [Wq | Wk | Wv]^T (3C, C), [bq | bk | bv], Wp^T, bp.  Few
+    launches: the vectors take one cast, each matrix one copy that casts and
+    re-lays it."""
+    bf, C, device = torch.bfloat16, raw[0].numel(), raw[0].device
+    gamma, beta, bqkv, bp = torch.cat([raw[i].reshape(-1) for i in (0, 1, 3, 5, 7, 9)]).to(
+        bf).split([C, C, 3 * C, C])
+    wqkv_t = torch.empty((3, C, C), dtype=bf, device=device)
+    wqkv_t.copy_(torch.stack([raw[i].reshape(C, C) for i in (2, 4, 6)]).transpose(1, 2))
+    wp_t = torch.empty((C, C), dtype=bf, device=device).copy_(raw[8].reshape(C, C).t())
+    return [gamma, beta, wqkv_t.view(3 * C, C), bqkv, wp_t, bp]
+
+
+def tiled_attn_launch_ms(x, gn_scale, gn_bias, wq, bq, wk, bk, wv, bv, wp, bp,
+                         *, groups: int, skip_rescale: bool = True, launcher=None) -> dict:
+    """One call of the tiled forward on the card with each of its parts
+    (``TILED_FWD_PARTS``; a split-K sum counts with its product) timed by
+    CUDA events between the launches: ms by part.  Not counted in
+    ``fused_attn_block_tiled.launches``: a measurement, not the model's
+    path.  ``launcher``: a ``_tiled_fwd_launcher`` of these parameters to
+    reuse."""
+    raw = (gn_scale, gn_bias, wq, bq, wk, bk, wv, bv, wp, bp)
+    launcher = launcher or _tiled_fwd_launcher(*raw, groups=groups, skip_rescale=skip_rescale)
+    ms = (ctypes.c_float * len(TILED_FWD_PARTS))()
+    launcher(x, ms)
+    return dict(zip(TILED_FWD_PARTS, ms))
 
 
 fused_attn_block_tiled.launches = 0
@@ -605,7 +702,7 @@ def fused_attn_block_bwd_tiled(x, g, gn_scale, gn_bias, wq, bq, wk, bk, wv, bv, 
         return fused_attn_block_bwd_reference(x, g, *raw, groups=groups,
                                               skip_rescale=skip_rescale)
     name = "fused_attn_block_bwd_tiled"
-    args = _tiled_args(name, x, raw, groups, bwd=True)
+    args = _tiled_bwd_args(name, x, raw, groups)
     if g.shape != x.shape or g.device != x.device:
         raise ValueError(f"{name}: g of shape {tuple(g.shape)} on {g.device} "
                          f"does not match x {tuple(x.shape)} on {x.device}")

@@ -60,6 +60,7 @@ import torch.nn.functional as F
 
 from . import _build
 from .attention import GN_EPS, _DTYPE_CODES, _acc_dtype, _rescale, check_activations, round_to
+from .wg_gemm import NO_GEMM, WG_THREADS, GemmPlan, gemm_plan
 
 # (H, C_out) the flagship's kernel takes, with H = W; C_in is any of KERNEL_C_IN.
 KERNEL_SHAPES = ((9, 64), (4, 128), (2, 128))
@@ -96,23 +97,18 @@ def resblock_body(H: int, W: int, c_in: int, c_out: int, dtype: torch.dtype) -> 
 class TiledResblockPlan(NamedTuple):
     """Launches of the tiled body at (B, H, C_in, C_out), as
     ``fused_resblock_tiled.cu``'s ``rdm_resblock_tiled_plan`` gives them."""
-    launches: int       # GroupNorm, conv0, GroupNorm, [NIN], conv1
-    conv0_grid: tuple   # (M tiles, N tiles, 1): M = B H W token rows, N = C_out
-    nin_grid: tuple     # (L tiles, N tiles, B), (0, 0, 0) without a NIN
-    conv1_grid: tuple
-    gn0_blocks: int     # one block a (sample, group)
+    launches: int       # GroupNorm, conv0, GroupNorm, [NIN], conv1, and a split-K sum each split
+    conv0: GemmPlan     # M = B H W token rows, N = C_out, K = 9 C_in
+    nin: GemmPlan       # M = B H W, K = C_in; all zeros without a NIN
+    conv1: GemmPlan
+    gn0_blocks: int     # one block a few adjacent groups of a sample (gn_groups_per_block)
     gn1_blocks: int
     gemm_threads: int
     gn_threads: int
-    gemm_smem_bytes: int  # static: one 64 x 32 stage of A and of B, rows padded to 40
 
     def flat(self) -> tuple:
-        return (self.launches, *self.conv0_grid, *self.nin_grid, *self.conv1_grid,
-                self.gn0_blocks, self.gn1_blocks, self.gemm_threads, self.gn_threads,
-                self.gemm_smem_bytes)
-
-
-GEMM_TILE = 64
+        return (self.launches, *self.conv0.flat(), *self.nin.flat(), *self.conv1.flat(),
+                self.gn0_blocks, self.gn1_blocks, self.gemm_threads, self.gn_threads)
 
 
 def tiled_resblock_plan(B: int, H: int, c_in: int, c_out: int, groups0: int,
@@ -122,12 +118,24 @@ def tiled_resblock_plan(B: int, H: int, c_in: int, c_out: int, groups0: int,
             and _groups_ok(c_in, groups0) and _groups_ok(c_out, groups1)):
         raise ValueError(f"fused_resblock_tiled: no plan for B={B}, H={H}, C_in={c_in}, "
                          f"C_out={c_out}, groups {groups0}, {groups1}")
-    t = lambda n: -(-n // GEMM_TILE)
-    nin = c_in != c_out
-    return TiledResblockPlan(5 if nin else 4, (t(B * H * H), t(c_out), 1),
-                             (t(H * H), t(c_out), B) if nin else (0, 0, 0),
-                             (t(B * H * H), t(c_out), 1), B * groups0, B * groups1, 128, 256,
-                             2 * GEMM_TILE * 40 * 2)
+    M = B * H * H
+    conv0 = gemm_plan(True, B, H, M, c_out, c_in)
+    nin = gemm_plan(False, B, H, M, c_out, c_in) if c_in != c_out else NO_GEMM
+    conv1 = gemm_plan(True, B, H, M, c_out, c_out)
+    launches = 2 + sum(1 + (p.splits > 1) for p in (conv0, nin, conv1) if p.splits)
+    return TiledResblockPlan(launches, conv0, nin, conv1,
+                             B * groups0 // gn_groups_per_block(c_in, groups0),
+                             B * groups1 // gn_groups_per_block(c_out, groups1), WG_THREADS, 256)
+
+
+def gn_groups_per_block(C: int, groups: int) -> int:
+    """Groups a block of the tiled bodies' GroupNorm kernel takes
+    (``tiled_gemm.cuh``): a power of two dividing ``groups``, as many as make
+    a token's channels of the block 16 values where a group is narrower."""
+    cg, gpb = C // groups, 1
+    while 2 * gpb * cg <= 16 and groups % (2 * gpb) == 0:
+        gpb *= 2
+    return gpb
 
 
 def _bias(b):
@@ -427,7 +435,9 @@ fused_resblock.launches = 0
 
 
 _TILED_ARGTYPES = ([ctypes.c_void_p] * 14 + [ctypes.c_int] * 6 + [ctypes.c_float] * 2
-                   + [ctypes.c_void_p])
+                   + [ctypes.c_void_p, ctypes.POINTER(ctypes.c_float)])
+# the parts of the tiled body that launch_ms times, in order
+TILED_PARTS = ("groupnorm0", "conv0", "groupnorm1", "nin", "conv1")
 
 
 def _tiled_library():
@@ -441,7 +451,7 @@ def _tiled_library():
 def built_tiled_resblock_plan(B: int, H: int, c_in: int, c_out: int, groups0: int,
                               groups1: int) -> tuple:
     """The built library's plan (needs ``nvcc``), as ``TiledResblockPlan.flat``."""
-    out = (ctypes.c_int * 15)()
+    out = (ctypes.c_int * 47)()
     lib = _tiled_library()
     _build.raise_on(lib, lib.rdm_resblock_tiled_plan(B, H, c_in, c_out, groups0, groups1, out),
                     "fused_resblock_tiled plan")
@@ -453,50 +463,115 @@ def fused_resblock_tiled(x, tembv, gn0_w, gn0_b, conv0_w, conv0_b, gn1_w, gn1_b,
                          groups1: int, skip_rescale: bool = True):
     """The fused block's tiled body (``csrc/fused_resblock_tiled.cu``):
     bfloat16 NCHW ``x`` at a shape ``resblock_body`` gives ``"tiled"``.  CPU tensors take the
-    plain version; CUDA tensors launch the kernels or raise.  The weights go
-    in as (C_out, 9 C) matrices with column tap * C + c (tap (dy + 1) * 3 +
-    (dx + 1)) and the NIN as Wn^T."""
+    plain version; CUDA tensors launch the kernels or raise."""
     raw = (gn0_w, gn0_b, conv0_w, conv0_b, gn1_w, gn1_b, conv1_w, conv1_b, nin_w, nin_b)
     kw = dict(groups0=groups0, groups1=groups1, skip_rescale=skip_rescale)
     if x.device.type == "cpu":
         return fused_resblock_reference(x, tembv, *raw, **kw)
+    check_activations("fused_resblock_tiled", x)
+    if x.dtype != torch.bfloat16 or x.shape[2] != x.shape[3]:
+        raise ValueError(f"fused_resblock_tiled: unsupported {x.dtype} x of shape "
+                         f"{tuple(x.shape)}; the tiled body takes bfloat16 with H = W")
+    out = _tiled_launcher(*raw, H=x.shape[2], **kw)(x, tembv)
+    if x.shape[0] > 0:
+        fused_resblock_tiled.launches += 1
+    return out
+
+
+def _tiled_launcher(gn0_w, gn0_b, conv0_w, conv0_b, gn1_w, gn1_b, conv1_w, conv1_b,
+                    nin_w=None, nin_b=None, *, H: int, groups0: int, groups1: int,
+                    skip_rescale: bool = True):
+    """The tiled body with its parameters prepared for CUDA tensors (cast to
+    bfloat16; the convolution weights as (C_out, 9 C) matrices with column
+    tap * C + c, tap (dy + 1) * 3 + (dx + 1); the NIN as Wn^T): returns
+    ``launch(x, tembv, launch_ms=None)``, which checks bfloat16 NCHW ``x`` and
+    ``tembv`` (B, C_out) and launches the kernels; ``launch_ms``, a ctypes
+    array of ``len(TILED_PARTS)`` floats, receives each part's ms (CUDA events
+    between the launches; the call then waits for them).
+    ``fused_resblock_tiled`` builds one each call and counts the launch; the
+    timing tools keep one to time the kernels without the per-call
+    preparation."""
     name = "fused_resblock_tiled"
-    check_activations(name, x)
-    B, c_in, H, W = x.shape
-    c_out = conv0_w.shape[0]
-    if not _is_tiled(H, W, c_in, c_out, x.dtype):
-        raise ValueError(f"{name}: unsupported {x.dtype} x of shape {tuple(x.shape)} -> "
-                         f"C_out={c_out}; the tiled body takes bfloat16, H = W <= "
-                         f"{TILED_MAX_H}, widths multiples of 32 up to {TILED_MAX_C}")
-    _check_param_shapes(raw, c_in, c_out, x.device, name)
+    raw = (gn0_w, gn0_b, conv0_w, conv0_b, gn1_w, gn1_b, conv1_w, conv1_b, nin_w, nin_b)
+    device, c_in, c_out = conv0_w.device, conv0_w.shape[1], conv0_w.shape[0]
+    if device.type != "cuda":
+        raise ValueError(f"{name}: unsupported device {device}")
+    if not _is_tiled(H, H, c_in, c_out, torch.bfloat16):
+        raise ValueError(f"{name}: unsupported H={H}, C_in={c_in} -> C_out={c_out}; the tiled "
+                         f"body takes bfloat16, H = W <= {TILED_MAX_H}, widths multiples of 32 "
+                         f"up to {TILED_MAX_C}")
+    _check_param_shapes(raw, c_in, c_out, device, name)
     if not (_groups_ok(c_in, groups0) and _groups_ok(c_out, groups1)):
         raise ValueError(f"{name}: groups {groups0}, {groups1} do not divide "
                          f"C_in={c_in}, C_out={c_out} or exceed {MAX_GROUPS}")
-    if tembv.shape != (B, c_out) or tembv.device != x.device:
-        raise ValueError(f"{name}: tembv {tuple(tembv.shape)} on {tembv.device} does not fit "
-                         f"({B}, {c_out}) on {x.device}")
     bf = torch.bfloat16
-    cast = [None if p is None else p.to(bf) for p in raw]
-    cast[2], cast[6] = (w.permute(0, 2, 3, 1).reshape(c_out, -1) for w in (cast[2], cast[6]))
-    if cast[8] is not None:
-        cast[8] = cast[8].t()
-    args = [None if p is None else p.contiguous() for p in cast]
-    tembv = tembv.to(bf).contiguous()
-    out = torch.empty((B, c_out, H, W), dtype=bf, device=x.device)
-    if B == 0:
-        return out
+    args = tiled_params(raw)
+    rescale = round_to(_rescale(skip_rescale), bf)
     lib = _tiled_library()
-    ws = torch.empty(lib.rdm_resblock_tiled_workspace(B, H, c_in, c_out), dtype=torch.uint8,
-                     device=x.device)
-    with torch.cuda.device(x.device):
-        err = lib.rdm_resblock_tiled(
-            x.data_ptr(), tembv.data_ptr(), out.data_ptr(),
-            *(None if p is None else p.data_ptr() for p in args), ws.data_ptr(), B, H, c_in,
-            c_out, groups0, groups1, GN_EPS, round_to(_rescale(skip_rescale), bf),
-            torch.cuda.current_stream(x.device).cuda_stream)
-    _build.raise_on(lib, err, name)
-    fused_resblock_tiled.launches += 1
-    return out
+
+    def launch(x, tembv, launch_ms=None):
+        check_activations(name, x)
+        B = x.shape[0]
+        if x.shape[1:] != (c_in, H, H) or x.dtype != bf or x.device != device:
+            raise ValueError(f"{name}: unsupported {x.dtype} x of shape {tuple(x.shape)} on "
+                             f"{x.device}; this launcher takes bfloat16 ({c_in}, {H}, {H}) "
+                             f"on {device}")
+        if tembv.shape != (B, c_out) or tembv.device != device:
+            raise ValueError(f"{name}: tembv {tuple(tembv.shape)} on {tembv.device} does not "
+                             f"fit ({B}, {c_out}) on {device}")
+        tv = tembv.to(bf).contiguous()
+        out = torch.empty((B, c_out, H, H), dtype=bf, device=device)
+        if B == 0:
+            return out
+        ws = torch.empty(lib.rdm_resblock_tiled_workspace(B, H, c_in, c_out),
+                         dtype=torch.uint8, device=device)
+        with torch.cuda.device(device):
+            err = lib.rdm_resblock_tiled(
+                x.data_ptr(), tv.data_ptr(), out.data_ptr(),
+                *(None if p is None else p.data_ptr() for p in args), ws.data_ptr(), B, H, c_in,
+                c_out, groups0, groups1, GN_EPS, rescale,
+                torch.cuda.current_stream(device).cuda_stream, launch_ms)
+        _build.raise_on(lib, err, name)
+        return out
+
+    return launch
+
+
+def tiled_params(raw) -> list:
+    """The tiled body's ten parameters as its source reads them, in
+    bfloat16: the vectors, each convolution weight as a (C_out, 9 C) matrix
+    with column tap * C + c (tap (dy + 1) * 3 + (dx + 1)), the NIN as Wn^T
+    (None without one).  Few launches: the vectors take one cast, each
+    matrix one copy that casts and re-lays it."""
+    bf, c_out = torch.bfloat16, raw[2].shape[0]
+    vec = [i for i in (0, 1, 3, 4, 5, 7, 9) if raw[i] is not None]
+    flat = torch.cat([raw[i].reshape(-1) for i in vec]).to(bf).split([raw[i].numel() for i in vec])
+    args = [None] * 10
+    for i, v in zip(vec, flat):
+        args[i] = v
+    for i in (2, 6):
+        w = raw[i]
+        args[i] = torch.empty((c_out, 3, 3, w.shape[1]), dtype=bf, device=w.device).copy_(
+            w.permute(0, 2, 3, 1)).view(c_out, -1)
+    if raw[8] is not None:
+        args[8] = torch.empty((c_out, raw[8].shape[0]), dtype=bf, device=raw[8].device).copy_(
+            raw[8].t())
+    return args
+
+
+def tiled_resblock_launch_ms(x, tembv, *raw, groups0: int, groups1: int,
+                             skip_rescale: bool = True, launcher=None) -> dict:
+    """One call of the tiled body on the card with each of its parts
+    (``TILED_PARTS``; a split-K sum counts with its product) timed by CUDA
+    events between the launches: ms by part, the NIN's 0 without one.  Not
+    counted in ``fused_resblock_tiled.launches``: a measurement, not the
+    model's path.  ``launcher``: a ``_tiled_launcher`` of these parameters
+    to reuse."""
+    launcher = launcher or _tiled_launcher(*raw, H=x.shape[2], groups0=groups0,
+                                           groups1=groups1, skip_rescale=skip_rescale)
+    ms = (ctypes.c_float * len(TILED_PARTS))()
+    launcher(x, tembv, ms)
+    return dict(zip(TILED_PARTS, ms))
 
 
 fused_resblock_tiled.launches = 0

@@ -77,30 +77,70 @@ def test_attention_envelope_excludes(C, L, dtype):
         attn_ops.attn_body(C, L, dtype)
 
 
+def check_gemm_plan(plan, M, N, K, conv_H=None):
+    """A product's plan on the Hopper GEMM: its tiles cover M and N, its
+    splits cover K's stages once, on tap and 64-channel-chunk boundaries,
+    its shared memory fits a block, and its A box is a legal TMA box."""
+    cdiv = lambda a, b: -(-a // b)
+    assert plan.bm == 128 and plan.bn in (64, 128) and (plan.bn == 128) == (N >= 128)
+    assert plan.tiles_n * plan.bn >= N > (plan.tiles_n - 1) * plan.bn
+    taps = 9 if conv_H else 1
+    assert K % taps == 0 and plan.steps == taps * cdiv(K // taps, 64)
+    assert plan.chunk >= 1 and (plan.splits - 1) * plan.chunk < plan.steps <= plan.splits * plan.chunk
+    assert plan.splits == 1 or 2 * plan.tiles_m * plan.tiles_n < 132
+    assert plan.blocks == min(plan.tiles_m * plan.tiles_n * plan.splits, 132)
+    assert plan.smem_bytes <= _build.SMEM_LIMIT and plan.stages >= 3
+    box = plan.box
+    assert box[0] * 2 == 128 and all(1 <= d <= 256 for d in box)   # one 128-byte swizzle row
+    if conv_H:
+        H = conv_H
+        B = M // (H * H)
+        _, W, nh, nb = box
+        assert W == H and nh * W * nb <= 128 and (nb == 1 or nh == H)
+        # the tiles are nh whole image rows of one sample, or nb whole samples
+        assert plan.tiles_m == cdiv(B, nb) * cdiv(H, nh)
+        assert nb * H * H >= min(128, H * H) or nh * W >= 128 - W
+    else:
+        assert box[1:] == (128, 1, 1) and plan.tiles_m == cdiv(M, 128)
+    # every stride of the tensor maps is a multiple of 16 bytes
+    assert (K // taps) * 2 % 16 == 0
+
+
 @pytest.mark.parametrize("B", [64, 3, 1])
 @pytest.mark.parametrize("which", sorted(ATTN_SHAPES))
 def test_attention_tiled_plan(which, B):
     """The tiled attention's plan at the configs' shapes: shared memory
-    within a block's 227 KB, every query row in a tile, the keys padded to
-    16 and inside the instantiated key tiles, the weight gradients' splits
-    covering every token row once, and the products' grids."""
+    within a block's 227 KB, every query row in a tile of the forward (128)
+    and of the ds kernel (64), the keys padded to 16 and inside the key
+    tiles each kernel is built for, the weight gradients' splits covering
+    every token row once, the two forward products on the Hopper GEMM over
+    all B Lp rows, and the backward's 64 x 64 grids."""
     C, L, _ = ATTN_SHAPES[which]
     plan = attn_ops.tiled_plan(B, C, L)
     assert max(plan.fwd_smem_bytes, plan.bwd_smem_bytes) <= _build.SMEM_LIMIT
+    assert plan.fwd_query_tiles * attn_ops.TILED_FWD_ROWS >= L
     assert plan.query_tiles * attn_ops.TILED_QUERY_ROWS >= L
     assert plan.padded_tokens % 16 == 0 and L <= plan.padded_tokens < L + 16
-    assert plan.padded_tokens <= 16 * plan.key_tiles
+    assert plan.padded_tokens <= 16 * plan.key_tiles and L <= 64 * plan.fwd_key_tiles
+    assert plan.fwd_threads == 288
     rows = B * plan.padded_tokens
     assert plan.grad_chunk % 32 == 0 and plan.grad_splits <= 64
     assert (plan.grad_splits - 1) * plan.grad_chunk < rows <= plan.grad_splits * plan.grad_chunk
+    check_gemm_plan(plan.qkv, rows, 3 * C, C)
+    check_gemm_plan(plan.proj, rows, C, C)
+    splits = (plan.qkv.splits > 1) + (plan.proj.splits > 1)
+    assert plan.fwd_launches == 4 + splits and plan.bwd_launches == 16 + (plan.qkv.splits > 1)
     t = lambda n: -(-n // 64)
-    assert plan.gemm_tiles[0] == (t(L), t(3 * C)) and plan.gemm_tiles[7] == (t(C + 1), t(3 * C))
-    assert all(g == (t(L), t(C)) for g in plan.gemm_tiles[1:7])
+    assert plan.gemm_tiles[5] == (t(C + 1), t(3 * C)) and plan.gemm_tiles[6] == (t(C + 1), t(C))
+    assert all(g == (t(L), t(C)) for g in plan.gemm_tiles[:5])
+    assert len(plan.flat()) == 40
     if which == "ddpmpp":
-        assert (plan.fwd_smem_bytes, plan.bwd_smem_bytes) == (168960, 202752)
-        assert (plan.query_tiles, plan.key_tiles, plan.padded_tokens) == (4, 16, 256)
+        assert (plan.fwd_smem_bytes, plan.bwd_smem_bytes) == (164928, 202752)
+        assert (plan.fwd_query_tiles, plan.fwd_key_tiles, plan.query_tiles, plan.key_tiles,
+                plan.padded_tokens) == (2, 4, 4, 16, 256)
     else:
-        assert (plan.query_tiles, plan.key_tiles, plan.padded_tokens) == (2, 8, 96)
+        assert (plan.fwd_query_tiles, plan.fwd_key_tiles, plan.query_tiles, plan.key_tiles,
+                plan.padded_tokens) == (1, 2, 2, 8, 96)
 
 
 def test_resblock_body_of_each_shape():
@@ -116,21 +156,82 @@ def test_resblock_body_of_each_shape():
         assert rb_ops.route(H, H, ci, co, torch.bfloat16) is rb_ops.fused_resblock_reference
 
 
-@pytest.mark.parametrize("B", [64, 3])
+@pytest.mark.parametrize("B", [64, 3, 1])
 @pytest.mark.parametrize("H,ci,co", [*DDPMPP_RESBLOCKS, *NF32_RESBLOCKS])
 def test_resblock_tiled_plan(H, ci, co, B):
-    """Grids of the tiled resblock: each convolution covers B H W token rows
-    and C_out columns in 64 x 64 tiles, the NIN (where the width changes)
-    a sample's tokens per z; one GroupNorm block a (sample, group); the
-    GEMM's shared memory (one stage of A and of B) is static, 10 KB."""
+    """The tiled resblock's products on the Hopper GEMM: each convolution's
+    tiles cover B H W token rows and C_out columns (whole image rows of a
+    sample, or whole samples, in a 4-D TMA box), its split-K chunks cover K
+    = 9 C_in once on tap and channel-chunk boundaries, the NIN (where the
+    width changes) a plain product of K = C_in; shared memory within a
+    block's; GroupNorm blocks of whole groups of a sample, 16 channels a
+    block where the groups are narrower; at B 64 the tiles or their splits
+    fill at least 96 of the 132 SMs."""
     plan = rb_ops.tiled_resblock_plan(B, H, ci, co, groups(ci), groups(co))
-    t = lambda n: -(-n // 64)
-    assert plan.launches == (5 if ci != co else 4)
-    assert plan.conv0_grid == plan.conv1_grid == (t(B * H * H), t(co), 1)
-    assert plan.nin_grid == ((t(H * H), t(co), B) if ci != co else (0, 0, 0))
-    assert (plan.gn0_blocks, plan.gn1_blocks) == (B * groups(ci), B * groups(co))
-    assert plan.conv0_grid[0] * 64 >= B * H * H > (plan.conv0_grid[0] - 1) * 64
-    assert plan.gemm_smem_bytes == 10240 <= 48 * 1024 <= _build.SMEM_LIMIT
+    M = B * H * H
+    check_gemm_plan(plan.conv0, M, co, 9 * ci, conv_H=H)
+    check_gemm_plan(plan.conv1, M, co, 9 * co, conv_H=H)
+    if ci != co:
+        check_gemm_plan(plan.nin, M, co, ci)
+    else:
+        assert plan.nin.flat() == (0,) * 14
+    products = [p for p in (plan.conv0, plan.nin, plan.conv1) if p.splits]
+    assert plan.launches == 2 + sum(1 + (p.splits > 1) for p in products)
+    for blocks, c in ((plan.gn0_blocks, ci), (plan.gn1_blocks, co)):
+        # whole groups a block, a power of two of them, 16 channels where they are narrower
+        gpb = B * groups(c) // blocks
+        assert blocks * gpb == B * groups(c) and groups(c) % gpb == 0 and gpb & (gpb - 1) == 0
+        cg = c // groups(c)
+        assert gpb * cg <= max(16, cg)
+        assert 2 * gpb * cg > 16 or groups(c) % (2 * gpb) != 0    # no more would do
+    assert (plan.gemm_threads, plan.gn_threads) == (416, 256)
+    assert len(plan.flat()) == 47
+    if B == 64 and (H, ci, co) in DDPMPP_RESBLOCKS:
+        for p in (plan.conv0, plan.conv1):
+            assert p.tiles_m * p.tiles_n * p.splits >= 96, p
+
+
+@pytest.mark.parametrize("ci,co", [(128, 256), (96, 32), (64, 64)])
+def test_tiled_resblock_params_layout(ci, co):
+    """The tiled resblock's parameters as its source reads them: bfloat16,
+    each convolution weight (C_out, 9 C) with column tap * C + c, the NIN as
+    Wn^T, the vectors unchanged."""
+    g = torch.Generator().manual_seed(ci + co)
+    shapes = [(ci,), (ci,), (co, ci, 3, 3), (co,), (co,), (co,), (co, co, 3, 3), (co,)]
+    shapes += [(ci, co), (co,)] if ci != co else []
+    raw = [torch.randn(s, generator=g) for s in shapes] + ([None, None] if ci == co else [])
+    args = rb_ops.tiled_params(raw)
+    bf = torch.bfloat16
+    for i in (0, 1, 3, 4, 5, 7, 9):
+        if raw[i] is not None:
+            assert args[i].dtype == bf and torch.equal(args[i], raw[i].to(bf))
+    for i in (2, 6):
+        w = raw[i]
+        for dy in range(3):
+            for dx in range(3):
+                tap = dy * 3 + dx
+                c = w.shape[1]
+                assert torch.equal(args[i][:, tap * c:(tap + 1) * c], w[:, :, dy, dx].to(bf))
+    assert (args[8] is None) == (ci == co)
+    if ci != co:
+        assert torch.equal(args[8], raw[8].t().to(bf)) and args[8].is_contiguous()
+
+
+@pytest.mark.parametrize("C", [256, 32])
+def test_tiled_attention_params_layout(C):
+    """The tiled forward's parameters as its source reads them: gamma, beta,
+    [Wq | Wk | Wv]^T, [bq | bk | bv], Wp^T, bp in bfloat16."""
+    g = torch.Generator().manual_seed(C)
+    raw = [torch.randn(C, generator=g), torch.randn(C, generator=g)]
+    for _ in range(4):
+        raw += [torch.randn(C, C, generator=g), torch.randn(C, generator=g)]
+    gamma, beta, wqkv_t, bqkv, wp_t, bp = attn_ops.tiled_fwd_params(raw)
+    bf = torch.bfloat16
+    assert torch.equal(gamma, raw[0].to(bf)) and torch.equal(beta, raw[1].to(bf))
+    assert torch.equal(wqkv_t, torch.cat([raw[2], raw[4], raw[6]], 1).t().to(bf))
+    assert torch.equal(bqkv, torch.cat([raw[3], raw[5], raw[7]]).to(bf))
+    assert torch.equal(wp_t, raw[8].t().to(bf)) and torch.equal(bp, raw[9].to(bf))
+    assert all(a.is_contiguous() for a in (wqkv_t, wp_t))
 
 
 def test_ddpmpp_routes_every_block_to_the_kernels(caplog):
@@ -232,7 +333,8 @@ def test_tiled_attention_bwd_matches_plain(cuda_device, B, C, L, G):
 
 
 RB_CASES = [(8, H, ci, co) for H, ci, co in DDPMPP_RESBLOCKS] + \
-           [(64, H, ci, co) for H, ci, co in NF32_RESBLOCKS] + [(3, 32, 384, 128), (5, 9, 96, 32)]
+           [(64, H, ci, co) for H, ci, co in NF32_RESBLOCKS] + [(3, 32, 384, 128), (5, 9, 96, 32)] + \
+           [(2, 64, 64, 128)]   # GroupNorm's groups too wide for shared memory: its streamed path
 
 
 @pytest.mark.gpu
@@ -267,7 +369,7 @@ def test_tiled_resblock_matches_plain(cuda_device, B, H, ci, co):
 def test_built_plans_match(cuda_device):
     for C, L, G in ATTN_SHAPES.values():
         for B in (64, 3):
-            assert attn_ops.built_tiled_plan(B, C, L, G) == tuple(attn_ops.tiled_plan(B, C, L)[:9])
+            assert attn_ops.built_tiled_plan(B, C, L, G) == attn_ops.tiled_plan(B, C, L).flat()
     for H, ci, co in [*DDPMPP_RESBLOCKS, *NF32_RESBLOCKS]:
         for B in (64, 3):
             ours = rb_ops.tiled_resblock_plan(B, H, ci, co, groups(ci), groups(co)).flat()
