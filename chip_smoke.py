@@ -211,10 +211,13 @@ Phases, each printing one JSON line with its elapsed seconds:
               (bfloat16): the JAX package's parameter count, one training
               step twice from the same state and generator bit for bit, ten
               steps at batch 64 on seeded 64 x 64 images with dropout, label
-              dropout and EMA, a checkpoint round trip, guided PC sampling
-              (w = 1, one-hot labels) at batch 64 with N 50 in the unit
-              cube; ms per step, samples/s, peak memory
-34. family_vdm  the same for model=vdm data=cifar10 (float32, unguided)
+              dropout and EMA, guided PC sampling (w = 1, one-hot labels) at
+              batch 64 with N 50 in the unit cube; ms per step, samples/s,
+              peak memory; the checkpoint round trip on a narrow ADM
+              (model_channels 32, one block a level, two steps: the
+              full-width state is a 7.1 GB file)
+34. family_vdm  the same for model=vdm data=cifar10 (float32, unguided; the
+              round trip of its full-width state)
 35. run_train_families  python -m rdm_tpu_torch.run_train data=cifar10
               model=ddpmpp (full width, float32 as the config ships, no
               kernels) for four steps at batch 64 on seeded CIFAR-10 pickles:
@@ -234,8 +237,10 @@ Phases, each printing one JSON line with its elapsed seconds:
               block or cuDNN module and the bound: the wrapper (ms), the
               kernels alone with their parameters prepared once (kernel_ms)
               and each launch of the body (launch_ms: GroupNorm 0, conv0,
-              GroupNorm 1, NIN, conv1; GroupNorm, q/k/v, attention, output),
-              and their sums over one DDPM++ forward
+              GroupNorm 1, NIN, conv1; GroupNorm, q/k/v, attention, output;
+              the attention backward's bwd_launch_ms: recompute, gs, do, ds,
+              dq, dk, dv, dh, GroupNorm's backward, the two weight products,
+              the sums), and their sums over one DDPM++ forward
 38. ddpmpp_attn_routing  model=ddpmpp with both kernels on, bfloat16: every
               block keeps its kernel, no routing log line; one evaluation
               forward on the card launches the attention kernel 17 times and
@@ -312,9 +317,10 @@ from rdm_tpu_torch.benchmark import GTOHaloBenchmarker, GTOHaloBenchmarkConfig
 from rdm_tpu_torch.benchmark import costs as cost_lib
 from rdm_tpu_torch.benchmark import dp_check
 from rdm_tpu_torch.benchmark import profile_train_decomp as decomp_lib
+from rdm_tpu_torch.benchmark import tiled_attn_parts
 from rdm_tpu_torch.benchmark import trace as trace_lib
 from rdm_tpu_torch.benchmark.common import (SAMPLING_EPS, LoadedModel, generate_raw_samples,
-                                            load_training_run)
+                                            load_training_run, parts_ms)
 from rdm_tpu_torch.config import ConfigDict, load_config, load_hydra_config_from_run
 from rdm_tpu_torch.data import get_dataset
 from rdm_tpu_torch.models import NCSNpp, create_model
@@ -375,10 +381,8 @@ PEAK_FLOPS_F64 = 34e12   # H100 SXM float64 outside the tensor cores (data sheet
 # binomial standard errors at n = 1024
 ODE_FEASIBLE_MIN = 0.965
 
-# H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, dense bf16 tensor-core
-# FLOP/s, float32 FLOP/s outside the tensor cores.
-PEAK_BYTES = 3.35e12
-PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
+# H100 SXM peaks (NVIDIA data sheet), kept with the cost formulas
+PEAK_FLOPS = cost_lib.PEAK_FLOPS
 # Bonferroni critical value of the two-sample KS statistic for
 # alpha = 0.001 / 67 at n = m = 1024.
 KS_LIMIT = 0.11
@@ -448,10 +452,7 @@ def attn_bound_ms(B, C, L, dtype) -> tuple:
     once, against the card's peak rates; and which of the two bounds it
     (the bytes and operations of ``benchmark.costs.attn_fwd_cost``)."""
     elt = torch.tensor([], dtype=dtype).element_size()
-    nbytes, flops = cost_lib.attn_fwd_cost(B, C, L, elt)
-    t_bytes = nbytes / PEAK_BYTES * 1e3
-    t_ops = flops / PEAK_FLOPS[dtype] * 1e3
-    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+    return cost_lib.bound_ms(*cost_lib.attn_fwd_cost(B, C, L, elt), PEAK_FLOPS[dtype])
 
 
 def attn_case(B, C, L, groups, dtype, seed, device, timed):
@@ -514,10 +515,7 @@ def attn_bwd_bound_ms(B, C, L, dtype) -> tuple:
     q, k, v, scores and p.v and the backward products
     (``benchmark.costs.attn_bwd_cost``)."""
     elt = torch.tensor([], dtype=dtype).element_size()
-    nbytes, flops = cost_lib.attn_bwd_cost(B, C, L, elt)
-    t_bytes = nbytes / PEAK_BYTES * 1e3
-    t_ops = flops / PEAK_FLOPS[dtype] * 1e3
-    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+    return cost_lib.bound_ms(*cost_lib.attn_bwd_cost(B, C, L, elt), PEAK_FLOPS[dtype])
 
 
 def attn_bwd_case(B, C, L, groups, dtype, seed, device, timed):
@@ -609,10 +607,7 @@ def resblock_bound_ms(B, H, ci, co, dtype) -> tuple:
     output written once; the operations of the two 3x3 convolutions and the
     NIN shortcut (``benchmark.costs.resblock_cost``)."""
     elt = torch.tensor([], dtype=dtype).element_size()
-    nbytes, flops = cost_lib.resblock_cost(B, H, ci, co, elt)
-    t_bytes = nbytes / PEAK_BYTES * 1e3
-    t_ops = flops / PEAK_FLOPS[dtype] * 1e3
-    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+    return cost_lib.bound_ms(*cost_lib.resblock_cost(B, H, ci, co, elt), PEAK_FLOPS[dtype])
 
 
 def resblock_module(params, ci, co, dtype, device):
@@ -697,11 +692,13 @@ def modeled_weight_bytes_resblock(plan, B) -> int:
 
 def attn_core_bound_ms(B, L, C, dtype) -> tuple:
     """Least time: q, k, v read once and o written once; the two products
-    (q k^T and p v, 4 L^2 C a sample)."""
+    (q k^T and p v, 4 L^2 C a sample).  float32 runs them on the tensor
+    cores as a 3xTF32 split: three TF32 products at TF32's peak."""
     elt = torch.tensor([], dtype=dtype).element_size()
-    t_bytes = 4 * B * L * C * elt / PEAK_BYTES * 1e3
-    t_ops = 4 * B * L * L * C / PEAK_FLOPS[dtype] * 1e3
-    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+    nbytes, flops = 4 * B * L * C * elt, 4 * B * L * L * C
+    if dtype == torch.float32:
+        return cost_lib.bound_ms(nbytes, 3 * flops, cost_lib.PEAK_FLOPS_TF32)
+    return cost_lib.bound_ms(nbytes, flops, PEAK_FLOPS[dtype])
 
 
 def attn_core_inputs(B, L, C, dtype, seed, device):
@@ -1093,24 +1090,6 @@ def time_cold(fn, reps=5) -> float:
         b.synchronize()
         times.append(a.elapsed_time(b))
     return float(np.mean(times))
-
-
-def launch_parts_ms(fn, reps=3) -> dict:
-    """ms of each part of one call of ``fn`` (which returns them by part: a
-    tiled body's launches timed by CUDA events between them), cold (the L2
-    flushed) and with the card kept busy for about a millisecond first, so
-    every launch is queued before the first event and the times are the
-    device's alone; the mean of ``reps`` calls after one warm-up."""
-    flush = torch.empty(64 * 2**20, dtype=torch.int32, device="cuda")
-    fn()
-    torch.cuda.synchronize()
-    out = {}
-    for _ in range(reps):
-        flush.zero_()
-        torch.cuda._sleep(4_000_000)
-        for k, v in fn().items():
-            out[k] = out.get(k, 0.0) + v / reps
-    return out
 
 
 def time_once(fn):
@@ -1998,6 +1977,9 @@ def family_golden_phase(device) -> dict:
 FAMILY_BATCH = 64
 FAMILY_STEPS = 10
 FAMILY_SAMPLING_STEPS = 50
+# The narrow ADM whose checkpoint round trip phase family_adm runs (the
+# full-width ADM state is a 7.1 GB file: 38.7 s of the phase's 57.2).
+NARROW_ADM = ["model.model_channels=32", "model.num_blocks=1"]
 
 
 def _state_tensors(state):
@@ -2074,19 +2056,32 @@ def family_phase(device, data: str, model_name: str) -> dict:
         not torch.equal(s, p) for s, p in zip(state.ema.shadow_params, state.params)),
         f"{model_name}: the EMA did not move")
 
-    # checkpoint round trip
+    # checkpoint round trip: of this state, or (ADM, whose full-width state
+    # is a 7.1 GB file) of a narrow model of the family after two steps, the
+    # same checkpoint code
+    rt_cfg, rt_state = cfg, state
+    if model_name == "adm":
+        rt_cfg = load_config("train", [f"data={data}", f"model={model_name}",
+                                       f"training.batch_size={FAMILY_BATCH}", *NARROW_ADM])
+        rt_state = init_train_state(create_model(rt_cfg).to(device).init_weights(
+            torch.Generator(device=device).manual_seed(0)), rt_cfg)
+        rt_gen = torch.Generator(device=device).manual_seed(10)
+        for _ in range(2):
+            step(rt_state, images, labels, rt_gen)
     t = time.perf_counter()
     with tempfile.TemporaryDirectory() as tmp:
         path = os.path.join(tmp, "checkpoint.pth")
-        checkpoints.save_checkpoint(path, state, config=cfg)
+        checkpoints.save_checkpoint(path, rt_state, config=rt_cfg)
         size = os.path.getsize(path)
-        fresh = init_train_state(create_model(cfg).to(device), cfg)
+        fresh = init_train_state(create_model(rt_cfg).to(device), rt_cfg)
         checkpoints.load_into_state(fresh, checkpoints.restore_checkpoint(path))
     round_trip_s = time.perf_counter() - t
-    same = _counts(fresh) == _counts(state) and all(
-        torch.equal(a, b) for a, b in zip(_state_tensors(fresh), _state_tensors(state)))
+    same = _counts(fresh) == _counts(rt_state) and all(
+        torch.equal(a, b) for a, b in zip(_state_tensors(fresh), _state_tensors(rt_state)))
     check(same, f"{model_name}: the checkpoint round trip changed the state")
     del fresh
+    if rt_state is not state:
+        del rt_state
 
     # PC sampling with the EMA weights
     shape = (FAMILY_BATCH, C, S, S)
@@ -2113,6 +2108,7 @@ def family_phase(device, data: str, model_name: str) -> dict:
             "losses": losses, "ms_per_step": ms,
             "train_samples_per_second": FAMILY_BATCH / ms * 1e3,
             "checkpoint_bytes": size, "checkpoint_round_trip_s": round_trip_s,
+            "checkpoint_of": " ".join(NARROW_ADM) if model_name == "adm" else "the full state",
             "sampling": {"n": FAMILY_BATCH, "steps": FAMILY_SAMPLING_STEPS,
                          "guided_w": 1.0 if classes else None, "seconds": sample_s,
                          "samples_per_second": FAMILY_BATCH / sample_s,
@@ -2263,21 +2259,6 @@ def zero_tiled_launches() -> None:
         f.launches = 0
 
 
-def attn_library_block(x, params, groups, skip_rescale=True):
-    """The attention block unfused from PyTorch's own calls, the yardstick of
-    the tiled body (not the port's path): F.group_norm, the four NINs as
-    matrix products and F.scaled_dot_product_attention, in x's type."""
-    F = torch.nn.functional
-    gamma, beta, wq, bq, wk, bk, wv, bv, wp, bp = (p.to(x.dtype) for p in params)
-    B, C, H, W = x.shape
-    h = F.group_norm(x, groups, gamma, beta, attn_ops.GN_EPS).flatten(2).transpose(1, 2)
-    q, k, v = (torch.matmul(h, w) + b for w, b in ((wq, bq), (wk, bk), (wv, bv)))
-    o = F.scaled_dot_product_attention(q[:, None], k[:, None], v[:, None])[:, 0]
-    out = x.flatten(2).transpose(1, 2) + torch.matmul(o, wp) + bp
-    out = out * (1 / math.sqrt(2.0) if skip_rescale else 1.0)
-    return out.transpose(1, 2).reshape(B, C, H, W)
-
-
 def tiled_attn_case(B, C, L, groups, seed, device, timed):
     """The tiled attention forward and backward against their plain versions
     (bfloat16 activations, float32 parameters as the model passes them),
@@ -2327,7 +2308,6 @@ def tiled_attn_case(B, C, L, groups, seed, device, timed):
            "dx_max_abs_err": dx_err, "dx_tol": 4 * BF16_STEP * dx_scale, "worst_param": worst,
            "param_max_abs_err": errs[worst][0], "param_tol": BF16_STEP * errs[worst][1],
            "bwd_bitwise_repeatable": True}
-    res["plan"]["gemm_tiles"] = [list(t) for t in res["plan"]["gemm_tiles"]]
     check(err <= tol and res["frac_within_step"] > WITHIN_STEP_MIN,
           f"tiled attention disagrees with its plain version: {res}")
     check(dx_err <= res["dx_tol"], f"tiled backward dx disagrees: {res}")
@@ -2345,14 +2325,17 @@ def tiled_attn_case(B, C, L, groups, seed, device, timed):
         def library_fwd_bwd(t):
             xx = t[0].detach().requires_grad_(True)
             ps = [p.detach().requires_grad_(True) for p in lib_params]
-            return torch.autograd.grad(attn_library_block(xx, ps, groups), [xx, *ps], t[1])
+            return torch.autograd.grad(tiled_attn_parts.library_block(xx, ps, groups),
+                                       [xx, *ps], t[1])
 
         launcher = attn_ops._tiled_fwd_launcher(*params, **kw)
+        bwd_launcher = attn_ops._tiled_bwd_launcher(*params, **kw)
         fwd = {"": lambda t: attn_ops.fused_attn_block(t, *params, **kw),
                "kernel_": launcher,
                "plain_": lambda t: attn_ops.fused_attn_block_reference(t, *params, **kw),
-               "library_": lambda t: attn_library_block(t, lib_params, groups)}
+               "library_": lambda t: tiled_attn_parts.library_block(t, lib_params, groups)}
         bwd = {"bwd_": lambda t: attn_ops.fused_attn_block_bwd(*t, *params, **kw),
+               "bwd_kernel_": lambda t: bwd_launcher(*t),
                "bwd_plain_": lambda t: attn_ops.fused_attn_block_bwd_reference(*t, *params, **kw),
                "bwd_library_": library_fwd_bwd}
         for key, fn in fwd.items():
@@ -2360,8 +2343,10 @@ def tiled_attn_case(B, C, L, groups, seed, device, timed):
                 res[key + "ms"] = micro_cf_script.cold_us(fn, make, nbytes, device, (2, 8)) / 1e3
         for key, fn in bwd.items():
             res[key + "ms"] = micro_cf_script.cold_us(fn, make2, 2 * nbytes, device, (2, 6)) / 1e3
-        res["launch_ms"] = launch_parts_ms(lambda: attn_ops.tiled_attn_launch_ms(
+        res["launch_ms"] = parts_ms(lambda: attn_ops.tiled_attn_launch_ms(
             x, *params, **kw, launcher=launcher))
+        res["bwd_launch_ms"] = parts_ms(
+            lambda: attn_ops.tiled_attn_bwd_launch_ms(x, g, *params, **kw, launcher=bwd_launcher))
         res["bound_ms"], res["bound_by"] = attn_bound_ms(B, C, L, torch.bfloat16)
         res["bwd_bound_ms"], res["bwd_bound_by"] = attn_bwd_bound_ms(B, C, L, torch.bfloat16)
         res["share_of_bound"] = res["bound_ms"] / res["ms"]
@@ -2417,7 +2402,7 @@ def tiled_resblock_case(B, H, ci, co, seed, device, timed):
         with torch.no_grad():
             for key, fn in fns.items():
                 res[key + "ms"] = micro_cf_script.cold_us(fn, make, nbytes, device, (2, 6)) / 1e3
-            res["launch_ms"] = launch_parts_ms(lambda: rb_ops.tiled_resblock_launch_ms(
+            res["launch_ms"] = parts_ms(lambda: rb_ops.tiled_resblock_launch_ms(
                 x, tembv, *params, **kw, launcher=launcher))
         res["bound_ms"], res["bound_by"] = resblock_bound_ms(B, H, ci, co, torch.bfloat16)
         res["share_of_bound"] = res["bound_ms"] / res["ms"]
@@ -3424,7 +3409,11 @@ def main() -> int:
          ddpmpp_resblocks_per_forward_at_b64=ddpmpp_forward_sums(tiled_rb),
          attention_forward_at_b64={f"C{c['C']}_L{c['L']}": {
              k: c[k] for k in ("ms", "kernel_ms", "library_ms", "bound_ms", "launch_ms")}
-             for c in tiled_attn if "launch_ms" in c})
+             for c in tiled_attn if "launch_ms" in c},
+         attention_backward_at_b64={f"C{c['C']}_L{c['L']}": {
+             k: c[k] for k in ("bwd_ms", "bwd_kernel_ms", "bwd_library_ms", "bwd_bound_ms",
+                               "bwd_launch_ms")}
+             for c in tiled_attn if "bwd_launch_ms" in c})
 
     t0 = time.perf_counter()
     emit("ddpmpp_attn_routing", t0, **ddpmpp_attn_routing_phase(device))
@@ -3620,7 +3609,8 @@ def main() -> int:
         "launches": ddpmpp["launches"]["fused_attn_block_bwd_tiled"],
         "launches_note": tiled_note + "; 17 a training step",
         "max_abs_err": max(ta["dx_max_abs_err"], ta["param_max_abs_err"]),
-        "ms": ta["bwd_ms"], "plain_ms": ta["bwd_plain_ms"], "bound_ms": ta["bwd_bound_ms"],
+        "ms": ta["bwd_ms"], "kernel_ms": ta["bwd_kernel_ms"], "launch_ms": ta["bwd_launch_ms"],
+        "plain_ms": ta["bwd_plain_ms"], "bound_ms": ta["bwd_bound_ms"],
         "bound_by": ta["bwd_bound_by"], "library_ms": None,
         "module_ms": ta["bwd_library_ms"],
         "module_note": "autograd through the unfused library block (its forward included, "
@@ -3628,7 +3618,8 @@ def main() -> int:
         "timing": "cold: x and g rotate over more than twice the L2, CUDA-graph slopes",
         "share_of_bound": ta["bwd_share_of_bound"],
         "nf32": {k: ta32[k] for k in ("dx_max_abs_err", "param_max_abs_err", "bwd_ms",
-                                      "bwd_plain_ms", "bwd_library_ms", "bwd_bound_ms")},
+                                      "bwd_kernel_ms", "bwd_launch_ms", "bwd_plain_ms",
+                                      "bwd_library_ms", "bwd_bound_ms")},
         "shape": "B=64 C=256 L=256 groups=32 bfloat16",
     }, {
         "name": "fused_resblock (tiled body)",

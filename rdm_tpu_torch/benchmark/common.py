@@ -130,6 +130,23 @@ def sampling_efficiency_metrics(sampling_times: List[float]) -> dict:
     }
 
 
+def parts_ms(fn, reps=3) -> dict:
+    """Mean ms by part of ``fn()`` (a dict of part -> ms, as a tiled body's
+    ``launch_ms`` gives it) over ``reps`` calls after one warm-up, the L2
+    flushed and the card kept busy first, so every launch is queued before
+    the first event.  Needs the card."""
+    flush = torch.empty(64 * 2**20, dtype=torch.int32, device="cuda")
+    fn()
+    torch.cuda.synchronize()
+    out = {}
+    for _ in range(reps):
+        flush.zero_()
+        torch.cuda._sleep(4_000_000)
+        for k, v in fn().items():
+            out[k] = out.get(k, 0.0) + v / reps
+    return out
+
+
 def trace_kernels(fn, steps: int, top: int = 12, path: str | None = None,
                   count: dict | None = None) -> dict:
     """Run ``fn()`` (``steps`` steps of work) under ``torch.profiler`` and

@@ -33,6 +33,20 @@ from torch.utils.flop_counter import FlopCounterMode
 
 from ..ops import attention as attn_ops
 
+# H100 SXM peaks (NVIDIA data sheet): HBM bytes/s; dense tensor-core FLOP/s
+# for bf16 and TF32; float32 FLOP/s outside the tensor cores.
+PEAK_BYTES = 3.35e12
+PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
+PEAK_FLOPS_TF32 = 495e12
+
+
+def bound_ms(nbytes: float, ops: float, flops_per_s: float) -> tuple:
+    """Least time in ms for work that moves ``nbytes`` and does ``ops`` at
+    ``flops_per_s``: the larger of the two times at the card's peaks, and
+    which of them ("bytes" or "operations") it is."""
+    t_bytes, t_ops = nbytes / PEAK_BYTES * 1e3, ops / flops_per_s * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
 
 def attn_fwd_cost(B: int, C: int, L: int, elt: int) -> tuple:
     """(bytes, operations) of one fused attention block: x read and the

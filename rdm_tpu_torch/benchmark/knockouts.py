@@ -214,14 +214,14 @@ def build_variants() -> dict:
 
 
 def core_fn(lib, softmax_f32: bool):
-    lib.rdm_attention_core.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 6
+    lib.rdm_attention_core.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 5
                                        + [ctypes.c_float, ctypes.c_void_p])
 
     def fn(qkv):
         q, k, v = qkv
         out = torch.empty_like(q)
         err = lib.rdm_attention_core(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                                     B, L, C, 0, 1, int(not softmax_f32), C ** -0.5,
+                                     B, L, C, 1, int(not softmax_f32), C ** -0.5,
                                      torch.cuda.current_stream().cuda_stream)
         _build.raise_on(lib, err, "attention_core knockout")
         return out

@@ -34,87 +34,226 @@
 // and softmax knocked out: benchmark/knockouts.py), and the compute of each
 // block's first and last samples, which no load hides.
 //
-// float32 (attention_core_kernel<float>, the earlier body): one block of 256
-// threads per sample, the products as the fused attention block does them
-// (attn_common.cuh: tile_product over 4 x 8 register tiles in f32), query
-// rows in chunks of R rows so that L = C = 128 fits in 227 KB.  Shared
-// memory, f32: k transposed (C x LP), v (L x C), a chunk of score rows
-// (R x LP) and of q rows (R x (C + 1)).  TF32 would break its 1e-5
-// tolerance; no path of the port runs the core in f32.
-#include "attn_common.cuh"
+// float32 (attention_core_f32_kernel): the tensor cores on a 3xTF32 split.
+// The scalar-FMA body it replaces (PR 6) reached 14 % of its bound; TF32
+// alone keeps 10 mantissa bits and would break the 1e-5 tolerance.  Each
+// operand x is split into hi = rna_tf32(x) and lo = rna_tf32(x - hi), and
+// every product a b is hi_a lo_b + lo_a hi_b + hi_a hi_b on
+// mma.sync.m16n8k8.tf32 (the products exact in the tensor cores, lo_a lo_b,
+// about 2^-22 |a b|, dropped), the three summed from zero for each 8-deep
+// slice of K and that partial added to the f32 sum with an IEEE add, so the
+// tensor cores' own accumulation rounds over 8 terms at a time only.  One
+// block a sample, one warp a 16-row tile of queries: q, k and v (16 NT rows,
+// zeros past L, C + 4 floats a row: the fragment loads are free of bank
+// conflicts) arrive by cp.async, the scores stay in registers, the softmax is
+// exact in f32 as the plain version's (p not rounded: v is float32), and p
+// feeds p v from registers: its accumulator layout gives lane (g, t) keys
+// 2t and 2t + 1 of each 8, which are the A fragment's k-indices t and t + 4
+// once v's rows are read in that order.  At B 1024, L 81, C 64 the kernel
+// moves 85 MB, 25.4 us at 3.35 TB/s; its 3 x 1.7 GFLOP at TF32's 495
+// TFLOP/s take 10.3 us, so memory bounds it.  No path of the port runs the
+// core in float32.
 #include "attn_mma.cuh"
 #include "tma.cuh"
 #include "smem_attr.cuh"
 
 namespace {
 
-template <typename T, bool kScoresInT>
-__global__ void __launch_bounds__(kThreads)
-attention_core_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                      const T* __restrict__ v, T* __restrict__ o,
-                      int L, int C, int R, float scale) {
-  const int LP = (L + TN - 1) / TN * TN;
-  const int CP = C + 1;              // odd row stride of q: no bank conflicts
-  extern __shared__ __align__(16) float smem[];
-  float* kt = smem;                  // C x LP: k transposed
-  float* vb = kt + C * LP;           // L x C : v
-  float* sb = vb + L * C;            // R x LP: scores, then probabilities
-  float* qb = sb + R * LP;           // R x CP: a chunk of q rows
+constexpr int kMaxL = 128;   // tokens at most (both bodies)
 
-  const size_t base = static_cast<size_t>(blockIdx.x) * L * C;
-  const T* qs = q + base;
-  T* os = o + base;
-  for (int i = threadIdx.x; i < L * C; i += kThreads) {
-    const int l = i / C;
-    kt[(i - l * C) * LP + l] = to_f<T>(k[base + i]);
-    vb[i] = to_f<T>(v[base + i]);
-  }
-  const float scale_t = rnd<T>(scale);
+// ---------------------------------------------------------------------------
+// float32: 3xTF32 on mma.sync.m16n8k8
 
-  for (int r0 = 0; r0 < L; r0 += R) {
-    const int nr = min(R, L - r0);
-    for (int i = threadIdx.x; i < nr * C; i += kThreads) {
-      const int l = i / C;
-      qb[l * CP + i - l * C] = to_f<T>(qs[static_cast<size_t>(r0) * C + i]);
-    }
-    __syncthreads();
-
-    tile_product(nr, L, C, [=](int i, int c) { return qb[i * CP + c]; },
-                 [=](int c, int j0, float* vals) { load8_shared(kt + c * LP + j0, vals); },
-                 [=](int i, int j, float acc) {
-                   sb[i * LP + j] = kScoresInT ? rnd<T>(rnd<T>(acc) * scale_t) : acc * scale;
-                 });
-    __syncthreads();
-
-    softmax_rows<T, kScoresInT>(sb, nr, L, LP);
-    __syncthreads();
-
-    tile_product(nr, C, L, [=](int i, int j) { return sb[i * LP + j]; },
-                 [=](int j, int c0, float* vals) { load8_shared(vb + j * C + c0, vals); },
-                 [=](int i, int c, float acc) {
-                   os[static_cast<size_t>(r0 + i) * C + c] = from_f<T>(acc);
-                 });
-    __syncthreads();
-  }
+// x rounded to TF32, to nearest with ties away from zero (the low 13 bits 0).
+__device__ __forceinline__ uint32_t tf32_rna(float x) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(x));
+  return r;
 }
 
-template <typename T, bool kScoresInT>
-cudaError_t launch(const void* q, const void* k, const void* v, void* o, int B, int L, int C,
-                   int R, float scale, cudaStream_t stream) {
-  const size_t LP = (L + TN - 1) / TN * TN;
-  const size_t smem = sizeof(float) * (C * LP + static_cast<size_t>(L) * C + R * LP
-                                       + static_cast<size_t>(R) * (C + 1));
-  auto kern = attention_core_kernel<T, kScoresInT>;
-  // The most shared memory any shape takes (the launcher caps R so that
-  // L = C = 128 fits), set once per instantiation and card.
-  static SmemAttr smem_attr;
-  const cudaError_t attr = smem_attr.apply(reinterpret_cast<const void*>(kern), 232448);
+// hi = TF32(x), lo = TF32(x - hi).
+__device__ __forceinline__ void split_tf32(float x, uint32_t& hi, uint32_t& lo) {
+  hi = tf32_rna(x);
+  lo = tf32_rna(x - __uint_as_float(hi));
+}
+
+// d (16 x 8) += a (16 x 8, row-major) b (8 x 8, column-major), TF32 operands.
+// Lane (g, t) = (lane / 4, lane % 4) holds a at (g, t), (g + 8, t), (g, t + 4),
+// (g + 8, t + 4), b at (k t, n g) and (k t + 4, n g), d as mma_bf16's.
+__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// acc += a b in 3xTF32 (a's and b's hi and lo parts), the three products
+// summed from zero first.
+__device__ __forceinline__ void mma_3xtf32(float (&acc)[4], const uint32_t (&ahi)[4],
+                                           const uint32_t (&alo)[4], float b0, float b1) {
+  uint32_t bh0, bl0, bh1, bl1;
+  split_tf32(b0, bh0, bl0);
+  split_tf32(b1, bh1, bl1);
+  float t[4] = {0.f, 0.f, 0.f, 0.f};
+  mma_tf32(t, ahi, bl0, bl1);
+  mma_tf32(t, alo, bh0, bh1);
+  mma_tf32(t, ahi, bh0, bh1);
+#pragma unroll
+  for (int e = 0; e < 4; ++e) acc[e] = __fadd_rn(acc[e], t[e]);
+}
+
+// Floats of a staged row: C + 4 (fragment loads free of bank conflicts).
+__host__ __device__ constexpr int f32_row(int C) { return C + 4; }
+__host__ __device__ constexpr int f32_smem_bytes(int NT, int C) {
+  return 3 * 16 * NT * f32_row(C) * 4;
+}
+
+// grid B (a sample a block), 32 ceil(L / 16) threads, f32_smem_bytes(NT, C)
+// of dynamic shared memory.  NT: key tiles of 16 (keys padded to 16 NT, zeros
+// past L); CT: channel tiles of 16 the output covers (C <= 16 CT, C % 8 == 0).
+template <int NT, int CT>
+__global__ void __launch_bounds__(256) attention_core_f32_kernel(
+    const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
+    float* __restrict__ o, int L, int C, float scale) {
+  constexpr int KP = 16 * NT;
+  extern __shared__ __align__(16) float smem[];
+  const int R = f32_row(C), c4 = C / 4;
+  float* qs = smem;
+  float* ks = qs + KP * R;
+  float* vs = ks + KP * R;
+  const size_t base = static_cast<size_t>(blockIdx.x) * L * C;
+  for (int i = threadIdx.x; i < KP * c4; i += blockDim.x) {
+    const int r = i / c4, c = (i - r * c4) * 4;
+    if (r < L) {
+      const size_t at = base + static_cast<size_t>(r) * C + c;
+      cp_async16(qs + r * R + c, q + at);
+      cp_async16(ks + r * R + c, k + at);
+      cp_async16(vs + r * R + c, v + at);
+    } else {
+      const float4 z = make_float4(0.f, 0.f, 0.f, 0.f);
+      *reinterpret_cast<float4*>(qs + r * R + c) = z;
+      *reinterpret_cast<float4*>(ks + r * R + c) = z;
+      *reinterpret_cast<float4*>(vs + r * R + c) = z;
+    }
+  }
+  cp_async_wait();
+  __syncthreads();
+
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const int r0 = 16 * (threadIdx.x >> 5);
+  // S = q k^T: 2 NT tiles of 8 keys, K in slices of 8 channels
+  float s[2 * NT][4];
+#pragma unroll
+  for (int j = 0; j < 2 * NT; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
+  for (int c0 = 0; c0 < C; c0 += 8) {
+    const float* qa = qs + (r0 + g) * R + c0 + t;
+    uint32_t ahi[4], alo[4];
+    split_tf32(qa[0], ahi[0], alo[0]);
+    split_tf32(qa[8 * R], ahi[1], alo[1]);
+    split_tf32(qa[4], ahi[2], alo[2]);
+    split_tf32(qa[8 * R + 4], ahi[3], alo[3]);
+#pragma unroll
+    for (int j = 0; j < 2 * NT; ++j) {
+      const float* kb = ks + (8 * j + g) * R + c0 + t;
+      mma_3xtf32(s[j], ahi, alo, kb[0], kb[4]);
+    }
+  }
+
+  // The exact f32 softmax of rows r0 + g (s[.][0..1]) and r0 + g + 8
+  // (s[.][2..3]) over the L real keys: p = exp(s scale - max) / sum.
+  float mx[2] = {-INFINITY, -INFINITY}, sum[2] = {0.f, 0.f};
+#pragma unroll
+  for (int j = 0; j < 2 * NT; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int key = 8 * j + 2 * t + (e & 1);
+      s[j][e] = key < L ? __fmul_rn(s[j][e], scale) : -INFINITY;
+      mx[e >> 1] = fmaxf(mx[e >> 1], s[j][e]);
+    }
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 1));
+    mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 2));
+  }
+#pragma unroll
+  for (int j = 0; j < 2 * NT; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int key = 8 * j + 2 * t + (e & 1);
+      s[j][e] = key < L ? expf(__fsub_rn(s[j][e], mx[e >> 1])) : 0.f;
+      sum[e >> 1] += s[j][e];
+    }
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    sum[h] += __shfl_xor_sync(0xffffffffu, sum[h], 1);
+    sum[h] += __shfl_xor_sync(0xffffffffu, sum[h], 2);
+  }
+
+  // O = p v: keys in slices of 8, p's A fragment straight from the
+  // accumulators (k-index t is key 2t, t + 4 is key 2t + 1), v's rows read in
+  // that order; 2 CT tiles of 8 channels
+  float acc[2 * CT][4];
+#pragma unroll
+  for (int n = 0; n < 2 * CT; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
+#pragma unroll
+  for (int j = 0; j < 2 * NT; ++j) {
+    uint32_t ahi[4], alo[4];
+    split_tf32(s[j][0] / sum[0], ahi[0], alo[0]);
+    split_tf32(s[j][2] / sum[1], ahi[1], alo[1]);
+    split_tf32(s[j][1] / sum[0], ahi[2], alo[2]);
+    split_tf32(s[j][3] / sum[1], ahi[3], alo[3]);
+    const float* vb = vs + (8 * j + 2 * t) * R + g;
+#pragma unroll
+    for (int n = 0; n < 2 * CT; ++n)
+      if (8 * n < C) mma_3xtf32(acc[n], ahi, alo, vb[8 * n], vb[R + 8 * n]);
+  }
+  float* out = o + base;
+#pragma unroll
+  for (int n = 0; n < 2 * CT; ++n)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int row = r0 + g + 8 * h, c = 8 * n + 2 * t;
+      if (row < L && c < C)
+        *reinterpret_cast<float2*>(out + static_cast<size_t>(row) * C + c) =
+            make_float2(acc[n][2 * h], acc[n][2 * h + 1]);
+    }
+}
+
+template <int NT, int CT>
+cudaError_t launch_f32(const void* q, const void* k, const void* v, void* o, int B, int L, int C,
+                       float scale, cudaStream_t stream) {
+  auto kern = attention_core_f32_kernel<NT, CT>;
+  static SmemAttr smem_attr;   // the most this instantiation takes: C = 16 CT
+  const cudaError_t attr =
+      smem_attr.apply(reinterpret_cast<const void*>(kern), f32_smem_bytes(NT, 16 * CT));
   if (attr != cudaSuccess) return attr;
-  if (smem > 232448) return cudaErrorInvalidValue;
-  kern<<<B, kThreads, smem, stream>>>(static_cast<const T*>(q), static_cast<const T*>(k),
-                                      static_cast<const T*>(v), static_cast<T*>(o),
-                                      L, C, R, scale);
+  kern<<<B, 32 * ((L + 15) / 16), f32_smem_bytes(NT, C), stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
+      static_cast<float*>(o), L, C, scale);
   return cudaGetLastError();
+}
+
+// Key tiles of 16 (NT: 2, 4, 6, 8 for L <= 32, 64, 96, 128) and channel
+// tiles of 16 (CT: 4, 8 for C <= 64, 128), as ops/attention.py: core_plan.
+cudaError_t dispatch_f32(const void* q, const void* k, const void* v, void* o, int B, int L,
+                         int C, float scale, cudaStream_t s) {
+  const int nt = (L + 31) / 32 * 2;
+  if (C <= 64) {
+    switch (nt) {
+      case 2: return launch_f32<2, 4>(q, k, v, o, B, L, C, scale, s);
+      case 4: return launch_f32<4, 4>(q, k, v, o, B, L, C, scale, s);
+      case 6: return launch_f32<6, 4>(q, k, v, o, B, L, C, scale, s);
+      default: return launch_f32<8, 4>(q, k, v, o, B, L, C, scale, s);
+    }
+  }
+  switch (nt) {
+    case 2: return launch_f32<2, 8>(q, k, v, o, B, L, C, scale, s);
+    case 4: return launch_f32<4, 8>(q, k, v, o, B, L, C, scale, s);
+    case 6: return launch_f32<6, 8>(q, k, v, o, B, L, C, scale, s);
+    default: return launch_f32<8, 8>(q, k, v, o, B, L, C, scale, s);
+  }
 }
 
 // ---------------------------------------------------------------------------
@@ -273,20 +412,16 @@ cudaError_t dispatch_mma(const void* q, const void* k, const void* v, void* o, i
 extern "C" {
 
 // dtype: 0 = float32, 1 = bfloat16.  q, k, v and o are (B, L, C) row-major of
-// the working type (bfloat16: starting on 16-byte boundaries); scores_in_t
-// selects the softmax in the working type (softmax_f32 off); R is the float32
-// kernel's rows per chunk (ops/attention.py: core_rows_per_chunk), unused in
-// bfloat16.  Returns a cudaError_t.
+// the working type, starting on 16-byte boundaries; scores_in_t selects the
+// bfloat16 softmax in the working type (softmax_f32 off; float32 always
+// keeps its softmax in f32).  Returns a cudaError_t.
 int rdm_attention_core(const void* q, const void* k, const void* v, void* o,
-                       int B, int L, int C, int R, int dtype, int scores_in_t,
+                       int B, int L, int C, int dtype, int scores_in_t,
                        float scale, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (B < 1 || L < 1 || L > kMaxL || C < 8 || C > 128 || C % 8 != 0)
     return static_cast<int>(cudaErrorInvalidValue);
-  if (dtype == 0) {
-    if (R < 1 || R > L) return static_cast<int>(cudaErrorInvalidValue);
-    return static_cast<int>(launch<float, false>(q, k, v, o, B, L, C, R, scale, s));
-  }
+  if (dtype == 0) return static_cast<int>(dispatch_f32(q, k, v, o, B, L, C, scale, s));
   if (dtype == 1 && scores_in_t)
     return static_cast<int>(dispatch_mma<true>(q, k, v, o, B, L, C, scale, s));
   if (dtype == 1)

@@ -1,5 +1,5 @@
 // Device helpers shared by the attention kernels (fused_attn_block.cu,
-// fused_attn_block_bwd.cu, attention_core.cu) and the fused resblock
+// fused_attn_block_bwd.cu) and the fused resblock
 // (fused_resblock.cu): conversions to and from the working type, rounding to
 // it, vector loads, warp reductions, the register-tiled product loop and the
 // row softmax.  Everything sits in an unnamed namespace, so each translation

@@ -10,7 +10,9 @@
 // scores 256 KB in f32, more than a block's 227 KB of shared memory, so the
 // block is cut into launches that meet in global memory, every intermediate
 // stored in bf16 where the TPU kernel rounds it (h, q, k, v, p, o; do, ds, dq,
-// dk, dv), so the rounding points are the TPU kernel's:
+// dk, dv), so the rounding points are the TPU kernel's.  Every product runs
+// on wg_gemm.cuh's TMA-ring wgmma GEMM or inside one of the two attention
+// kernels:
 //
 // forward   gn_apply_kernel      h = T(GroupNorm(x)), token-major
 //           wg_gemm_kernel       [q | k | v] = T(T(h [Wq | Wk | Wv]) + b), one
@@ -25,26 +27,41 @@
 //                                rounded, then p.v: the TPU's rounding points,
 //                                which a one-pass online softmax would move), and
 //                                p goes from registers into the p.v wgmma
-//           wg_gemm_kernel       out = T(T(x + T(T(o Wp) + bp)) * T(1/sqrt 2)), NCHW
+//           wg_gemm_kernel       out = T(T(x + T(T(o Wp) + bp)) * T(rescale)), NCHW
 // backward  the forward's first three launches again (recompute), then
-//           gs = T(T(g) T(rescale)); do = T(gs Wp^T);
-//           attn_ds_kernel       p again, pt = T(p), dp = do v^T in chunks of 64
-//                                keys, each row's sum of dp * p over all keys, then
-//                                ds = T(p (dp - sum) / sqrt C)
-//           dq = T(ds k), dk = T(ds^T q), dv = T(pt^T do)   (tiled_gemm_kernel)
-//           dh = [dq | dk | dv] [Wq | Wk | Wv]^T in f32; gn_bwd_kernel gives dx
-//           and per-sample partials of dgamma, dbeta; the weight gradients
-//           [dWq | dWk | dWv] = h^T [dq | dk | dv] and dWp = o^T gs as split-K
-//           float32 partials, with a row of ones in the A operand giving the bias
-//           gradients; every partial summed in a fixed order (sum_partials_kernel),
-//           so two runs agree bit for bit and no gradient is rounded to bf16.
+//           scale_transpose      gs = T(T(g) T(rescale)), token-major
+//           wg_gemm_kernel       do = T(gs Wp^T)
+//           attn_ds_kernel       the scores and the exact softmax again as the
+//                                forward's kernel has them (f32 p in registers),
+//                                then do and v of the block's rows and every key
+//                                resident in shared memory, dp = do v^T on wgmma
+//                                64 keys at a time: first each row's sum of
+//                                dp * p over every key, then dp again for
+//                                ds = T(p (dp - sum) / sqrt C) and pt = T(p),
+//                                both written (B, Lp, Lp)
+//           wg_gemm_kernel x 3   dq = T(ds k), dk = T(ds^T q), dv = T(pt^T do):
+//                                batched per sample, ds, pt, q and do read
+//                                MN-major by TMA (no transposed copies)
+//           wg_gemm_kernel       dh = [dq | dk | dv] [Wq | Wk | Wv]^T, float32 NCHW
+//           gn_bwd_kernel        dx and per-sample partials of dgamma, dbeta
+//           wg_gemm_kernel x 2   [dWq | dWk | dWv] = h^T [dq | dk | dv] and
+//                                dWp = o^T gs, K over every (sample, 64 tokens),
+//                                split in a fixed order, float32 partials with
+//                                the bias gradients (the sums of [dq | dk | dv]
+//                                and gs over tokens) as their last row
+//           grad_sums_kernel     every partial summed in split order, one launch,
+//                                so two runs agree bit for bit and no gradient is
+//                                rounded to bf16.
+// The ds kernel does not fold dk and dv in: with L up to 256 a sample's
+// queries take two blocks, and their per-key sums would need a second pass
+// over partials; writing ds and pt (16.8 MB at C 256, L 256, B 64) and
+// reading them back through TMA costs less than that.  No buffer is cleared:
+// every map is bounded at L, so TMA reads the padded tokens as zeros.
 //
 // Bound on this card at C 256, L 256: about 201 MFLOP a sample forward (13 us
 // at B 64 against 989 TFLOP/s, against 5 us for its 16.8 MB), so operations
-// bound it; the backward does about twice the products.  The forward's
-// products and attention run on wgmma fed by TMA rings; the backward's own
-// launches still run on tiled_gemm_kernel's mma.sync tiles.  PERF.md has the
-// times.
+// bound it; the backward does about 2.8 times the forward's products.
+// PERF.md has the times of each launch against these bounds.
 #include <cmath>
 
 #include "smem_attr.cuh"
@@ -52,94 +69,9 @@
 
 namespace {
 
-constexpr int kQRows = 64;        // query rows of an attention block (16 a warp)
-constexpr int kAttnThreads = 128;
 constexpr int kMaxTokens = 256;
 
 __host__ __device__ inline int padded_tokens(int L) { return (L + 15) / 16 * 16; }
-
-int attn_smem_bytes(int C, int L, int q_tiles_of_rows) {
-  return (q_tiles_of_rows * kQRows + padded_tokens(L)) * (C + 8) * 2;
-}
-
-// Rows [r0, r0 + rows) of a token-major bf16 matrix (row stride ld elements)
-// into shared memory (row stride C + 8), C columns from column col, zeros for
-// rows at or past valid.
-__device__ __forceinline__ void stage_rows(bf16* s, const bf16* g, int ld, int col, int r0,
-                                           int rows, int valid, int C) {
-  const int chunks = C / 8, CP = C + 8;
-  for (int q = threadIdx.x; q < rows * chunks; q += blockDim.x) {
-    const int r = q / chunks, cc = (q - r * chunks) * 8;
-    uint4 u = zero4();
-    if (r0 + r < valid)
-      u = *reinterpret_cast<const uint4*>(g + static_cast<long long>(r0 + r) * ld + col + cc);
-    *reinterpret_cast<uint4*>(s + r * CP + cc) = u;
-  }
-}
-
-// s = (A B^T) for the warp's 16 rows of sA (row stride C + 8) against rows
-// 0 .. 16 * kt - 1 of sB: s[j] is the m16n8 tile of keys 8j .. 8j + 7.
-template <int KTM>
-__device__ __forceinline__ void warp_scores(float (&s)[2 * KTM][4], const bf16* sA, const bf16* sB,
-                                            int C, int kt) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, CP = C + 8;
-#pragma unroll
-  for (int j = 0; j < 2 * KTM; ++j)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
-  for (int kk = 0; kk < C; kk += 16) {
-    unsigned af[4];
-    ldmatrix_x4(af, sA + (warp * 16 + (lane & 15)) * CP + kk + (lane >> 4) * 8);
-#pragma unroll
-    for (int j = 0; j < KTM; ++j) {
-      if (j < kt) {
-        unsigned b[4];
-        ldmatrix_x4(b, sB + (j * 16 + (lane & 7) + (lane >> 4) * 8) * CP + kk +
-                           ((lane >> 3) & 1) * 8);
-        mma_bf16(s[2 * j], af, b[0], b[1]);
-        mma_bf16(s[2 * j + 1], af, b[2], b[3]);
-      }
-    }
-  }
-}
-
-// The exact f32 softmax of the warp's 16 score rows in place: scale, keys at
-// or past L masked, exp(s - row max) / row sum over every key.
-template <int KTM>
-__device__ __forceinline__ void warp_softmax(float (&s)[2 * KTM][4], int L, float scale) {
-  const int lane = threadIdx.x & 31;
-  float mx[2] = {-INFINITY, -INFINITY}, sum[2] = {0.f, 0.f};
-#pragma unroll
-  for (int j = 0; j < 2 * KTM; ++j)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const int key = j * 8 + (lane & 3) * 2 + (e & 1);
-      s[j][e] = key < L ? __fmul_rn(s[j][e], scale) : -INFINITY;
-      mx[e >> 1] = fmaxf(mx[e >> 1], s[j][e]);
-    }
-#pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 1));
-    mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 2));
-  }
-#pragma unroll
-  for (int j = 0; j < 2 * KTM; ++j)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const int key = j * 8 + (lane & 3) * 2 + (e & 1);
-      s[j][e] = key < L ? expf(__fsub_rn(s[j][e], mx[e >> 1])) : 0.f;
-      sum[e >> 1] += s[j][e];
-    }
-#pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    sum[h] += __shfl_xor_sync(0xffffffffu, sum[h], 1);
-    sum[h] += __shfl_xor_sync(0xffffffffu, sum[h], 2);
-  }
-#pragma unroll
-  for (int j = 0; j < 2 * KTM; ++j)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) s[j][e] = s[j][e] / sum[e >> 1];
-}
 
 constexpr int kFwdRows = 128;     // query rows of a forward block: two warpgroups of 64
 constexpr int kFwdThreads = 288;  // two consumer warpgroups and a producer warp
@@ -233,8 +165,8 @@ __global__ void __launch_bounds__(kFwdThreads, 1) attn_fwd_kernel(
 #pragma unroll
       for (int j = 0; j < KTM; ++j)
         if (j < kt)
-          wg_ss<8>(s[j], sw128_desc(st + wg * 8192 + 32 * k16, 16, 1024),
-                   sw128_desc(st + kFwdRows * 128 + j * 8192 + 32 * k16, 16, 1024));
+          wg_ss<0, 0>(s[j], wg_desc<0>(st + wg * 8192, k16),
+                      wg_desc<0>(st + kFwdRows * 128 + j * 8192, k16));
     wg_commit();
     wg_wait<0>();
 #pragma unroll
@@ -303,7 +235,7 @@ __global__ void __launch_bounds__(kFwdThreads, 1) attn_fwd_kernel(
     const unsigned char* st = vs + slot * kV;
 #pragma unroll
     for (int kb = 0; kb < 4 * KTM; ++kb)
-      if (kb < 4 * kt) wg_rs_t<8>(acc, pa[kb], sw128_desc(st + kb * 2048, 1024, 1024));
+      if (kb < 4 * kt) wg_rs_t(acc, pa[kb], sw128_desc(st + kb * 2048, 1024, 1024));
     wg_commit();
     wg_wait<0>();
     wg_fence_acc(acc);
@@ -320,86 +252,196 @@ __global__ void __launch_bounds__(kFwdThreads, 1) attn_fwd_kernel(
   }
 }
 
-// grid (ceil(L / 64), B), 128 threads.  Writes pt = T(p) and ds = T(p (dp -
-// sum_keys dp p) / sqrt C), (B, Lp, Lp) bf16, rows < L; do: (B, Lp, C).
+// The ds kernel's shared memory: max(2, C / 64) stages of fwd_qk_stage(KTM)
+// bytes (first two q/k stages as the forward's; then chunk c's do rows and v
+// keys in stage c, all resident), five barriers, 1024 bytes of alignment.
+__host__ __device__ inline int ds_smem_bytes(int ktm, int C) {
+  const int chunks = (C + 63) / 64;
+  return 1024 + (chunks > 2 ? chunks : 2) * fwd_qk_stage(ktm) + 8 * 8;
+}
+
+// grid (ceil(L / 128), B), 288 threads.  qmap, kmap, vmap, dmap: 3-D maps
+// (C, L, B) of the token-major q, k, v (rows 3C apart) and do (rows C apart),
+// Lp rows a sample, boxes of 64 channels x 64 tokens, zeros past C and past
+// L; ds, pt: (B, Lp, Lp) bf16, rows and keys < L written.
+//
+// The scores and the softmax are the forward kernel's (each consumer
+// warpgroup's 64 rows over every key in wgmma accumulators, the exact
+// two-pass f32 softmax), p kept in f32 in those registers.  Then do and v
+// (the block's 128 rows and every key, all channels: 192 KB at C 256, L 256)
+// arrive in the stages the q/k chunks left, and dp = do v^T runs 64 keys at a
+// time into one 64 x 64 accumulator: pass 0 sums dp * p over every key of a
+// row, pass 1 computes dp again (the registers hold p and one dp tile, not
+// two 64 x 256 tiles) and writes ds = T(p (dp - sum) / sqrt C) and pt = T(p).
 template <int KTM>
-__global__ void __launch_bounds__(kAttnThreads) attn_ds_kernel(
-    const bf16* qkv, const bf16* dO, bf16* pt, bf16* ds, int C, int L, float scale) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  const int Lp = padded_tokens(L), kt = Lp / 16, CP = C + 8, ld = 3 * C;
-  bf16* sQ = reinterpret_cast<bf16*>(smem_raw);
-  bf16* sD = sQ + kQRows * CP;
-  bf16* sKV = sD + kQRows * CP;
-  const int b = blockIdx.y, q0 = blockIdx.x * kQRows;
-  const bf16* base = qkv + static_cast<long long>(b) * Lp * ld;
-  stage_rows(sQ, base, ld, 0, q0, kQRows, L, C);
-  stage_rows(sD, dO + static_cast<long long>(b) * Lp * C, C, 0, q0, kQRows, L, C);
-  stage_rows(sKV, base, ld, C, 0, Lp, L, C);
-  __syncthreads();
-  float p[2 * KTM][4];
-  warp_scores<KTM>(p, sQ, sKV, C, kt);
-  warp_softmax<KTM>(p, L, scale);
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int row0 = q0 + warp * 16 + (lane >> 2);
-  const long long pb = static_cast<long long>(b) * Lp * Lp;
-#pragma unroll
-  for (int j = 0; j < 2 * KTM; ++j)
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int row = row0 + h * 8, key = j * 8 + (lane & 3) * 2;
-      if (row < L && key < Lp)
-        *reinterpret_cast<unsigned*>(pt + pb + static_cast<long long>(row) * Lp + key) =
-            pack_bf16(p[j][2 * h], p[j][2 * h + 1]);
+__global__ void __launch_bounds__(kFwdThreads, 1) attn_ds_kernel(
+    const __grid_constant__ CUtensorMap qmap, const __grid_constant__ CUtensorMap kmap,
+    const __grid_constant__ CUtensorMap vmap, const __grid_constant__ CUtensorMap dmap, bf16* ds,
+    bf16* pt, int C, int L, float scale) {
+  constexpr int kStage = fwd_qk_stage(KTM);
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  unsigned char* stages = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  const int Lp = padded_tokens(L), kt = (L + 63) / 64, chunks = (C + 63) / 64;
+  uint64_t* bars = reinterpret_cast<uint64_t*>(stages + (chunks > 2 ? chunks : 2) * kStage);
+  uint64_t *qk_full = bars, *qk_empty = bars + 2, *dv_full = bars + 4;
+  const int b = blockIdx.y, q0 = blockIdx.x * kFwdRows;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < 2; ++i) {
+      mbar_init(qk_full + i, 1);
+      mbar_init(qk_empty + i, 8);           // one arrival per consumer warp
     }
+    mbar_init(dv_full, 1);
+    mbar_init_fence();
+  }
   __syncthreads();
-  stage_rows(sKV, base, ld, 2 * C, 0, Lp, L, C);
-  __syncthreads();
-  // dp = do v^T in chunks of 64 keys: first each row's sum of dp * p, then ds
+
+  if (warp == 8) {
+    // Producer: q and k chunk by chunk through two stages; once the
+    // consumers have read the last of them, do and v whole.
+    if (lane == 0) {
+      for (int c = 0; c < chunks; ++c) {
+        const int slot = c & 1;
+        if (c >= 2) mbar_wait(qk_empty + slot, ((c >> 1) - 1) & 1);
+        unsigned char* st = stages + slot * kStage;
+        mbar_expect_tx(qk_full + slot, kFwdRows * 128 + kt * 8192);
+        tma_load_3d(st, &qmap, 64 * c, q0, b, qk_full + slot);
+        tma_load_3d(st + 8192, &qmap, 64 * c, q0 + 64, b, qk_full + slot);
+        for (int j = 0; j < kt; ++j)
+          tma_load_3d(st + kFwdRows * 128 + j * 8192, &kmap, 64 * c, 64 * j, b, qk_full + slot);
+      }
+      for (int c = chunks > 2 ? chunks - 2 : 0; c < chunks; ++c)
+        mbar_wait(qk_empty + (c & 1), (c >> 1) & 1);
+      mbar_expect_tx(dv_full, chunks * (kFwdRows * 128 + kt * 8192));
+      for (int c = 0; c < chunks; ++c) {
+        unsigned char* st = stages + c * kStage;
+        tma_load_3d(st, &dmap, 64 * c, q0, b, dv_full);
+        tma_load_3d(st + 8192, &dmap, 64 * c, q0 + 64, b, dv_full);
+        for (int j = 0; j < kt; ++j)
+          tma_load_3d(st + kFwdRows * 128 + j * 8192, &vmap, 64 * c, 64 * j, b, dv_full);
+      }
+    }
+    return;
+  }
+
+  // Consumer warpgroup wg: query rows q0 + 64 wg ..; s[j] holds keys 64 j ..
+  // 64 j + 63 in wgmma's accumulator layout (n-tile t, element e: row
+  // 16 (warp % 4) + lane / 4 + 8 (e / 2), key 64 j + 8 t + 2 (lane % 4) + e % 2).
+  const int wg = warp >> 2;
+  float s[KTM][8][4];
+#pragma unroll
+  for (int j = 0; j < KTM; ++j) {
+#pragma unroll
+    for (int t = 0; t < 8; ++t) s[j][t][0] = s[j][t][1] = s[j][t][2] = s[j][t][3] = 0.f;
+    wg_fence_acc(s[j]);
+  }
+  for (int c = 0; c < chunks; ++c) {
+    const int slot = c & 1;
+    mbar_wait(qk_full + slot, (c >> 1) & 1);
+    __syncwarp();                            // wgmma is warp-aligned
+    wg_fence();
+    const unsigned char* st = stages + slot * kStage;
+#pragma unroll
+    for (int k16 = 0; k16 < 4; ++k16)
+#pragma unroll
+      for (int j = 0; j < KTM; ++j)
+        if (j < kt)
+          wg_ss<0, 0>(s[j], wg_desc<0>(st + wg * 8192, k16),
+                      wg_desc<0>(st + kFwdRows * 128 + j * 8192, k16));
+    wg_commit();
+    wg_wait<0>();
+#pragma unroll
+    for (int j = 0; j < KTM; ++j) wg_fence_acc(s[j]);
+    if (lane == 0) mbar_arrive(qk_empty + slot);
+  }
+
+  // The exact f32 softmax of each row over every key (keys at or past L
+  // masked), as the forward kernel computes it: p = exp(s - max) / sum in f32.
+  float mx[2] = {-INFINITY, -INFINITY}, sum[2] = {0.f, 0.f};
+#pragma unroll
+  for (int j = 0; j < KTM; ++j)
+#pragma unroll
+    for (int t = 0; t < 8; ++t)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int key = 64 * j + 8 * t + 2 * (lane & 3) + (e & 1);
+        s[j][t][e] = key < L ? __fmul_rn(s[j][t][e], scale) : -INFINITY;
+        mx[e >> 1] = fmaxf(mx[e >> 1], s[j][t][e]);
+      }
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 1));
+    mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 2));
+  }
+#pragma unroll
+  for (int j = 0; j < KTM; ++j)
+#pragma unroll
+    for (int t = 0; t < 8; ++t)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int key = 64 * j + 8 * t + 2 * (lane & 3) + (e & 1);
+        s[j][t][e] = key < L ? expf(__fsub_rn(s[j][t][e], mx[e >> 1])) : 0.f;
+        sum[e >> 1] += s[j][t][e];
+      }
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    sum[h] += __shfl_xor_sync(0xffffffffu, sum[h], 1);
+    sum[h] += __shfl_xor_sync(0xffffffffu, sum[h], 2);
+  }
+#pragma unroll
+  for (int j = 0; j < KTM; ++j)
+#pragma unroll
+    for (int t = 0; t < 8; ++t)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[j][t][e] = s[j][t][e] / sum[e >> 1];
+
+  // dp = do v^T, 64 keys at a time: pass 0 each row's sum of dp * p, pass 1
+  // ds and pt.  Stage c holds do's chunk c (the block's 128 rows) and v's.
+  mbar_wait(dv_full, 0);
+  const int row0 = q0 + 64 * wg + 16 * (warp & 3) + (lane >> 2);
+  const long long sample = static_cast<long long>(b) * Lp;
   float dsum[2] = {0.f, 0.f};
 #pragma unroll
   for (int pass = 0; pass < 2; ++pass) {
 #pragma unroll
-    for (int ch = 0; ch < KTM / 4; ++ch) {
-      if (ch * 4 < kt) {
-        float dp[8][4];
+    for (int j = 0; j < KTM; ++j) {
+      if (j < kt) {
+        float acc[8][4];
 #pragma unroll
-        for (int j = 0; j < 8; ++j)
+        for (int t = 0; t < 8; ++t) acc[t][0] = acc[t][1] = acc[t][2] = acc[t][3] = 0.f;
+        wg_fence_acc(acc);
+        __syncwarp();
+        wg_fence();
+        for (int c = 0; c < chunks; ++c) {
+          const unsigned char* st = stages + c * kStage;
 #pragma unroll
-          for (int e = 0; e < 4; ++e) dp[j][e] = 0.f;
-        for (int kk = 0; kk < C; kk += 16) {
-          unsigned af[4];
-          ldmatrix_x4(af, sD + (warp * 16 + (lane & 15)) * CP + kk + (lane >> 4) * 8);
-#pragma unroll
-          for (int j = 0; j < 4; ++j) {
-            if (ch * 4 + j < kt) {
-              unsigned b4[4];
-              ldmatrix_x4(b4, sKV + ((ch * 4 + j) * 16 + (lane & 7) + (lane >> 4) * 8) * CP + kk +
-                                  ((lane >> 3) & 1) * 8);
-              mma_bf16(dp[2 * j], af, b4[0], b4[1]);
-              mma_bf16(dp[2 * j + 1], af, b4[2], b4[3]);
-            }
-          }
+          for (int k16 = 0; k16 < 4; ++k16)
+            wg_ss<0, 0>(acc, wg_desc<0>(st + wg * 8192, k16),
+                        wg_desc<0>(st + kFwdRows * 128 + j * 8192, k16));
         }
+        wg_commit();
+        wg_wait<0>();
+        wg_fence_acc(acc);
+        if (pass == 0) {
 #pragma unroll
-        for (int j = 0; j < 8; ++j)
+          for (int t = 0; t < 8; ++t)
 #pragma unroll
-          for (int e = 0; e < 4; ++e) {
-            const float pv = p[ch * 8 + j][e];
-            if (pass == 0) {
-              dsum[e >> 1] += dp[j][e] * pv;
-            } else {
-              dp[j][e] = __fmul_rn(__fmul_rn(pv, __fsub_rn(dp[j][e], dsum[e >> 1])), scale);
-            }
-          }
-        if (pass == 1) {
+            for (int e = 0; e < 4; ++e) dsum[e >> 1] += acc[t][e] * s[j][t][e];
+        } else {
 #pragma unroll
-          for (int j = 0; j < 8; ++j)
+          for (int t = 0; t < 8; ++t)
 #pragma unroll
             for (int h = 0; h < 2; ++h) {
-              const int row = row0 + h * 8, key = (ch * 8 + j) * 8 + (lane & 3) * 2;
-              if (row < L && key < Lp)
-                *reinterpret_cast<unsigned*>(ds + pb + static_cast<long long>(row) * Lp + key) =
-                    pack_bf16(dp[j][2 * h], dp[j][2 * h + 1]);
+              const int row = row0 + 8 * h, key = 64 * j + 8 * t + 2 * (lane & 3);
+              if (row < L && key < L) {
+                const float p0 = s[j][t][2 * h], p1 = s[j][t][2 * h + 1];
+                const float d0 = __fmul_rn(__fmul_rn(p0, __fsub_rn(acc[t][2 * h], dsum[h])), scale);
+                const float d1 =
+                    __fmul_rn(__fmul_rn(p1, __fsub_rn(acc[t][2 * h + 1], dsum[h])), scale);
+                const long long at = (sample + row) * Lp + key;
+                *reinterpret_cast<unsigned*>(ds + at) = pack_bf16(d0, d1);
+                *reinterpret_cast<unsigned*>(pt + at) = pack_bf16(p0, p1);
+              }
             }
         }
       }
@@ -415,31 +457,52 @@ __global__ void __launch_bounds__(kAttnThreads) attn_ds_kernel(
 }
 
 // gs[b, l, c] = T(g[b, c, l] * rescale) (rescale already in bf16), token-major
-// with Lp rows a sample.
-__global__ void scale_transpose_kernel(const bf16* g, int C, int L, long long total, float rescale,
-                                       bf16* gs) {
-  const long long i = blockIdx.x * static_cast<long long>(blockDim.x) + threadIdx.x;
-  if (i >= total) return;
-  const long long b = i / (static_cast<long long>(C) * L);
-  const int c = static_cast<int>((i / L) % C), l = static_cast<int>(i % L);
-  gs[(b * padded_tokens(L) + l) * C + c] = __float2bfloat16(bf(g[i]) * rescale);
+// with Lp rows a sample: a block takes a 32 x 32 tile (channels x tokens) of
+// one sample, read along l and written along c through shared memory.  grid
+// (ceil(L / 32), C / 32, B), 256 threads.
+__global__ void __launch_bounds__(256) scale_transpose_kernel(const bf16* g, int C, int L,
+                                                              float rescale, bf16* gs) {
+  __shared__ bf16 tile[32][34];
+  const int b = blockIdx.z, c0 = blockIdx.y * 32, l0 = blockIdx.x * 32;
+  const int tx = threadIdx.x & 31, ty = threadIdx.x >> 5;
+  const bf16* src = g + static_cast<long long>(b) * C * L;
+  for (int i = ty; i < 32; i += 8)
+    if (l0 + tx < L)
+      tile[i][tx] =
+          __float2bfloat16(bf(src[static_cast<long long>(c0 + i) * L + l0 + tx]) * rescale);
+  __syncthreads();
+  bf16* dst = gs + static_cast<long long>(b) * padded_tokens(L) * C;
+  for (int i = ty; i < 32; i += 8)
+    if (l0 + i < L) dst[static_cast<long long>(l0 + i) * C + c0 + tx] = tile[tx][i];
 }
 
-int key_tiles_max(int L) {
-  const int kt = padded_tokens(L) / 16;
-  return kt <= 4 ? 4 : kt <= 8 ? 8 : 16;
+// The parameter gradients: out[i] = sum over s < S of in[s n + i], in order of
+// s, for the three runs of partials one after the other (the q/k/v and the
+// output product's weights with their bias rows, GroupNorm's per-sample
+// dgamma and dbeta).
+struct GradSums {
+  const float* in[3];
+  int splits[3], n[3];
+};
+
+__global__ void grad_sums_kernel(const GradSums a, float* out) {
+  int i = blockIdx.x * blockDim.x + threadIdx.x;
+  for (int r = 0; r < 3; ++r) {
+    if (i < a.n[r]) {
+      float t = 0.f;
+      for (int s = 0; s < a.splits[r]; ++s) t += a.in[r][static_cast<long long>(s) * a.n[r] + i];
+      out[i] = t;
+      return;
+    }
+    i -= a.n[r];
+    out += a.n[r];
+  }
 }
 
-// One of the token-major q, k, v of [q | k | v] (col 0, C or 2C) as a 3-D
-// map (C, L, B): rows 3C apart, Lp rows a sample, so the padded rows and the
-// channels past C read as zeros; boxes of 64 channels x 64 tokens.
-bool qkv_map(CUtensorMap* map, const bf16* qkv, int col, int B, int C, int L) {
-  const cuuint64_t dims[3] = {static_cast<cuuint64_t>(C), static_cast<cuuint64_t>(L),
-                              static_cast<cuuint64_t>(B)};
-  const cuuint64_t strides[2] = {static_cast<cuuint64_t>(3 * C) * 2,
-                                 static_cast<cuuint64_t>(3 * C) * 2 * padded_tokens(L)};
-  const cuuint32_t box[3] = {64, 64, 1};
-  return wg_tensor_map(map, qkv + col, 3, dims, strides, box);
+// q, k or v of [q | k | v] (col 0, C or 2C), or do (ld C): a 3-D map (C, L,
+// B) with Lp rows a sample, boxes of 64 channels x 64 tokens.
+bool token_map(CUtensorMap* map, const bf16* p, int ld, int B, int C, int L) {
+  return wg_rows_map(map, p, C, ld, L, padded_tokens(L), B, 64);
 }
 
 template <int KTM>
@@ -455,14 +518,15 @@ cudaError_t attn_fwd(const CUtensorMap (&maps)[3], bf16* o, int B, int C, int L,
 }
 
 template <int KTM>
-cudaError_t attn_ds(const bf16* qkv, const bf16* dO, bf16* pt, bf16* ds, int B, int C, int L,
+cudaError_t attn_ds(const CUtensorMap (&maps)[4], bf16* ds, bf16* pt, int B, int C, int L,
                     float scale, cudaStream_t s) {
-  static SmemAttr attr;
-  const int smem = attn_smem_bytes(C, L, 2);
-  cudaError_t err = attr.apply(reinterpret_cast<const void*>(attn_ds_kernel<KTM>), smem);
+  static SmemAttr attr;   // set once a card: the most any width takes
+  cudaError_t err = attr.apply(reinterpret_cast<const void*>(attn_ds_kernel<KTM>),
+                               ds_smem_bytes(KTM, 256));
   if (err != cudaSuccess) return err;
-  attn_ds_kernel<KTM><<<dim3((L + kQRows - 1) / kQRows, B), kAttnThreads, smem, s>>>(
-      qkv, dO, pt, ds, C, L, scale);
+  attn_ds_kernel<KTM><<<dim3((L + kFwdRows - 1) / kFwdRows, B), kFwdThreads,
+                        ds_smem_bytes(KTM, C), s>>>(maps[0], maps[1], maps[2], maps[3], ds, pt,
+                                                    C, L, scale);
   return cudaGetLastError();
 }
 
@@ -470,7 +534,7 @@ cudaError_t dispatch_fwd(const bf16* qkv, bf16* o, int B, int C, int L, float sc
                          cudaStream_t s) {
   CUtensorMap maps[3];
   for (int i = 0; i < 3; ++i)
-    if (!qkv_map(&maps[i], qkv, i * C, B, C, L)) return cudaErrorInvalidValue;
+    if (!token_map(&maps[i], qkv + i * C, 3 * C, B, C, L)) return cudaErrorInvalidValue;
   switch (fwd_key_tiles_max(L)) {
     case 1: return attn_fwd<1>(maps, o, B, C, L, scale, s);
     case 2: return attn_fwd<2>(maps, o, B, C, L, scale, s);
@@ -478,28 +542,22 @@ cudaError_t dispatch_fwd(const bf16* qkv, bf16* o, int B, int C, int L, float sc
   }
 }
 
-cudaError_t dispatch_ds(const bf16* qkv, const bf16* dO, bf16* pt, bf16* ds, int B, int C, int L,
+cudaError_t dispatch_ds(const bf16* qkv, const bf16* dO, bf16* ds, bf16* pt, int B, int C, int L,
                         float scale, cudaStream_t s) {
-  switch (key_tiles_max(L)) {
-    case 4: return attn_ds<4>(qkv, dO, pt, ds, B, C, L, scale, s);
-    case 8: return attn_ds<8>(qkv, dO, pt, ds, B, C, L, scale, s);
-    default: return attn_ds<16>(qkv, dO, pt, ds, B, C, L, scale, s);
+  CUtensorMap maps[4];
+  for (int i = 0; i < 3; ++i)
+    if (!token_map(&maps[i], qkv + i * C, 3 * C, B, C, L)) return cudaErrorInvalidValue;
+  if (!token_map(&maps[3], dO, C, B, C, L)) return cudaErrorInvalidValue;
+  switch (fwd_key_tiles_max(L)) {
+    case 1: return attn_ds<1>(maps, ds, pt, B, C, L, scale, s);
+    case 2: return attn_ds<2>(maps, ds, pt, B, C, L, scale, s);
+    default: return attn_ds<4>(maps, ds, pt, B, C, L, scale, s);
   }
 }
 
 bool shape_ok(int B, int C, int L, int G) {
   return B >= 1 && (C == 32 || C == 64 || C == 128 || C == 256) && L >= 1 && L <= kMaxTokens &&
          G >= 1 && G <= 32 && C % G == 0;
-}
-
-// Split-K of the weight gradients: K = B * Lp token rows in chunks of a
-// multiple of 32, at most 64 chunks and about 512 rows each.
-int split_chunk(long long K) {
-  long long S = (K + 511) / 512;
-  if (S > 64) S = 64;
-  if (S < 1) S = 1;
-  const long long chunk = ((K + S - 1) / S + kBK - 1) / kBK * kBK;
-  return static_cast<int>(chunk);
 }
 
 // The forward's two products on wg_gemm: [q | k | v] = h Wqkv and the
@@ -514,6 +572,33 @@ FwdPlans fwd_plans(int B, int C, int L) {
   const int M = B * padded_tokens(L);
   r.p[0] = wg_plan(r.g[0], 0, B, 0, M, 3 * C, C);
   r.p[1] = wg_plan(r.g[1], 0, B, 0, M, C, C);
+  return r;
+}
+
+// The backward's products on wg_gemm, in launch order: do, dq, dk, dv (per
+// sample), dh over all B Lp token rows, none of them split; the weight
+// gradients with K over every (sample, 64 tokens), split in at most
+// kGradSplits, float32 partials with the bias row.
+enum { kDo, kDq, kDk, kDv, kDh, kDWqkv, kDWp, kBwdProducts };
+constexpr int kGradSplits = 64;
+
+struct BwdPlans {
+  WgArgs g[kBwdProducts];
+  WgPlan p[kBwdProducts];
+};
+
+BwdPlans bwd_plans(int B, int C, int L) {
+  BwdPlans r{};
+  const int rows = B * padded_tokens(L), kt = (L + 63) / 64, mtps = (L + kWgBM - 1) / kWgBM;
+  const int kc = (C + 63) / 64, k3c = (3 * C + 63) / 64;
+  r.p[kDo] = wg_plan_rows(r.g[kDo], rows, C, kc, kc, 0, 1, 0, 1);
+  r.p[kDq] = wg_plan_rows(r.g[kDq], rows, C, kt, kt, mtps, B, 0, 1);
+  r.p[kDk] = wg_plan_rows(r.g[kDk], rows, C, kt, kt, mtps, B, 1, 1);
+  r.p[kDv] = wg_plan_rows(r.g[kDv], rows, C, kt, kt, mtps, B, 1, 1);
+  r.p[kDh] = wg_plan_rows(r.g[kDh], rows, C, k3c, k3c, 0, 1, 0, 1);
+  r.p[kDWqkv] = wg_plan_rows(r.g[kDWqkv], C, 3 * C, B * kt, kt, 0, 1, 1, kGradSplits);
+  r.p[kDWp] = wg_plan_rows(r.g[kDWp], C, C, B * kt, kt, 0, 1, 1, kGradSplits);
+  r.g[kDWqkv].colsum = r.g[kDWp].colsum = 1;
   return r;
 }
 
@@ -542,13 +627,13 @@ FwdBuffers carve_fwd(Carve& w, int B, int C, int L, int G) {
 struct BwdBuffers {
   FwdBuffers f;
   bf16 *gs, *dO, *pt, *ds, *dqkv;
-  float *dh, *gnpart, *part1, *part2;
-  int chunk, splits;
+  float *dh, *gnpart, *part1, *part2;   // dh: float32 NCHW
 };
 
 BwdBuffers carve_bwd(Carve& w, int B, int C, int L, int G) {
   const int Lp = padded_tokens(L);
   const long long rows = static_cast<long long>(B) * Lp;
+  const BwdPlans pl = bwd_plans(B, C, L);
   BwdBuffers d;
   d.f = carve_fwd(w, B, C, L, G);
   d.gs = w.take<bf16>(rows * C);
@@ -558,10 +643,8 @@ BwdBuffers carve_bwd(Carve& w, int B, int C, int L, int G) {
   d.dqkv = w.take<bf16>(rows * 3 * C);
   d.dh = w.take<float>(rows * C);
   d.gnpart = w.take<float>(2LL * B * C);
-  d.chunk = split_chunk(rows);
-  d.splits = static_cast<int>((rows + d.chunk - 1) / d.chunk);
-  d.part1 = w.take<float>(static_cast<long long>(d.splits) * (C + 1) * 3 * C);
-  d.part2 = w.take<float>(static_cast<long long>(d.splits) * (C + 1) * C);
+  d.part1 = w.take<float>(wg_partial_floats(pl.p[kDWqkv], C, 3 * C, 1, 1));
+  d.part2 = w.take<float>(wg_partial_floats(pl.p[kDWp], C, C, 1, 1));
   return d;
 }
 
@@ -589,7 +672,31 @@ cudaError_t forward_core(const bf16* x, const bf16* gamma, const bf16* beta, con
   return clock.mark();
 }
 
+// Product i of the backward's plans on maps a and b with epilogue e.
+template <int KIND, int TA, int TB>
+cudaError_t bwd_product(const BwdPlans& pl, int i, const CUtensorMap& a, const CUtensorMap& b,
+                        const WgEpi& e, float* partial, cudaStream_t s) {
+  WgArgs g = pl.g[i];
+  g.e = e;
+  g.partial = partial;
+  return wg_gemm_maps<KIND, TA, TB>(a, b, g, pl.p[i], s);
+}
+
+// The epilogue of a product over B Lp token rows (tokens < L written): bf16
+// rows of ld values at out, or float32 NCHW at outf.
+WgEpi rows_epi(bf16* out, float* outf, long long ld, int Lp, int L) {
+  WgEpi e{};
+  e.kind = out != nullptr ? kWgRow : kWgF32;
+  e.out = out;
+  e.outf = outf;
+  e.ld = ld;
+  e.rps = Lp;
+  e.valid = L;
+  return e;
+}
+
 constexpr int kGemmPlanInts = 14;   // WgPlan's ten fields and its box
+constexpr int kPlanHead = 8;        // the plan's own fields before the products'
 
 void put_plan(const WgPlan& p, int* out) {
   const int v[kGemmPlanInts] = {p.bm,     p.bn,     p.tiles_m, p.tiles_n, p.steps,
@@ -611,27 +718,27 @@ long long rdm_attn_tiled_workspace(int B, int C, int L, int G, int bwd) {
 }
 
 // The launch plan at (B, C, L): plan[0] the kernel launches of the forward
-// and plan[1] of the backward (split-K sums included); the forward attention
-// kernel's shared-memory bytes (plan[2]), its grid's x (query tiles of 128,
-// plan[4]), the key tiles of 64 it is built for (plan[5]) and its threads
-// (plan[6]); the backward's ds kernel's shared memory (plan[3]), query tiles
-// of 64 (plan[7]) and key tiles of 16 (plan[8]); the padded tokens
-// (plan[9]); the weight gradients' K chunk (plan[10]) and its number
-// (plan[11]); then the q/k/v product's and the output product's plans, 14
-// ints each (as rdm_resblock_tiled_plan's): 40 ints.
+// and plan[1] of the backward (split-K sums included); the shared-memory
+// bytes of the forward attention kernel (plan[2]) and of the ds kernel
+// (plan[3]); both kernels' grid x (query tiles of 128, plan[4]), the key
+// tiles of 64 they are built for (plan[5]) and their threads (plan[6]); the
+// padded tokens (plan[7]); then the products' plans, 14 ints each (as
+// rdm_resblock_tiled_plan's): q/k/v and output (forward), do, dq, dk, dv,
+// dh, the q/k/v and the output weight gradients (backward): 134 ints.
 int rdm_attn_tiled_plan(int B, int C, int L, int G, int* plan) {
   if (!shape_ok(B, C, L, G)) return static_cast<int>(cudaErrorInvalidValue);
-  Carve w{nullptr};
-  const BwdBuffers d = carve_bwd(w, B, C, L, G);
-  const FwdPlans pl = fwd_plans(B, C, L);
-  const int qkv = pl.p[0].splits > 1 ? 2 : 1, proj = pl.p[1].splits > 1 ? 2 : 1;
-  const int v[12] = {2 + qkv + proj, 2 + qkv + 13, fwd_smem_bytes(fwd_key_tiles_max(L)),
-                     attn_smem_bytes(C, L, 2), (L + kFwdRows - 1) / kFwdRows,
-                     fwd_key_tiles_max(L), kFwdThreads, (L + kQRows - 1) / kQRows,
-                     key_tiles_max(L), padded_tokens(L), d.chunk, d.splits};
-  for (int i = 0; i < 12; ++i) plan[i] = v[i];
-  put_plan(pl.p[0], plan + 12);
-  put_plan(pl.p[1], plan + 12 + kGemmPlanInts);
+  const FwdPlans fp = fwd_plans(B, C, L);
+  const BwdPlans bp = bwd_plans(B, C, L);
+  const int qkv = fp.p[0].splits > 1 ? 1 : 0, proj = fp.p[1].splits > 1 ? 1 : 0;
+  const int ktm = fwd_key_tiles_max(L);
+  const int v[kPlanHead] = {4 + qkv + proj, 14 + qkv,         fwd_smem_bytes(ktm),
+                            ds_smem_bytes(ktm, C), (L + kFwdRows - 1) / kFwdRows, ktm,
+                            kFwdThreads,       padded_tokens(L)};
+  for (int i = 0; i < kPlanHead; ++i) plan[i] = v[i];
+  put_plan(fp.p[0], plan + kPlanHead);
+  put_plan(fp.p[1], plan + kPlanHead + kGemmPlanInts);
+  for (int i = 0; i < kBwdProducts; ++i)
+    put_plan(bp.p[i], plan + kPlanHead + (2 + i) * kGemmPlanInts);
   return 0;
 }
 
@@ -673,96 +780,106 @@ int rdm_attn_tiled_fwd(const void* x, void* out, const void* gamma, const void* 
 
 // The backward: x, g (B, C, H, W) bf16; dx out (bf16, NCHW); grads (float32)
 // receives [dWq | dWk | dWv] with the bias gradients as row C ((C + 1) x 3C),
-// then dWp with dbp as row C ((C + 1) x C), then dgamma and dbeta (C each).
-// wqkv (C, 3C) = [Wq | Wk | Wv]; wp (C, C) = Wp; the rest as the forward's.
+// then dWp with dbp as row C ((C + 1) x C), then dgamma and dbeta (C each),
+// every element written.  wqkv (C, 3C) = [Wq | Wk | Wv]; wp (C, C) = Wp; the
+// rest as the forward's.  launch_ms: null, or 12 floats that receive the ms
+// of the recompute (the forward's first three launches), gs, do, ds, dq, dk,
+// dv, dh, GroupNorm's backward, the two weight products and the sums.
 int rdm_attn_tiled_bwd(const void* x, const void* g, void* dx, const void* gamma,
                        const void* beta, const void* wqkv_t, const void* bqkv, const void* wqkv,
                        const void* wp, void* grads, void* workspace, int B, int C, int L, int G,
-                       float eps, float scale, float rescale_t, float rescale, void* stream) {
+                       float eps, float scale, float rescale_t, float rescale, void* stream,
+                       float* launch_ms) {
   if (!shape_ok(B, C, L, G)) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   Carve w{static_cast<char*>(workspace)};
   const BwdBuffers d = carve_bwd(w, B, C, L, G);
   const FwdBuffers& f = d.f;
-  // padded token rows are read by the products over tokens: they must be 0
-  cudaError_t err = cudaMemsetAsync(workspace, 0, w.used, s);
-  if (err != cudaSuccess) return static_cast<int>(err);
+  const BwdPlans pl = bwd_plans(B, C, L);
   const bf16* xb = static_cast<const bf16*>(x);
   const bf16* gb = static_cast<const bf16*>(g);
-  LaunchClock untimed(nullptr, s);
-  if ((err = forward_core(xb, static_cast<const bf16*>(gamma), static_cast<const bf16*>(beta),
+  const int Lp = padded_tokens(L), rows = B * Lp;
+  LaunchClock clock(launch_ms, s), untimed(nullptr, s);
+  cudaError_t err = clock.mark();
+  if (err != cudaSuccess ||
+      (err = forward_core(xb, static_cast<const bf16*>(gamma), static_cast<const bf16*>(beta),
                           static_cast<const bf16*>(wqkv_t), static_cast<const bf16*>(bqkv), f, B,
-                          C, L, G, eps, scale, s, untimed)) != cudaSuccess)
+                          C, L, G, eps, scale, s, untimed)) != cudaSuccess ||
+      (err = clock.mark()) != cudaSuccess)
     return static_cast<int>(err);
-  const int Lp = padded_tokens(L);
-  const long long rows = static_cast<long long>(B) * Lp, sb = static_cast<long long>(Lp) * C;
-  const long long total = static_cast<long long>(B) * C * L;
-  scale_transpose_kernel<<<static_cast<unsigned>((total + 255) / 256), 256, 0, s>>>(
-      gb, C, L, total, rescale_t, d.gs);
-  if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
-
-  GemmArgs m{};   // do = T(gs Wp^T)
-  m.a = src(d.gs, sb, C, 1, L, kKContig);
-  m.b = src(static_cast<const bf16*>(wp), 0, C, 1, C, kKContig);
-  m.e = epi_bf16(d.dO, sb, C, nullptr);
-  m.M = L, m.N = C, m.K = C;
-  if ((err = launch_gemm(m, B, s)) != cudaSuccess) return static_cast<int>(err);
-  if ((err = dispatch_ds(f.qkv, d.dO, d.pt, d.ds, B, C, L, scale, s)) != cudaSuccess)
+  scale_transpose_kernel<<<dim3((L + 31) / 32, C / 32, B), 256, 0, s>>>(gb, C, L, rescale_t, d.gs);
+  if ((err = cudaGetLastError()) != cudaSuccess || (err = clock.mark()) != cudaSuccess)
     return static_cast<int>(err);
 
-  const long long spp = static_cast<long long>(Lp) * Lp, sq = 3 * sb;
-  GemmArgs dq{};  // dq = T(ds k)
-  dq.a = src(d.ds, spp, Lp, 1, L, kKContig);
-  dq.b = src(f.qkv + C, sq, 1, 3 * C, C, kRContig);
-  dq.e = epi_bf16(d.dqkv, sq, 3 * C, nullptr);
-  dq.M = L, dq.N = C, dq.K = Lp;
-  if ((err = launch_gemm(dq, B, s)) != cudaSuccess) return static_cast<int>(err);
-  GemmArgs dk{};  // dk = T(ds^T q)
-  dk.a = src(d.ds, spp, 1, Lp, L, kRContig);
-  dk.b = src(f.qkv, sq, 1, 3 * C, C, kRContig);
-  dk.e = epi_bf16(d.dqkv + C, sq, 3 * C, nullptr);
-  dk.M = L, dk.N = C, dk.K = Lp;
-  if ((err = launch_gemm(dk, B, s)) != cudaSuccess) return static_cast<int>(err);
-  GemmArgs dv{};  // dv = T(pt^T do)
-  dv.a = src(d.pt, spp, 1, Lp, L, kRContig);
-  dv.b = src(d.dO, sb, 1, C, C, kRContig);
-  dv.e = epi_bf16(d.dqkv + 2 * C, sq, 3 * C, nullptr);
-  dv.M = L, dv.N = C, dv.K = Lp;
-  if ((err = launch_gemm(dv, B, s)) != cudaSuccess) return static_cast<int>(err);
+  // every operand as TMA reads it: token-major rows (K-major), or one
+  // sample's tokens as the K rows of an MN-major box, bounded at L
+  CUtensorMap gs_rows, wp_w, ds_k, k_mn, ds_mn, q_mn, pt_mn, do_mn, dqkv_rows, wqkv_w, h_mn,
+      dqkv_mn, o_mn, gs_mn;
+  const bool ok =
+      wg_rows_map(&gs_rows, d.gs, C, C, rows, rows, 1, kWgBM) &&
+      wg_weight_map(&wp_w, static_cast<const bf16*>(wp), C, C, 1, pl.p[kDo].bn) &&
+      wg_rows_map(&ds_k, d.ds, L, Lp, L, Lp, B, kWgBM) &&
+      token_map(&k_mn, f.qkv + C, 3 * C, B, C, L) &&
+      wg_rows_map(&ds_mn, d.ds, L, Lp, L, Lp, B, 64) && token_map(&q_mn, f.qkv, 3 * C, B, C, L) &&
+      wg_rows_map(&pt_mn, d.pt, L, Lp, L, Lp, B, 64) && token_map(&do_mn, d.dO, C, B, C, L) &&
+      wg_rows_map(&dqkv_rows, d.dqkv, 3 * C, 3 * C, rows, rows, 1, kWgBM) &&
+      wg_weight_map(&wqkv_w, static_cast<const bf16*>(wqkv), C, 3 * C, 1, pl.p[kDh].bn) &&
+      token_map(&h_mn, f.h, C, B, C, L) && token_map(&dqkv_mn, d.dqkv, 3 * C, B, 3 * C, L) &&
+      token_map(&o_mn, f.o, C, B, C, L) && token_map(&gs_mn, d.gs, C, B, C, L);
+  if (!ok) return static_cast<int>(cudaErrorInvalidValue);
 
-  GemmArgs dh{};  // dh = [dq | dk | dv] [Wq | Wk | Wv]^T, float32
-  dh.a = src(d.dqkv, sq, 3 * C, 1, L, kKContig);
-  dh.b = src(static_cast<const bf16*>(wqkv), 0, 3 * C, 1, C, kKContig);
-  dh.e = epi_f32(d.dh, sb, C);
-  dh.M = L, dh.N = C, dh.K = 3 * C;
-  if ((err = launch_gemm(dh, B, s)) != cudaSuccess) return static_cast<int>(err);
-  gn_bwd_kernel<<<B * G, kRowThreads, 0, s>>>(d.dh, sb, xb, gb, f.stats,
-                                              static_cast<const bf16*>(gamma), C, L, G, rescale,
-                                              static_cast<bf16*>(dx), d.gnpart);
-  if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
-
-  GemmArgs wq{};  // [dWq | dWk | dWv] and their biases (row C), split over token rows
-  wq.a = src(f.h, 0, 1, C, C, kRContig);
-  wq.a.ones_row = C;
-  wq.b = src(d.dqkv, 0, 1, 3 * C, 3 * C, kRContig);
-  wq.e = epi_f32(d.part1, static_cast<long long>(C + 1) * 3 * C, 3 * C);
-  wq.M = C + 1, wq.N = 3 * C, wq.K = static_cast<int>(rows), wq.kchunk = d.chunk;
-  if ((err = launch_gemm(wq, d.splits, s)) != cudaSuccess) return static_cast<int>(err);
-  GemmArgs wpg{};  // dWp and dbp (row C)
-  wpg.a = src(f.o, 0, 1, C, C, kRContig);
-  wpg.a.ones_row = C;
-  wpg.b = src(d.gs, 0, 1, C, C, kRContig);
-  wpg.e = epi_f32(d.part2, static_cast<long long>(C + 1) * C, C);
-  wpg.M = C + 1, wpg.N = C, wpg.K = static_cast<int>(rows), wpg.kchunk = d.chunk;
-  if ((err = launch_gemm(wpg, d.splits, s)) != cudaSuccess) return static_cast<int>(err);
-
-  float* out = static_cast<float*>(grads);
-  const int n1 = (C + 1) * 3 * C, n2 = (C + 1) * C;
-  if ((err = launch_sum(d.part1, n1, d.splits, n1, out, s)) != cudaSuccess)
+  // do = T(gs Wp^T); ds and pt; dq = T(ds k), dk = T(ds^T q), dv = T(pt^T do)
+  if ((err = bwd_product<kWgRow, 0, 0>(pl, kDo, gs_rows, wp_w, rows_epi(d.dO, nullptr, C, Lp, L),
+                                       nullptr, s)) != cudaSuccess ||
+      (err = clock.mark()) != cudaSuccess ||
+      (err = dispatch_ds(f.qkv, d.dO, d.ds, d.pt, B, C, L, scale, s)) != cudaSuccess ||
+      (err = clock.mark()) != cudaSuccess ||
+      (err = bwd_product<kWgRow, 0, 1>(pl, kDq, ds_k, k_mn,
+                                       rows_epi(d.dqkv, nullptr, 3 * C, Lp, L), nullptr, s)) !=
+          cudaSuccess ||
+      (err = clock.mark()) != cudaSuccess ||
+      (err = bwd_product<kWgRow, 1, 1>(pl, kDk, ds_mn, q_mn,
+                                       rows_epi(d.dqkv + C, nullptr, 3 * C, Lp, L), nullptr, s)) !=
+          cudaSuccess ||
+      (err = clock.mark()) != cudaSuccess ||
+      (err = bwd_product<kWgRow, 1, 1>(pl, kDv, pt_mn, do_mn,
+                                       rows_epi(d.dqkv + 2 * C, nullptr, 3 * C, Lp, L), nullptr,
+                                       s)) != cudaSuccess ||
+      (err = clock.mark()) != cudaSuccess)
     return static_cast<int>(err);
-  if ((err = launch_sum(d.part2, n2, d.splits, n2, out + n1, s)) != cudaSuccess)
+
+  // dh = [dq | dk | dv] [Wq | Wk | Wv]^T in float32 NCHW, then GroupNorm's
+  // backward (reading dh, x and g along the tokens)
+  if ((err = bwd_product<kWgF32, 0, 0>(pl, kDh, dqkv_rows, wqkv_w,
+                                       rows_epi(nullptr, d.dh, C, Lp, L), nullptr, s)) !=
+          cudaSuccess ||
+      (err = clock.mark()) != cudaSuccess)
     return static_cast<int>(err);
-  return static_cast<int>(launch_sum(d.gnpart, 2 * C, B, 2 * C, out + n1 + n2, s));
+  gn_bwd_kernel<<<B * G, kRowThreads, 0, s>>>(d.dh, static_cast<long long>(C) * L, xb, gb,
+                                              f.stats, static_cast<const bf16*>(gamma), C, L, G,
+                                              rescale, static_cast<bf16*>(dx), d.gnpart);
+  if ((err = cudaGetLastError()) != cudaSuccess || (err = clock.mark()) != cudaSuccess)
+    return static_cast<int>(err);
+
+  // the weight gradients and (row C) the bias gradients as split partials
+  WgEpi pe{};
+  pe.kind = kWgPartial;
+  pe.rps = pe.valid = 1;
+  if ((err = bwd_product<kWgPartial, 1, 1>(pl, kDWqkv, h_mn, dqkv_mn, pe, d.part1, s)) !=
+          cudaSuccess ||
+      (err = clock.mark()) != cudaSuccess ||
+      (err = bwd_product<kWgPartial, 1, 1>(pl, kDWp, o_mn, gs_mn, pe, d.part2, s)) !=
+          cudaSuccess ||
+      (err = clock.mark()) != cudaSuccess)
+    return static_cast<int>(err);
+  GradSums sums{{d.part1, d.part2, d.gnpart},
+                {pl.p[kDWqkv].splits, pl.p[kDWp].splits, B},
+                {(C + 1) * 3 * C, (C + 1) * C, 2 * C}};
+  const int total = sums.n[0] + sums.n[1] + sums.n[2];
+  grad_sums_kernel<<<(total + 255) / 256, 256, 0, s>>>(sums, static_cast<float*>(grads));
+  if ((err = cudaGetLastError()) != cudaSuccess || (err = clock.mark()) != cudaSuccess)
+    return static_cast<int>(err);
+  return static_cast<int>(clock.finish());
 }
 
 const char* rdm_cuda_error_string(int err) {

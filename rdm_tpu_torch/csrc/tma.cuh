@@ -1,10 +1,10 @@
 // Hopper's asynchronous copies (attention_core.cu, micro_cf.cu,
-// fused_resblock.cu, fused_attn_block.cu): mbarriers, TMA loads of
-// tensor-map boxes and bulk copies of contiguous runs between device and
-// shared memory, named barriers, and the host side that encodes a bf16
-// tensor map with the 128-byte swizzle.  The encoder is the
-// driver's cuTensorMapEncodeTiled, taken through the runtime's driver entry
-// point, so a library needs no -lcuda (cuda.h gives the types only).
+// fused_resblock.cu, fused_attn_block.cu, wg_gemm.cuh): mbarriers, TMA loads
+// of tensor-map boxes, bulk copies of contiguous runs between device and
+// shared memory, 16-byte cp.async copies, named barriers, and the host side
+// that encodes a bf16 tensor map with the 128-byte swizzle.  The encoder is
+// the driver's cuTensorMapEncodeTiled, taken through the runtime's driver
+// entry point, so a library needs no -lcuda (cuda.h gives the types only).
 // Everything sits in an unnamed namespace, so each translation unit gets its
 // own copy.
 #pragma once
@@ -107,6 +107,17 @@ __device__ __forceinline__ void bulk_wait_read() {
 
 __device__ __forceinline__ void bulk_wait() {
   asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
+}
+
+// 16 bytes from device to shared memory without passing through registers;
+// cp_async_wait() returns once all of this thread's copies have landed.
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(smem_u32(dst)), "l"(src)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.commit_group;\ncp.async.wait_group 0;\n" ::: "memory");
 }
 
 // A barrier among `threads` threads (whole warps) of the block, other than

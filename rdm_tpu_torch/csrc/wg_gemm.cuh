@@ -1,14 +1,21 @@
-// The Hopper GEMM of the tiled bfloat16 bodies' forward launches
-// (fused_resblock_tiled.cu: both convolutions and the NIN;
-// fused_attn_block_tiled.cu: the q/k/v and output products), and the wgmma
-// and TMA pieces that the tiled attention kernel shares with it.
+// The Hopper GEMM of the tiled bfloat16 bodies (fused_resblock_tiled.cu: both
+// convolutions and the NIN; fused_attn_block_tiled.cu: every product of the
+// forward and of the backward), and the wgmma and TMA pieces that the tiled
+// attention kernels share with it.
 //
-//   wg_gemm_kernel     C = A B^T on wgmma (bf16 operands, f32 sums), B the
-//                      K-major weights (N x K).  Persistent: block b walks the
-//                      units (M tile, N tile, K split) b, b + grid, ...; one
-//                      producer warp keeps TMA loads of 128 x 64 A and
-//                      BN x 64 B boxes (128-byte swizzle) in flight through a
-//                      ring of stages counted on full and empty mbarriers; two
+//   wg_gemm_kernel     C = A B^T on wgmma (bf16 operands, f32 sums).  Each
+//                      operand is K-major (K contiguous: rows, or the
+//                      weights as N x K) or MN-major (M or N contiguous: a
+//                      token-major matrix read along its tokens; TA, TB),
+//                      both read by TMA in boxes of 64 values x rows in the
+//                      128-byte swizzle; an MN-major box is 64 rows of K, and
+//                      wgmma's transpose bit reads it (descriptor: 1024 bytes
+//                      between groups of eight K rows, 8192 between the
+//                      64-wide boxes along M or N).  Persistent: block b
+//                      walks the units (M tile, N tile, K split) b, b + grid,
+//                      ...; one producer warp keeps TMA loads of a 128-row A
+//                      tile and a BN-column B tile in flight through a ring of
+//                      stages counted on full and empty mbarriers; two
 //                      consumer warpgroups each take 64 rows of the 128-row
 //                      tile with a 64 x BN accumulator (wgmma.m64nBNk16, both
 //                      operands by shared-memory descriptor).  K runs in
@@ -17,10 +24,17 @@
 //                      box of the NHWC activations (64 channels x W x nh image
 //                      rows x nb samples) placed at the tap's shift: TMA reads
 //                      zeros outside the image and for channels past C, so the
-//                      implicit GEMM spends no instruction on indices.  A tile
-//                      is nh whole image rows of one sample or nb whole
+//                      implicit GEMM spends no instruction on indices.  A conv
+//                      tile is nh whole image rows of one sample or nb whole
 //                      samples, so its rows are one contiguous run of output
-//                      rows (H 9: 81 of the 128 rows carry tokens).
+//                      rows (H 9: 81 of the 128 rows carry tokens).  Other
+//                      operands are 3-D maps (64-value axis, rows, samples):
+//                      a batched product (the attention's per-sample dq, dk,
+//                      dv) takes its M tiles within one sample and reads both
+//                      operands at that sample; a product whose K runs over
+//                      tokens (the weight gradients) takes its stages as
+//                      (sample, 64 tokens), the map's bound at L reading the
+//                      padded tokens as zeros, so no buffer needs clearing.
 //   wg_splitk_kernel   where the tiles alone cannot fill the card (H 8, H 4),
 //                      K is split on stage boundaries: each split writes its
 //                      float32 partial tile, and this kernel sums the partials
@@ -38,7 +52,13 @@
 // NCHW (sample, n, l), kWgResidual adds the NCHW residual and multiplies by
 // rescale, each rounded, into NCHW.  The tile goes through shared memory and
 // out in 16-byte stores (along n for rows, along l for NCHW, the residual read
-// the same way).
+// the same way).  kWgF32 stores the float32 sums NCHW from the registers
+// (a lane's 8-token column runs are whole 32-byte sectors); kWgPartial
+// always writes float32 partials [split][M + 1][N] (the caller sums them in
+// split order), row M the column sums of an MN-major B
+// over the split's K (the bias gradients: B summed over tokens, taken from
+// the staged B tiles by the units of M tile 0, each thread's rows in order,
+// so the sum's order is fixed).
 //
 // Bound on this card: the convolutions do 64-600 operations a byte, so the
 // tensor cores bound them; the ring keeps the loads behind the products and
@@ -51,8 +71,8 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include "groupnorm.cuh"
 #include "smem_attr.cuh"
-#include "tiled_gemm.cuh"
 #include "tma.cuh"
 
 namespace {
@@ -70,42 +90,35 @@ constexpr int kWgMaxN = 1024;                // columns of a product at most (bi
 constexpr int kWgTembMax = 8192;             // temb values of a tile's samples kept in shared memory
 
 // d (the warpgroup's 64 x 8 NT float accumulators, mma.sync's C layout for
-// each 8 columns) += A (64 x 16, K-major) B^T (B: 8 NT x 16, K-major), both
-// bf16 from shared memory by descriptor.  Asynchronous: wg_fence before,
-// wg_commit and wg_wait after.
-template <int NT>
-__device__ void wg_ss(float (&d)[NT][4], uint64_t da, uint64_t db);
-
-// d (64 x 8 NT) += a (the warp's 16 x 16 bf16 fragment in registers, in
-// mma.sync's A layout) B (16 x 8 NT, N-major: 128-byte rows along N,
-// imm-trans-b 1).
-template <int NT>
-__device__ void wg_rs_t(float (&d)[NT][4], const unsigned (&a)[4], uint64_t db);
-
-template <>
-__device__ __forceinline__ void wg_ss<8>(float (&d)[8][4], uint64_t da, uint64_t db) {
+// each 8 columns) += A (64 x 16) B^T (B: 8 NT x 16), both bf16 from shared
+// memory by descriptor; TA / TB: the operand is MN-major (wgmma's transpose
+// bit).  Asynchronous: wg_fence before, wg_commit and wg_wait after.
+template <int TA, int TB>
+__device__ __forceinline__ void wg_ss(float (&d)[8][4], uint64_t da, uint64_t db) {
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
       "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
       "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
-      "%32, %33, p, 1, 1, 0, 0;\n}\n"
+      "%32, %33, p, 1, 1, %35, %36;\n}\n"
       : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]), "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]), "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]), "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3]), "+f"(d[4][0]), "+f"(d[4][1]), "+f"(d[4][2]), "+f"(d[4][3]), "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]), "+f"(d[6][0]), "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]), "+f"(d[7][0]), "+f"(d[7][1]), "+f"(d[7][2]), "+f"(d[7][3])
-      : "l"(da), "l"(db), "r"(1));
+      : "l"(da), "l"(db), "r"(1), "n"(TA), "n"(TB));
 }
 
-template <>
-__device__ __forceinline__ void wg_ss<16>(float (&d)[16][4], uint64_t da, uint64_t db) {
+template <int TA, int TB>
+__device__ __forceinline__ void wg_ss(float (&d)[16][4], uint64_t da, uint64_t db) {
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
       "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
       "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
-      "%64, %65, p, 1, 1, 0, 0;\n}\n"
+      "%64, %65, p, 1, 1, %67, %68;\n}\n"
       : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]), "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]), "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]), "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3]), "+f"(d[4][0]), "+f"(d[4][1]), "+f"(d[4][2]), "+f"(d[4][3]), "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]), "+f"(d[6][0]), "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]), "+f"(d[7][0]), "+f"(d[7][1]), "+f"(d[7][2]), "+f"(d[7][3]), "+f"(d[8][0]), "+f"(d[8][1]), "+f"(d[8][2]), "+f"(d[8][3]), "+f"(d[9][0]), "+f"(d[9][1]), "+f"(d[9][2]), "+f"(d[9][3]), "+f"(d[10][0]), "+f"(d[10][1]), "+f"(d[10][2]), "+f"(d[10][3]), "+f"(d[11][0]), "+f"(d[11][1]), "+f"(d[11][2]), "+f"(d[11][3]), "+f"(d[12][0]), "+f"(d[12][1]), "+f"(d[12][2]), "+f"(d[12][3]), "+f"(d[13][0]), "+f"(d[13][1]), "+f"(d[13][2]), "+f"(d[13][3]), "+f"(d[14][0]), "+f"(d[14][1]), "+f"(d[14][2]), "+f"(d[14][3]), "+f"(d[15][0]), "+f"(d[15][1]), "+f"(d[15][2]), "+f"(d[15][3])
-      : "l"(da), "l"(db), "r"(1));
+      : "l"(da), "l"(db), "r"(1), "n"(TA), "n"(TB));
 }
 
-template <>
-__device__ __forceinline__ void wg_rs_t<8>(float (&d)[8][4], const unsigned (&a)[4], uint64_t db) {
+// d (64 x 64) += a (the warp's 16 x 16 bf16 fragment in registers, in
+// mma.sync's A layout) B (16 x 64, N-major: 128-byte rows along N,
+// imm-trans-b 1).
+__device__ __forceinline__ void wg_rs_t(float (&d)[8][4], const unsigned (&a)[4], uint64_t db) {
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
       "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
@@ -113,6 +126,15 @@ __device__ __forceinline__ void wg_rs_t<8>(float (&d)[8][4], const unsigned (&a)
       "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
       : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]), "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]), "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]), "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3]), "+f"(d[4][0]), "+f"(d[4][1]), "+f"(d[4][2]), "+f"(d[4][3]), "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]), "+f"(d[6][0]), "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]), "+f"(d[7][0]), "+f"(d[7][1]), "+f"(d[7][2]), "+f"(d[7][3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// The descriptor of a staged operand box for product step k16 (16 of K): a
+// K-major box of 128-byte rows (rows along M or N) advances 32 bytes along
+// the rows; an MN-major box (rows along K) advances 16 rows, its 64-wide
+// boxes along M or N 8192 bytes apart.
+template <int MN>
+__device__ __forceinline__ uint64_t wg_desc(const unsigned char* box, int k16) {
+  return MN ? sw128_desc(box + 2048 * k16, 8192, 1024) : sw128_desc(box + 32 * k16, 16, 1024);
 }
 
 __device__ __forceinline__ void wg_fence() {
@@ -149,17 +171,6 @@ __device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map, i
       : "memory");
 }
 
-// 16 bytes from device to shared memory without passing through registers;
-// cp_async_wait() returns once all of this thread's copies have landed.
-__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(smem_u32(dst)), "l"(src)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.commit_group;\ncp.async.wait_group 0;\n" ::: "memory");
-}
-
 // A bf16 tensor map of rank 2 to 4 (dims innermost first, byte strides of
 // dims 1 .. rank - 1, each a multiple of 16) read in boxes whose innermost
 // side is 64 values in the 128-byte swizzle (tma.cuh's layout); cells outside
@@ -175,15 +186,41 @@ bool wg_tensor_map(CUtensorMap* map, const void* base, int rank, const cuuint64_
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-enum WgOut : int { kWgRow = 0, kWgNchw = 1, kWgResidual = 2 };
+// A row-major bf16 matrix as a 3-D map (cols, rows, samples): rows ld values
+// apart, a sample every rps rows, `rows` of each real (the rest, and columns
+// past cols, read as zeros); boxes of 64 values x box_rows rows of one sample.
+bool wg_rows_map(CUtensorMap* map, const bf16* p, int cols, long long ld, int rows,
+                 long long rps, int samples, int box_rows) {
+  const cuuint64_t dims[3] = {static_cast<cuuint64_t>(cols), static_cast<cuuint64_t>(rows),
+                              static_cast<cuuint64_t>(samples)};
+  const cuuint64_t strides[2] = {static_cast<cuuint64_t>(ld) * 2,
+                                 static_cast<cuuint64_t>(ld) * 2 * rps};
+  const cuuint32_t box[3] = {64, static_cast<cuuint32_t>(box_rows), 1};
+  return wg_tensor_map(map, p, 3, dims, strides, box);
+}
+
+// The weights w (N x K row-major bf16: taps of K each where taps > 1) as the
+// K-major B map of a product: 3-D (K of a tap, taps, N), boxes 64 x 1 x bn.
+bool wg_weight_map(CUtensorMap* map, const bf16* w, int N, int K, int taps, int bn) {
+  const cuuint64_t dims[3] = {static_cast<cuuint64_t>(K), static_cast<cuuint64_t>(taps),
+                              static_cast<cuuint64_t>(N)};
+  const cuuint64_t strides[2] = {static_cast<cuuint64_t>(K) * 2,
+                                 static_cast<cuuint64_t>(K) * 2 * taps};
+  const cuuint32_t box[3] = {64, 1, static_cast<cuuint32_t>(bn)};
+  return wg_tensor_map(map, w, 3, dims, strides, box);
+}
+
+enum WgOut : int { kWgRow = 0, kWgNchw = 1, kWgResidual = 2, kWgF32 = 3, kWgPartial = 4 };
 
 // Where the tile goes.  Output row m is token l = m % rps of sample m / rps;
 // only tokens l < valid are written (the attention's rows are padded to 16).
 // kWgRow: out + m ld + n.  kWgNchw, kWgResidual: out + (sample N + n) valid
-// + l, the residual at the same place of the NCHW tensor res.
+// + l, the residual at the same place of the NCHW tensor res; kWgF32 the same
+// place of outf.
 struct WgEpi {
   int kind;
   bf16* out;
+  float* outf;
   long long ld;
   const bf16* bias;   // [N] or null
   const bf16* temb;   // [samples, N] or null
@@ -198,11 +235,14 @@ struct WgArgs {
   int B, H, W, nh, nb;    // conv: the images; a tile's image rows and samples
   int tiles_h;            // conv: tiles along H of a group of nb samples
   int cchunks, taps;      // a tap's 64-channel chunks; 9 taps or 1
-  int steps;              // taps * cchunks stages of K
+  int steps;              // stages of K
+  int kpb;                // 3-D maps: stage q reads K rows 64 (q % kpb) of sample q / kpb
+  int mtps;               // > 0: batched, M tiles of a sample (its rows from sample * rps)
+  int colsum;             // kWgPartial: row M of each partial = B's column sums
   int chunk, splits;      // split-K: stages of a split, and their number
   int tiles_m, tiles_n;
   int a_bytes, b_bytes;   // bytes of the A and B boxes of a stage
-  float* partial;         // splits > 1: float32 partials [split][M][N]
+  float* partial;         // splits > 1 or kWgPartial: float32 partials [split][M + colsum][N]
   WgEpi e;
 };
 
@@ -220,7 +260,8 @@ struct WgShape {
 };
 
 // The first output row of tile mt and its row count; the tile's A box sits
-// at image row y0 of sample b0 (conv).
+// at image row y0 of sample b0 (conv), at row y0 of sample b0 (batched), or
+// at row y0 = m_base.
 __host__ __device__ inline void wg_tile_rows(const WgArgs& g, int mt, int& m_base, int& rows,
                                              int& y0, int& b0) {
   if (g.conv) {
@@ -230,9 +271,14 @@ __host__ __device__ inline void wg_tile_rows(const WgArgs& g, int mt, int& m_bas
     m_base = (b0 * g.H + y0) * g.W;
     rows = g.nb == 1 ? (g.H - y0 < g.nh ? g.H - y0 : g.nh) * g.W
                      : (g.B - b0 < g.nb ? g.B - b0 : g.nb) * g.H * g.W;
+  } else if (g.mtps > 0) {
+    b0 = mt / g.mtps;
+    y0 = (mt - b0 * g.mtps) * kWgBM;
+    m_base = b0 * g.e.rps + y0;
+    rows = g.e.rps - y0 < kWgBM ? g.e.rps - y0 : kWgBM;
   } else {
-    b0 = y0 = 0;
-    m_base = mt * kWgBM;
+    b0 = 0;
+    y0 = m_base = mt * kWgBM;
     rows = g.M - m_base < kWgBM ? g.M - m_base : kWgBM;
   }
 }
@@ -387,16 +433,27 @@ __device__ void wg_store(const WgEpi& e, const bf16* stg, int N, int m_base, int
   }
 }
 
+// Element (K row r, column n) of an MN-major tile staged as 64-column boxes of
+// 64 rows in the 128-byte swizzle (chunk j of row r at j ^ (r % 8)).
+__device__ __forceinline__ float wg_mn_at(const unsigned char* tile, int r, int n) {
+  const int nn = n & 63;
+  return bf(*reinterpret_cast<const bf16*>(tile + (n >> 6) * 8192 + r * 128 +
+                                           ((((nn >> 3) ^ r) & 7) << 4) + (nn & 7) * 2));
+}
+
 // grid: min(units, kWgSms) persistent blocks of kWgThreads, WgShape<BN>::kSmem
-// bytes of dynamic shared memory.  amap: the A operand (2-D rows x K, boxes
-// 64 x 128; or conv: 4-D NHWC, boxes 64 x W x nh x nb); bmap: the weights as
-// 3-D (K of a tap, taps, N), boxes 64 x 1 x BN.
-template <int BN, int KIND>
+// bytes of dynamic shared memory.  amap: the A operand (conv: 4-D NHWC, boxes
+// 64 x W x nh x nb; K-major: 3-D (K, rows, samples), boxes 64 x 128 x 1;
+// MN-major: 3-D (M, K, samples), boxes 64 x 64 x 1, two a stage); bmap:
+// K-major, the weights as 3-D (K of a tap, taps, N), boxes 64 x 1 x BN;
+// MN-major, 3-D (N, K, samples), boxes 64 x 64 x 1, BN / 64 a stage.
+template <int BN, int KIND, int TA, int TB>
 __global__ void __launch_bounds__(kWgThreads, 1)
 wg_gemm_kernel(const __grid_constant__ CUtensorMap amap, const __grid_constant__ CUtensorMap bmap,
                const WgArgs g) {
   using S = WgShape<BN>;
   constexpr int NT = S::NT, kStages = S::kStages;
+  constexpr bool kDirect = KIND == kWgF32 || KIND == kWgPartial;   // no staged epilogue
   extern __shared__ __align__(1024) unsigned char smem_raw[];
   unsigned char* ring = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
   bf16* stg = reinterpret_cast<bf16*>(ring + kStages * S::kStage);
@@ -433,12 +490,23 @@ wg_gemm_kernel(const __grid_constant__ CUtensorMap amap, const __grid_constant__
           if (it >= kStages) mbar_wait(empty + slot, ((it / kStages) - 1) & 1);
           unsigned char* st = ring + slot * S::kStage;
           const int tap = q / g.cchunks, cc = q - tap * g.cchunks;
+          // 3-D maps: K rows k1 .. k1 + 63 of sample kz
+          const int kq = q / g.kpb, k1 = 64 * (q - kq * g.kpb), kz = kq + b0;
           mbar_expect_tx(full + slot, g.a_bytes + g.b_bytes);
-          if (g.conv)
+          if (g.conv) {
             tma_load_4d(st, &amap, 64 * cc, tap % 3 - 1, y0 + tap / 3 - 1, b0, full + slot);
-          else
-            tma_load_2d(st, &amap, 64 * cc, m_base, full + slot);
-          tma_load_3d(st + kWgAStage, &bmap, 64 * cc, tap, nt * BN, full + slot);
+          } else if (TA) {
+            tma_load_3d(st, &amap, y0, k1, kz, full + slot);
+            tma_load_3d(st + 8192, &amap, y0 + 64, k1, kz, full + slot);
+          } else {
+            tma_load_3d(st, &amap, k1, y0, kz, full + slot);
+          }
+          if (TB) {
+            for (int i = 0; i < BN / 64; ++i)
+              tma_load_3d(st + kWgAStage + i * 8192, &bmap, nt * BN + 64 * i, k1, kz, full + slot);
+          } else {
+            tma_load_3d(st + kWgAStage, &bmap, 64 * cc, tap, nt * BN, full + slot);
+          }
         }
       }
     }
@@ -447,17 +515,20 @@ wg_gemm_kernel(const __grid_constant__ CUtensorMap amap, const __grid_constant__
 
   if (warp > 8) {
     // Epilogue warps: store each staged tile while the consumers run the
-    // next one's products (none with a split: the consumers write partials).
-    if (g.splits > 1) return;
-    int t = 0;
-    for (int u = blockIdx.x; u < units; u += gridDim.x, ++t) {
-      int mt, nt, sp, q0, q1, m_base, rows, y0, b0;
-      wg_unit(g, u, mt, nt, sp, q0, q1);
-      wg_tile_rows(g, mt, m_base, rows, y0, b0);
-      mbar_wait(staged, t & 1);
-      wg_store<BN, KIND>(g.e, stg, g.N, m_base, rows, nt * BN, threadIdx.x - kWgConsumers - 32,
-                   kWgEpilogue, kWgBM);
-      mbar_arrive(freed);
+    // next one's products (none with a split or a direct epilogue: the
+    // consumers write those).
+    if constexpr (!kDirect) {
+      if (g.splits > 1) return;
+      int t = 0;
+      for (int u = blockIdx.x; u < units; u += gridDim.x, ++t) {
+        int mt, nt, sp, q0, q1, m_base, rows, y0, b0;
+        wg_unit(g, u, mt, nt, sp, q0, q1);
+        wg_tile_rows(g, mt, m_base, rows, y0, b0);
+        mbar_wait(staged, t & 1);
+        wg_store<BN, KIND>(g.e, stg, g.N, m_base, rows, nt * BN, threadIdx.x - kWgConsumers - 32,
+                           kWgEpilogue, kWgBM);
+        mbar_arrive(freed);
+      }
     }
     return;
   }
@@ -471,6 +542,10 @@ wg_gemm_kernel(const __grid_constant__ CUtensorMap amap, const __grid_constant__
     for (int i = tid; i < g.N; i += kWgConsumers) bias_s[i] = g.e.bias[i];
   const int temb_rows = g.conv ? g.nb : (kWgBM + g.e.rps - 1) / g.e.rps + 1;
   const bool temb_smem = g.e.temb != nullptr && temb_rows * BN <= kWgTembMax;
+  const long long plane = static_cast<long long>(g.M + g.colsum) * g.N;
+  // kWgPartial with colsum: in the units of M tile 0 thread tid sums column
+  // tid % BN of B over its kCsumRows rows of each stage, in order
+  constexpr int kCsumRows = 64 * BN / kWgConsumers;
   int it = 0, t = 0;
   for (int u = blockIdx.x; u < units; u += gridDim.x, ++t) {
     int mt, nt, sp, q0, q1, m_base, rows, y0, b0;
@@ -488,6 +563,8 @@ wg_gemm_kernel(const __grid_constant__ CUtensorMap amap, const __grid_constant__
                      g.e.temb + static_cast<long long>(s_first + sr) * g.N + n);
       }
     }
+    const bool csum_unit = KIND == kWgPartial && TB && g.colsum && mt == 0;
+    float csum = 0.f;
     float acc[NT][4];
 #pragma unroll
     for (int n = 0; n < NT; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
@@ -501,9 +578,12 @@ wg_gemm_kernel(const __grid_constant__ CUtensorMap amap, const __grid_constant__
       const unsigned char* st = ring + slot * S::kStage;
 #pragma unroll
       for (int k16 = 0; k16 < 4; ++k16)
-        wg_ss<NT>(acc, sw128_desc(st + wg * 8192 + 32 * k16, 16, 1024),
-                  sw128_desc(st + kWgAStage + 32 * k16, 16, 1024));
+        wg_ss<TA, TB>(acc, wg_desc<TA>(st + wg * 8192, k16), wg_desc<TB>(st + kWgAStage, k16));
       wg_commit();
+      if (csum_unit) {
+        const int r0 = (tid / BN) * kCsumRows;
+        for (int r = r0; r < r0 + kCsumRows; ++r) csum += wg_mn_at(st + kWgAStage, r, tid % BN);
+      }
       wg_wait<1>();                            // the stage before this one is read
       if (prev >= 0 && lane == 0) mbar_arrive(empty + prev);
       prev = slot;
@@ -516,27 +596,54 @@ wg_gemm_kernel(const __grid_constant__ CUtensorMap amap, const __grid_constant__
     // of the warpgroup's 64, column 8 j + 2 (lane % 4) + e % 2.
     const int n0 = nt * BN;
     const int rbase = 64 * wg + 16 * (warp & 3) + (lane >> 2);
-    if (g.splits > 1) {
+    if (g.splits > 1 || KIND == kWgPartial) {
 #pragma unroll
       for (int j = 0; j < NT; ++j)
 #pragma unroll
         for (int h = 0; h < 2; ++h) {
           const int r = rbase + 8 * h, n = n0 + 8 * j + 2 * (lane & 3);
           if (r < rows && n < g.N)
-            *reinterpret_cast<float2*>(
-                g.partial + (static_cast<long long>(sp) * g.M + m_base + r) * g.N + n) =
+            *reinterpret_cast<float2*>(g.partial + sp * plane +
+                                       static_cast<long long>(m_base + r) * g.N + n) =
                 make_float2(acc[j][2 * h], acc[j][2 * h + 1]);
         }
+      if (csum_unit) {
+        // each column's groups of rows in order, through stg (unused here)
+        float* red = reinterpret_cast<float*>(stg);
+        named_sync(2, kWgConsumers);           // the last unit's sums are read
+        red[tid] = csum;
+        named_sync(2, kWgConsumers);
+        if (tid < BN && n0 + tid < g.N) {
+          float s = 0.f;
+          for (int i = 0; i < kWgConsumers / BN; ++i) s += red[i * BN + tid];
+          g.partial[sp * plane + static_cast<long long>(g.M) * g.N + n0 + tid] = s;
+        }
+      }
       continue;
     }
-    if (temb_smem) {
-      cp_async_wait();
-      named_sync(1, kWgConsumers);             // every thread's temb copies have landed
+    if constexpr (KIND == kWgF32) {
+#pragma unroll
+      for (int j = 0; j < NT; ++j)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int r = rbase + 8 * h, n = n0 + 8 * j + 2 * (lane & 3), m = m_base + r;
+          const int sample = m / g.e.rps, l = m - sample * g.e.rps;
+          if (r < rows && n < g.N && l < g.e.valid) {
+            float* p = g.e.outf + (static_cast<long long>(sample) * g.N + n) * g.e.valid + l;
+            p[0] = acc[j][2 * h];
+            p[g.e.valid] = acc[j][2 * h + 1];
+          }
+        }
+    } else if constexpr (!kDirect) {
+      if (temb_smem) {
+        cp_async_wait();
+        named_sync(1, kWgConsumers);           // every thread's temb copies have landed
+      }
+      if (t > 0) mbar_wait(freed, (t - 1) & 1);   // the last tile is stored: stg is free
+      wg_stage_acc<BN, KIND>(g.e, g.N, stg, bias_s, temb_smem ? temb_s : nullptr, s_first,
+                             m_base, rows, n0, rbase, lane & 3, acc);
+      mbar_arrive(staged);
     }
-    if (t > 0) mbar_wait(freed, (t - 1) & 1);   // the last tile is stored: stg is free
-    wg_stage_acc<BN, KIND>(g.e, g.N, stg, bias_s, temb_smem ? temb_s : nullptr, s_first, m_base, rows,
-                     n0, rbase, lane & 3, acc);
-    mbar_arrive(staged);
   }
 }
 
@@ -583,19 +690,21 @@ __global__ void __launch_bounds__(256) wg_splitk_kernel(const WgArgs g) {
 }
 
 // The launch plan of one product: tiles, the split of K, the persistent
-// blocks, the ring and the shared memory; conv: the A box (64, W, nh, nb).
+// blocks, the ring and the shared memory; the A box (conv: (64, W, nh, nb);
+// K-major (64, 128, 1, 1); MN-major (64, 64, 1, 1), two a stage).
 struct WgPlan {
   int bm, bn, tiles_m, tiles_n, steps, chunk, splits, blocks, stages, smem;
   int box[4];
 };
 
 // K split: only where the tiles fill less than half the card; then as many
-// splits as the card has room for, each a whole number of stages.
-inline void wg_split(int tiles, int steps, int& chunk, int& splits) {
+// splits as the card has room for, at most max_splits, each a whole number
+// of stages.
+inline void wg_split(int tiles, int steps, int max_splits, int& chunk, int& splits) {
   int s = 1;
   if (2 * tiles < kWgSms) {
     s = kWgSms / tiles;
-    if (s > kWgMaxSplits) s = kWgMaxSplits;
+    if (s > max_splits) s = max_splits;
     if (s > steps) s = steps;
   }
   chunk = (steps + s - 1) / s;
@@ -604,39 +713,13 @@ inline void wg_split(int tiles, int steps, int& chunk, int& splits) {
 
 inline int wg_bn(int N) { return N >= 128 ? 128 : 64; }
 
-// Fill g's geometry for an M x N product: conv (B images of H x H, channels
-// c: M = B H H, K = 9 c) or plain (K = c).
-inline WgPlan wg_plan(WgArgs& g, int conv, int B, int H, int M, int N, int c) {
+// The plan once g's M tiles and stages are set: N tiles, the split, blocks.
+inline WgPlan wg_finish_plan(WgArgs& g, int max_splits, int b0, int b1, int b2, int b3) {
   WgPlan p{};
-  const int bn = wg_bn(N);
-  g.M = M;
-  g.N = N;
-  g.conv = conv;
-  g.cchunks = (c + 63) / 64;
-  g.taps = conv ? 9 : 1;
-  g.steps = g.taps * g.cchunks;
-  if (conv) {
-    g.B = B;
-    g.H = g.W = H;
-    if (H * H <= kWgBM) {
-      g.nh = H;
-      g.nb = kWgBM / (H * H);
-    } else {
-      g.nh = kWgBM / H;
-      g.nb = 1;
-    }
-    g.tiles_h = (H + g.nh - 1) / g.nh;
-    g.tiles_m = (B + g.nb - 1) / g.nb * g.tiles_h;
-    g.a_bytes = 128 * H * g.nh * g.nb;
-    p.box[0] = 64, p.box[1] = H, p.box[2] = g.nh, p.box[3] = g.nb;
-  } else {
-    g.tiles_m = (M + kWgBM - 1) / kWgBM;
-    g.a_bytes = kWgAStage;
-    p.box[0] = 64, p.box[1] = kWgBM, p.box[2] = 1, p.box[3] = 1;
-  }
-  g.tiles_n = (N + bn - 1) / bn;
+  const int bn = wg_bn(g.N);
+  g.tiles_n = (g.N + bn - 1) / bn;
   g.b_bytes = bn * 128;
-  wg_split(g.tiles_m * g.tiles_n, g.steps, g.chunk, g.splits);
+  wg_split(g.tiles_m * g.tiles_n, g.steps, max_splits, g.chunk, g.splits);
   const int units = g.tiles_m * g.tiles_n * g.splits;
   p.bm = kWgBM;
   p.bn = bn;
@@ -648,35 +731,95 @@ inline WgPlan wg_plan(WgArgs& g, int conv, int B, int H, int M, int N, int c) {
   p.blocks = units < kWgSms ? units : kWgSms;
   p.stages = bn == 128 ? WgShape<128>::kStages : WgShape<64>::kStages;
   p.smem = bn == 128 ? WgShape<128>::kSmem : WgShape<64>::kSmem;
+  p.box[0] = b0, p.box[1] = b1, p.box[2] = b2, p.box[3] = b3;
   return p;
 }
 
-// Bytes of the float32 partials a product with this plan needs (0 without a split).
-inline long long wg_partial_bytes(const WgPlan& p, int M, int N) {
-  return p.splits > 1 ? static_cast<long long>(p.splits) * M * N * 4 : 0;
+// Fill g's geometry for an M x N product with K-major operands: conv (B
+// images of H x H, channels c: M = B H H, K = 9 c) or plain (K = c).
+inline WgPlan wg_plan(WgArgs& g, int conv, int B, int H, int M, int N, int c) {
+  g.M = M;
+  g.N = N;
+  g.conv = conv;
+  g.cchunks = (c + 63) / 64;
+  g.taps = conv ? 9 : 1;
+  g.steps = g.kpb = g.taps * g.cchunks;
+  if (!conv) {
+    g.tiles_m = (M + kWgBM - 1) / kWgBM;
+    g.a_bytes = kWgAStage;
+    return wg_finish_plan(g, kWgMaxSplits, 64, kWgBM, 1, 1);
+  }
+  g.B = B;
+  g.H = g.W = H;
+  if (H * H <= kWgBM) {
+    g.nh = H;
+    g.nb = kWgBM / (H * H);
+  } else {
+    g.nh = kWgBM / H;
+    g.nb = 1;
+  }
+  g.tiles_h = (H + g.nh - 1) / g.nh;
+  g.tiles_m = (B + g.nb - 1) / g.nb * g.tiles_h;
+  g.a_bytes = 128 * H * g.nh * g.nb;
+  return wg_finish_plan(g, kWgMaxSplits, 64, H, g.nh, g.nb);
 }
 
-template <int BN, int KIND>
+// The geometry of a product read through 3-D maps: M x N outputs over `steps`
+// stages of K 64, stage q at K rows 64 (q % kpb) of sample q / kpb; batched
+// (mtps > 0: steps = kpb): mtps M tiles a sample, each reading both operands
+// at its sample; A MN-major (ta) or K-major; K split in at most max_splits.
+inline WgPlan wg_plan_rows(WgArgs& g, int M, int N, int steps, int kpb, int mtps, int samples,
+                           int ta, int max_splits) {
+  g.M = M;
+  g.N = N;
+  g.conv = 0;
+  g.taps = 1;
+  g.cchunks = g.steps = steps;
+  g.kpb = kpb;
+  g.mtps = mtps;
+  g.tiles_m = mtps > 0 ? mtps * samples : (M + kWgBM - 1) / kWgBM;
+  g.a_bytes = kWgAStage;
+  return wg_finish_plan(g, max_splits, 64, ta ? 64 : kWgBM, 1, 1);
+}
+
+// Floats of the partials a product with this plan needs (0 without a split;
+// kWgPartial: always, with its column-sum row when colsum).
+inline long long wg_partial_floats(const WgPlan& p, int M, int N, int partial = 0,
+                                   int colsum = 0) {
+  return p.splits > 1 || partial ? static_cast<long long>(p.splits) * (M + colsum) * N : 0;
+}
+
+inline long long wg_partial_bytes(const WgPlan& p, int M, int N) {
+  return 4 * wg_partial_floats(p, M, N);
+}
+
+template <int BN, int KIND, int TA, int TB>
 cudaError_t wg_launch(const CUtensorMap& amap, const CUtensorMap& bmap, const WgArgs& g,
                       const WgPlan& p, cudaStream_t s) {
   static SmemAttr attr;
-  cudaError_t err = attr.apply(reinterpret_cast<const void*>(wg_gemm_kernel<BN, KIND>),
+  cudaError_t err = attr.apply(reinterpret_cast<const void*>(wg_gemm_kernel<BN, KIND, TA, TB>),
                                WgShape<BN>::kSmem);
   if (err != cudaSuccess) return err;
-  wg_gemm_kernel<BN, KIND><<<p.blocks, kWgThreads, WgShape<BN>::kSmem, s>>>(amap, bmap, g);
-  if ((err = cudaGetLastError()) != cudaSuccess || g.splits == 1) return err;
-  wg_splitk_kernel<BN, KIND><<<g.tiles_m * g.tiles_n * (kWgBM / kSliceRows), 256, 0, s>>>(g);
-  return cudaGetLastError();
+  wg_gemm_kernel<BN, KIND, TA, TB><<<p.blocks, kWgThreads, WgShape<BN>::kSmem, s>>>(amap, bmap,
+                                                                                   g);
+  if constexpr (KIND == kWgF32 || KIND == kWgPartial) {
+    return err;   // never summed here: kWgF32 is not split, kWgPartial's caller sums
+  } else {
+    if (err != cudaSuccess || g.splits == 1) return err;
+    wg_splitk_kernel<BN, KIND><<<g.tiles_m * g.tiles_n * (kWgBM / kSliceRows), 256, 0, s>>>(g);
+    return cudaGetLastError();
+  }
 }
 
-// The product out = epilogue(A B^T): A (conv: NHWC B x H x H x c; plain:
-// M x c row-major), B = w as (N, taps, c) row-major.  partial: float32
-// scratch of wg_partial_bytes (null without a split).
+// The product out = epilogue(A B^T) with K-major operands: A (conv: NHWC B x
+// H x H x c; plain: M x c row-major), B = w as (N, taps, c) row-major.
+// partial: float32 scratch of wg_partial_bytes (null without a split).
+// e.kind: kWgRow, kWgNchw or kWgResidual.
 inline cudaError_t wg_gemm(const bf16* a, const bf16* w, int conv, int B, int H, int M, int N,
                            int c, const WgEpi& e, float* partial, cudaStream_t s) {
   WgArgs g{};
-  const WgPlan p = wg_plan(g, conv, B, H, M, N, c);
   g.e = e;
+  const WgPlan p = wg_plan(g, conv, B, H, M, N, c);
   g.partial = partial;
   if ((g.splits > 1 && partial == nullptr) || N > kWgMaxN) return cudaErrorInvalidValue;
   CUtensorMap amap, bmap;
@@ -691,27 +834,33 @@ inline cudaError_t wg_gemm(const bf16* a, const bf16* w, int conv, int B, int H,
                                static_cast<cuuint32_t>(g.nb)};
     ok = wg_tensor_map(&amap, a, 4, dims, strides, box);
   } else {
-    const cuuint64_t dims[2] = {static_cast<cuuint64_t>(c), static_cast<cuuint64_t>(M)};
-    const cuuint64_t strides[1] = {static_cast<cuuint64_t>(c) * 2};
-    const cuuint32_t box[2] = {64, kWgBM};
-    ok = wg_tensor_map(&amap, a, 2, dims, strides, box);
+    ok = wg_rows_map(&amap, a, c, c, M, M, 1, kWgBM);
   }
-  const cuuint64_t wdims[3] = {static_cast<cuuint64_t>(c), static_cast<cuuint64_t>(g.taps),
-                               static_cast<cuuint64_t>(N)};
-  const cuuint64_t wstrides[2] = {static_cast<cuuint64_t>(c) * 2,
-                                  static_cast<cuuint64_t>(c) * 2 * g.taps};
-  const cuuint32_t wbox[3] = {64, 1, static_cast<cuuint32_t>(p.bn)};
-  ok = ok && wg_tensor_map(&bmap, w, 3, wdims, wstrides, wbox);
+  ok = ok && wg_weight_map(&bmap, w, N, c, g.taps, p.bn);
   if (!ok) return cudaErrorInvalidValue;
   switch (e.kind * 2 + (p.bn == 128)) {
-    case kWgRow * 2: return wg_launch<64, kWgRow>(amap, bmap, g, p, s);
-    case kWgRow * 2 + 1: return wg_launch<128, kWgRow>(amap, bmap, g, p, s);
-    case kWgNchw * 2: return wg_launch<64, kWgNchw>(amap, bmap, g, p, s);
-    case kWgNchw * 2 + 1: return wg_launch<128, kWgNchw>(amap, bmap, g, p, s);
-    case kWgResidual * 2: return wg_launch<64, kWgResidual>(amap, bmap, g, p, s);
-    case kWgResidual * 2 + 1: return wg_launch<128, kWgResidual>(amap, bmap, g, p, s);
+    case kWgRow * 2: return wg_launch<64, kWgRow, 0, 0>(amap, bmap, g, p, s);
+    case kWgRow * 2 + 1: return wg_launch<128, kWgRow, 0, 0>(amap, bmap, g, p, s);
+    case kWgNchw * 2: return wg_launch<64, kWgNchw, 0, 0>(amap, bmap, g, p, s);
+    case kWgNchw * 2 + 1: return wg_launch<128, kWgNchw, 0, 0>(amap, bmap, g, p, s);
+    case kWgResidual * 2: return wg_launch<64, kWgResidual, 0, 0>(amap, bmap, g, p, s);
+    case kWgResidual * 2 + 1: return wg_launch<128, kWgResidual, 0, 0>(amap, bmap, g, p, s);
     default: return cudaErrorInvalidValue;
   }
+}
+
+// A product whose operands are given as maps (wg_rows_map, wg_weight_map)
+// and whose geometry g comes from wg_plan_rows: KIND and the operands'
+// majors fixed at the call; g.partial as wg_partial_floats asks; kWgF32 is
+// not split.
+template <int KIND, int TA, int TB>
+cudaError_t wg_gemm_maps(const CUtensorMap& amap, const CUtensorMap& bmap, const WgArgs& g,
+                         const WgPlan& p, cudaStream_t s) {
+  if (((g.splits > 1 || KIND == kWgPartial) && g.partial == nullptr) || g.N > kWgMaxN ||
+      (KIND == kWgF32 && g.splits > 1))
+    return cudaErrorInvalidValue;
+  return p.bn == 128 ? wg_launch<128, KIND, TA, TB>(amap, bmap, g, p, s)
+                     : wg_launch<64, KIND, TA, TB>(amap, bmap, g, p, s);
 }
 
 // Times of a body's launches (CUDA events on its stream) where the caller
@@ -720,11 +869,11 @@ inline cudaError_t wg_gemm(const bf16* a, const bf16* w, int conv, int B, int H,
 struct LaunchClock {
   float* ms;
   cudaStream_t s;
-  cudaEvent_t ev[8];
+  cudaEvent_t ev[16];
   int n = 0;
   LaunchClock(float* out, cudaStream_t stream) : ms(out), s(stream) {}
   cudaError_t mark() {
-    if (ms == nullptr || n == 8) return cudaSuccess;
+    if (ms == nullptr || n == 16) return cudaSuccess;
     cudaError_t err = cudaEventCreate(&ev[n]);
     if (err != cudaSuccess) return err;
     return cudaEventRecord(ev[n++], s);
@@ -736,6 +885,18 @@ struct LaunchClock {
     for (int i = 0; i < n; ++i) cudaEventDestroy(ev[i]);
     n = 0;
     return err;
+  }
+};
+
+// Carves a workspace into 256-byte aligned pieces; with base null it only counts.
+struct Carve {
+  char* base;
+  long long used = 0;
+  template <typename T> T* take(long long count) {
+    used = (used + 255) / 256 * 256;
+    T* p = base ? reinterpret_cast<T*>(base + used) : nullptr;
+    used += count * static_cast<long long>(sizeof(T));
+    return p;
   }
 };
 

@@ -45,10 +45,10 @@ decides which body a shape takes.
 
 ``attention_core`` launches ``csrc/attention_core.cu`` on CUDA tensors
 and runs ``attention_core_reference`` on CPU tensors.  It replaces the TPU
-kernel ``_attn_kernel`` of the same file; memory bounds it.  In bfloat16 it
-runs on the tensor cores with the scores in registers, fed by a TMA ring of
-staged samples (``core_plan``); in float32 it keeps the scalar kernel
-(``core_rows_per_chunk``).
+kernel ``_attn_kernel`` of the same file; memory bounds it.  Both types run
+on the tensor cores with the scores in registers (``core_plan``): bfloat16
+fed by a TMA ring of staged samples, float32 a sample a block on a 3xTF32
+split of every product, whose arithmetic ``attention_core_3xtf32`` models.
 
 Both block directions take the model's NCHW activations and the NIN weights as
 (C_in, C_out) matrices, cast every parameter to the activations' type
@@ -60,13 +60,14 @@ float32; backward, see ``fused_attn_block_bwd_reference``.
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
 from typing import NamedTuple
 
 import torch
 
 from . import _build
-from .wg_gemm import GemmPlan, gemm_plan
+from .wg_gemm import GemmPlan, gemm_plan, gemm_plan_rows
 
 # the scalar body: float32 or bfloat16 at these widths and up to MAX_TOKENS
 SUPPORTED_CHANNELS = (64, 128)
@@ -246,31 +247,31 @@ class TiledPlan(NamedTuple):
     """Launch plan of the tiled body (``fused_attn_block_tiled.cu``:
     ``rdm_attn_tiled_plan``), computed here the way the source does."""
     fwd_launches: int       # GroupNorm, q/k/v product, attention, output product (+ split sums)
-    bwd_launches: int       # the forward's first three, then thirteen more kernels
+    bwd_launches: int       # the forward's first three, then eleven more kernels
     fwd_smem_bytes: int     # the forward attention kernel: two q/k stages and two v stages
-    bwd_smem_bytes: int     # the ds kernel: 64 rows of q and of do, every key row
-    fwd_query_tiles: int    # the forward attention kernel's grid: (fwd_query_tiles, B), 128 rows
-    fwd_key_tiles: int      # keys in 64-rows the forward kernel is built for (1, 2 or 4)
-    fwd_threads: int        # two consumer warpgroups and a producer warp
-    query_tiles: int        # the ds kernel's grid: (query_tiles, B), 64 rows
-    key_tiles: int          # keys in 16-rows the ds kernel is built for (4, 8 or 16)
+    ds_smem_bytes: int      # the ds kernel: max(2, C / 64) stages of q/k, then of do/v
+    query_tiles: int        # both attention kernels' grid: (query_tiles, B), 128 rows
+    key_tiles: int          # keys in 64-rows both kernels are built for (1, 2 or 4)
+    threads: int            # both: two consumer warpgroups and a producer warp
     padded_tokens: int      # L rounded up to 16: rows of a sample in the workspace
-    grad_chunk: int         # token rows of one split of the weight-gradient products
-    grad_splits: int        # their number: float32 partials summed in this order
     qkv: GemmPlan           # the forward's products on wg_gemm: B Lp rows x 3C
     proj: GemmPlan          # and B Lp rows x C
-    gemm_tiles: tuple       # (M, N) 64 x 64 tiles of the backward's mma.sync products:
-                            # do, dq, dk, dv, dh (grid z: B), weights, proj weights (z: splits)
+    do: GemmPlan            # the backward's: do = gs Wp^T over B Lp rows, K = C
+    dq: GemmPlan            # per sample (ceil(L / 128) M tiles each): dq = ds k, K = keys
+    dk: GemmPlan            # dk = ds^T q (A MN-major), K = queries
+    dv: GemmPlan            # dv = pt^T do (A MN-major)
+    dh: GemmPlan            # dh = [dq | dk | dv] Wqkv^T over B Lp rows, K = 3C, float32
+    dwqkv: GemmPlan         # h^T [dq | dk | dv]: C x 3C, K = B ceil(L / 64) stages, split
+    dwp: GemmPlan           # o^T gs: C x C, the same K
 
     def flat(self) -> tuple:
-        """As the built library's plan: the first twelve fields, then the two products'."""
-        return (*self[:12], *self.qkv.flat(), *self.proj.flat())
+        """As the built library's plan: the first eight fields, then the products'."""
+        return (*self[:8], *(v for p in self[8:] for v in p.flat()))
 
 
 TILED_FWD_ROWS = 128
-TILED_FWD_THREADS = 288     # the forward attention kernel: two consumer warpgroups, a producer warp
-TILED_QUERY_ROWS = 64
-GEMM_TILE = 64
+TILED_THREADS = 288         # the attention kernels: two consumer warpgroups, a producer warp
+TILED_GRAD_SPLITS = 64      # the weight gradients' K splits at most
 
 
 def tiled_fwd_smem_bytes(key_tiles: int) -> int:
@@ -280,6 +281,13 @@ def tiled_fwd_smem_bytes(key_tiles: int) -> int:
     return 1024 + 2 * (TILED_FWD_ROWS * 128 + key_tiles * 8192) + 2 * key_tiles * 8192 + 64
 
 
+def tiled_ds_smem_bytes(key_tiles: int, C: int) -> int:
+    """The ds kernel's: max(2, C / 64) stages of the forward's q/k stage (the
+    first two hold q and k, then stage c holds do's and v's chunk c), five
+    barriers, 1024 bytes of alignment."""
+    return 1024 + max(2, -(-C // 64)) * (TILED_FWD_ROWS * 128 + key_tiles * 8192) + 64
+
+
 def tiled_plan(B: int, C: int, L: int) -> TiledPlan:
     """The tiled body's plan at (B, C, L); ``tests`` hold it against the
     built library's on the card."""
@@ -287,22 +295,30 @@ def tiled_plan(B: int, C: int, L: int) -> TiledPlan:
         raise ValueError(f"fused_attn_block_tiled: no plan for B={B}, C={C}, L={L}")
     cdiv = lambda a, b: -(-a // b)
     lp = cdiv(L, 16) * 16
-    kt = lp // 16
     rows = B * lp
-    splits = min(max(cdiv(rows, 512), 1), 64)
-    chunk = cdiv(cdiv(rows, splits), 32) * 32
-    tiles = lambda m, n: (cdiv(m, GEMM_TILE), cdiv(n, GEMM_TILE))
-    kt64 = cdiv(L, 64)
-    fwd_kt = 1 if kt64 <= 1 else 2 if kt64 <= 2 else 4
+    kt = cdiv(L, 64)
+    ktm = 1 if kt <= 1 else 2 if kt <= 2 else 4
     qkv, proj = gemm_plan(False, B, 0, rows, 3 * C, C), gemm_plan(False, B, 0, rows, C, C)
+    mtps = cdiv(L, TILED_FWD_ROWS)
+    bwd = (gemm_plan_rows(rows, C, cdiv(C, 64), 0, 1, False, 1),
+           gemm_plan_rows(rows, C, kt, mtps, B, False, 1),
+           gemm_plan_rows(rows, C, kt, mtps, B, True, 1),
+           gemm_plan_rows(rows, C, kt, mtps, B, True, 1),
+           gemm_plan_rows(rows, C, cdiv(3 * C, 64), 0, 1, False, 1),
+           gemm_plan_rows(C, 3 * C, B * kt, 0, 1, True, TILED_GRAD_SPLITS),
+           gemm_plan_rows(C, C, B * kt, 0, 1, True, TILED_GRAD_SPLITS))
     core = 3 + (qkv.splits > 1)    # GroupNorm, q/k/v (and its split sum), attention
-    return TiledPlan(core + 1 + (proj.splits > 1), core + 13, tiled_fwd_smem_bytes(fwd_kt),
-                     (2 * TILED_QUERY_ROWS + lp) * (C + 8) * 2, cdiv(L, TILED_FWD_ROWS), fwd_kt,
-                     TILED_FWD_THREADS, cdiv(L, TILED_QUERY_ROWS),
-                     4 if kt <= 4 else 8 if kt <= 8 else 16, lp, chunk, cdiv(rows, chunk),
-                     qkv, proj,
-                     (tiles(L, C), tiles(L, C), tiles(L, C), tiles(L, C), tiles(L, C),
-                      tiles(C + 1, 3 * C), tiles(C + 1, C)))
+    return TiledPlan(core + 1 + (proj.splits > 1), core + 11, tiled_fwd_smem_bytes(ktm),
+                     tiled_ds_smem_bytes(ktm, C), mtps, ktm, TILED_THREADS, lp, qkv, proj, *bwd)
+
+
+@functools.lru_cache(maxsize=None)
+def tiled_workspace_bytes(B: int, C: int, L: int, groups: int, bwd: bool) -> int:
+    """Bytes of the tiled body's workspace, as the built library carves it
+    (``rdm_attn_tiled_workspace``, needs ``nvcc``): one ctypes call a shape,
+    kept for the process, so the source stays the one rule that sizes the
+    buffer the kernels write."""
+    return _tiled_library().rdm_attn_tiled_workspace(B, C, L, groups, int(bwd))
 
 
 class BwdPlan(NamedTuple):
@@ -553,7 +569,9 @@ def _tiled_library():
                           + [ctypes.c_void_p, ctypes.POINTER(ctypes.c_float)],
                           extra=[("rdm_attn_tiled_bwd",
                                   [ctypes.c_void_p] * 11 + [ctypes.c_int] * 4
-                                  + [ctypes.c_float] * 4 + [ctypes.c_void_p], ctypes.c_int),
+                                  + [ctypes.c_float] * 4
+                                  + [ctypes.c_void_p, ctypes.POINTER(ctypes.c_float)],
+                                  ctypes.c_int),
                                  ("rdm_attn_tiled_workspace", [ctypes.c_int] * 5,
                                   ctypes.c_longlong),
                                  ("rdm_attn_tiled_plan", [ctypes.c_int] * 4 + [ctypes.c_void_p],
@@ -563,7 +581,7 @@ def _tiled_library():
 def built_tiled_plan(B: int, C: int, L: int, groups: int) -> tuple:
     """The built library's plan (``rdm_attn_tiled_plan``, needs ``nvcc``),
     as ``TiledPlan.flat``."""
-    out = (ctypes.c_int * 40)()
+    out = (ctypes.c_int * len(tiled_plan(B, C, L).flat()))()
     lib = _tiled_library()
     _build.raise_on(lib, lib.rdm_attn_tiled_plan(B, C, L, groups, out), "fused_attn_block_tiled plan")
     return tuple(out)
@@ -577,17 +595,6 @@ def _tiled_check(name, x, groups):
         raise ValueError(f"{name}: C={C}, L={H * W} in {x.dtype} is not a tiled shape")
     if C % groups != 0 or not 1 <= groups <= 32:
         raise ValueError(f"{name}: C={C} is not divisible by groups={groups} (at most 32)")
-
-
-def _tiled_bwd_args(name, x, raw, groups):
-    """Checks for the tiled backward, and its parameters cast to bfloat16 in
-    the layouts the source reads: gamma, beta, [Wq | Wk | Wv]^T, [bq | bk |
-    bv], [Wq | Wk | Wv] and Wp."""
-    _tiled_check(name, x, groups)
-    C = x.shape[1]
-    gamma, beta, wq, bq, wk, bk, wv, bv, wp, bp = _cast_params(name, raw, C, x.dtype, x.device)
-    wqkv = torch.cat([wq, wk, wv], 1)
-    return [gamma, beta, wqkv.t().contiguous(), torch.cat([bq, bk, bv]), wqkv, wp]
 
 
 def fused_attn_block_tiled(x, gn_scale, gn_bias, wq, bq, wk, bk, wv, bv, wp, bp,
@@ -645,7 +652,7 @@ def _tiled_fwd_launcher(gn_scale, gn_bias, wq, bq, wk, bk, wv, bv, wp, bp, *, gr
         out = torch.empty_like(x)
         if B == 0:
             return out
-        ws = torch.empty(lib.rdm_attn_tiled_workspace(B, C, L, groups, 0), dtype=torch.uint8,
+        ws = torch.empty(tiled_workspace_bytes(B, C, L, groups, False), dtype=torch.uint8,
                          device=device)
         with torch.cuda.device(device):
             err = lib.rdm_attn_tiled_fwd(
@@ -701,35 +708,94 @@ def fused_attn_block_bwd_tiled(x, g, gn_scale, gn_bias, wq, bq, wk, bk, wv, bv, 
     if x.device.type == "cpu":
         return fused_attn_block_bwd_reference(x, g, *raw, groups=groups,
                                               skip_rescale=skip_rescale)
-    name = "fused_attn_block_bwd_tiled"
-    args = _tiled_bwd_args(name, x, raw, groups)
-    if g.shape != x.shape or g.device != x.device:
-        raise ValueError(f"{name}: g of shape {tuple(g.shape)} on {g.device} "
-                         f"does not match x {tuple(x.shape)} on {x.device}")
-    g = g.to(x.dtype).contiguous()
-    B, C, H, W = x.shape
-    L = H * W
-    dx = torch.empty_like(x)
-    n1, n2 = (C + 1) * 3 * C, (C + 1) * C
-    grads = torch.zeros(n1 + n2 + 2 * C, dtype=torch.float32, device=x.device)
-    if B > 0:
-        lib = _tiled_library()
-        ws = torch.empty(lib.rdm_attn_tiled_workspace(B, C, L, groups, 1), dtype=torch.uint8,
-                         device=x.device)
-        r = _rescale(skip_rescale)
-        with torch.cuda.device(x.device):
-            err = lib.rdm_attn_tiled_bwd(
-                x.data_ptr(), g.data_ptr(), dx.data_ptr(), *(a.data_ptr() for a in args),
-                grads.data_ptr(), ws.data_ptr(), B, C, L, groups, GN_EPS, float(C) ** -0.5,
-                round_to(r, x.dtype), r, torch.cuda.current_stream(x.device).cuda_stream)
-        _build.raise_on(lib, err, name)
+    _tiled_check("fused_attn_block_bwd_tiled", x, groups)
+    dx, grads = _tiled_bwd_launcher(*raw, groups=groups, skip_rescale=skip_rescale)(x, g)
+    if x.shape[0] > 0:
         fused_attn_block_bwd_tiled.launches += 1
+    C = x.shape[1]
+    n1, n2 = (C + 1) * 3 * C, (C + 1) * C
     wqkv = grads[:n1].view(C + 1, 3 * C)
     dwp = grads[n1:n1 + n2].view(C + 1, C)
     gb = grads[n1 + n2:]
     out = (gb[:C], gb[C:], wqkv[:C, :C], wqkv[C, :C], wqkv[:C, C:2 * C], wqkv[C, C:2 * C],
            wqkv[:C, 2 * C:], wqkv[C, 2 * C:], dwp[:C], dwp[C])
     return (dx, *(o.contiguous().reshape(p.shape) for o, p in zip(out, raw)))
+
+
+# the parts of the tiled backward that a launcher's launch_ms times, in order
+TILED_BWD_PARTS = ("recompute", "gs", "do", "ds", "dq", "dk", "dv", "dh", "gn_bwd", "dwqkv",
+                   "dwp", "sums")
+
+
+def _tiled_bwd_launcher(gn_scale, gn_bias, wq, bq, wk, bk, wv, bv, wp, bp, *, groups: int,
+                        skip_rescale: bool = True):
+    """The tiled backward with its parameters prepared for CUDA tensors (cast
+    to bfloat16: gamma, beta, [Wq | Wk | Wv]^T, [bq | bk | bv], [Wq | Wk |
+    Wv] and Wp): returns ``launch(x, g, launch_ms=None)`` -> ``(dx, grads)``,
+    the float32 gradients packed as the source writes them, for bfloat16
+    NCHW ``x`` of this width; ``launch_ms``, a ctypes array of
+    ``len(TILED_BWD_PARTS)`` floats, receives each part's ms.
+    ``fused_attn_block_bwd_tiled`` builds one each call and counts the
+    launch; the timing tools keep one."""
+    name = "fused_attn_block_bwd_tiled"
+    raw = (gn_scale, gn_bias, wq, bq, wk, bk, wv, bv, wp, bp)
+    C, device = wq.shape[0], wq.device
+    if device.type != "cuda":
+        raise ValueError(f"{name}: unsupported device {device}")
+    if C % groups != 0 or not 1 <= groups <= 32:
+        raise ValueError(f"{name}: C={C} is not divisible by groups={groups} (at most 32)")
+    gamma, beta, wq, bq, wk, bk, wv, bv, wp, bp = _cast_params(name, raw, C, torch.bfloat16,
+                                                               device)
+    wqkv = torch.cat([wq, wk, wv], 1)
+    args = [gamma, beta, wqkv.t().contiguous(), torch.cat([bq, bk, bv]), wqkv, wp]
+    r = _rescale(skip_rescale)
+    lib = _tiled_library()
+
+    def launch(x, g, launch_ms=None):
+        _tiled_check(name, x, groups)
+        B, Cx, H, W = x.shape
+        L = H * W
+        if Cx != C or x.device != device:
+            raise ValueError(f"{name}: x {tuple(x.shape)} on {x.device} does not fit width "
+                             f"{C} on {device}")
+        if g.shape != x.shape or g.device != x.device:
+            raise ValueError(f"{name}: g of shape {tuple(g.shape)} on {g.device} "
+                             f"does not match x {tuple(x.shape)} on {x.device}")
+        g = g.to(x.dtype).contiguous()
+        dx = torch.empty_like(x)
+        # the source writes every element of grads; B 0 launches nothing
+        grads = (torch.empty if B else torch.zeros)((C + 1) * 4 * C + 2 * C,
+                                                    dtype=torch.float32, device=device)
+        if B == 0:
+            return dx, grads
+        # the workspace's size from the source's plan, cached by shape;
+        # PyTorch's caching allocator makes the buffer itself cheap
+        ws = torch.empty(tiled_workspace_bytes(B, C, L, groups, True), dtype=torch.uint8,
+                         device=device)
+        with torch.cuda.device(device):
+            err = lib.rdm_attn_tiled_bwd(
+                x.data_ptr(), g.data_ptr(), dx.data_ptr(), *(a.data_ptr() for a in args),
+                grads.data_ptr(), ws.data_ptr(), B, C, L, groups, GN_EPS, float(C) ** -0.5,
+                round_to(r, x.dtype), r, torch.cuda.current_stream(device).cuda_stream,
+                launch_ms)
+        _build.raise_on(lib, err, name)
+        return dx, grads
+
+    return launch
+
+
+def tiled_attn_bwd_launch_ms(x, g, gn_scale, gn_bias, wq, bq, wk, bk, wv, bv, wp, bp,
+                             *, groups: int, skip_rescale: bool = True, launcher=None) -> dict:
+    """One call of the tiled backward on the card with each of its parts
+    (``TILED_BWD_PARTS``; the recompute is one part, a split-K sum counts
+    with its product) timed by CUDA events between the launches: ms by
+    part.  Not counted in ``fused_attn_block_bwd_tiled.launches``.
+    ``launcher``: a ``_tiled_bwd_launcher`` of these parameters to reuse."""
+    raw = (gn_scale, gn_bias, wq, bq, wk, bk, wv, bv, wp, bp)
+    launcher = launcher or _tiled_bwd_launcher(*raw, groups=groups, skip_rescale=skip_rescale)
+    ms = (ctypes.c_float * len(TILED_BWD_PARTS))()
+    launcher(x, g, ms)
+    return dict(zip(TILED_BWD_PARTS, ms))
 
 
 fused_attn_block_bwd_tiled.launches = 0
@@ -788,36 +854,53 @@ def attention_core_reference(q, k, v, softmax_f32: bool = True):
     return torch.matmul(p.to(f32), v.to(f32)).to(dt)
 
 
-def core_rows_per_chunk(C: int, L: int) -> int:
-    """Query rows the float32 attention-core kernel handles at once: all of
-    them where shared memory allows, else the most that fit beside k
-    transposed (C x LP) and v (L x C), each row taking one row of q (C + 1)
-    and of scores (LP), all float32."""
-    lp = -(-L // 8) * 8
-    rows = (_build.SMEM_LIMIT - 4 * (C * lp + L * C)) // (4 * (C + 1 + lp))
-    if rows < 1:
-        raise ValueError(f"attention_core: C={C}, L={L} does not fit in shared memory")
-    return min(L, rows)
+def tf32_round(x: torch.Tensor) -> torch.Tensor:
+    """float32 ``x`` rounded to TF32 as ``cvt.rna.tf32.f32`` rounds: the low
+    13 mantissa bits to nearest, ties away from zero."""
+    bits = x.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & -0x2000).view(torch.float32)
+
+
+def attention_core_3xtf32(q, k, v):
+    """The float32 kernel's arithmetic in plain PyTorch (a model for the CPU
+    tests, not a path of the port): every product a b as hi_a lo_b + lo_a
+    hi_b + hi_a hi_b with hi = TF32(x) and lo = TF32(x - hi), the softmax
+    exact in float32 and p not rounded (v is float32)."""
+    def split(x):
+        hi = tf32_round(x)
+        return hi, tf32_round(x - hi)
+
+    def product(a, b):
+        (ah, al), (bh, bl) = split(a), split(b)
+        return (torch.matmul(ah, bl) + torch.matmul(al, bh)) + torch.matmul(ah, bh)
+
+    s = product(q, k.transpose(-1, -2)) * float(q.shape[-1]) ** -0.5
+    p = torch.exp(s - s.amax(-1, keepdim=True))
+    return product(p / p.sum(-1, keepdim=True), v)
 
 
 class CorePlan(NamedTuple):
-    """Launch plan of the bfloat16 attention-core kernel (``csrc/attention_core.cu``)."""
+    """Launch plan of the attention-core kernel (``csrc/attention_core.cu``)."""
     key_tiles: int          # keys padded to 16 key_tiles (2, 4, 6 or 8), zeros past L
     channel_tiles: int      # channels padded to 16 channel_tiles (4 or 8), zeros past C
-    groups: int             # consumer groups, each taking every groups-th sample
-    warps: int              # per block: one per 16 query rows in each group, and a producer
-    samples_in_flight: int  # per block: the ring's stages, two of each group's own
-    smem_bytes: int         # 1024 of alignment slack, the ring, two barriers a stage
+    groups: int             # bfloat16: consumer groups, each taking every groups-th sample
+    warps: int              # per block: one per 16 query rows in each group (and a producer)
+    samples_in_flight: int  # per block: the bf16 ring's stages, two of each group's own; f32 1
+    smem_bytes: int         # bf16: 1024 of alignment slack, the ring, two barriers a stage;
+                            # f32: q, k, v of one sample, 16 key_tiles rows of C + 4 floats
 
 
-def core_plan(L: int, C: int) -> CorePlan:
-    """The bfloat16 kernel's plan for (L, C), as ``attention_core.cu``
+def core_plan(L: int, C: int, dtype: torch.dtype = torch.bfloat16) -> CorePlan:
+    """The kernel's plan for (L, C) in ``dtype``, as ``attention_core.cu``
     computes it; raises where the kernel does not take the shape."""
     if not (1 <= L <= MAX_TOKENS and 8 <= C <= CORE_MAX_CHANNELS and C % 8 == 0):
         raise ValueError(f"attention_core: unsupported L={L}, C={C} (L <= {MAX_TOKENS}, "
                          f"C <= {CORE_MAX_CHANNELS}, C % 8 == 0)")
     key_tiles = -(-L // 32) * 2
     channel_tiles = 4 if C <= 64 else 8
+    if dtype == torch.float32:
+        return CorePlan(key_tiles, channel_tiles, 1, -(-L // 16), 1,
+                        3 * 16 * key_tiles * (C + 4) * 4)
     groups = 1 if key_tiles * channel_tiles >= 32 else 2
     sample = 3 * (16 * key_tiles) * (16 * channel_tiles) * 2       # q, k, v in bfloat16
     stages = CORE_STAGES_PER_GROUP * groups
@@ -833,8 +916,8 @@ def attention_core(q, k, v, softmax_f32: bool = True):
 
     CPU tensors take the plain version.  CUDA tensors launch the kernel; it
     takes float32 or bfloat16 of one type, L <= 128 and C <= 128 with C % 8
-    == 0, contiguous (bfloat16: starting on a 16-byte boundary), and raises
-    on anything else.
+    == 0, contiguous and starting on a 16-byte boundary, and raises on
+    anything else.
     """
     if q.device.type == "cpu":
         return attention_core_reference(q, k, v, softmax_f32)
@@ -847,22 +930,21 @@ def attention_core(q, k, v, softmax_f32: bool = True):
         raise ValueError(f"{name}: expected (B, L, C) float32 or bfloat16, got "
                          f"{tuple(q.shape)} {q.dtype}")
     B, L, C = q.shape
-    core_plan(L, C)
+    core_plan(L, C, q.dtype)
     if not all(t.is_contiguous() for t in (q, k, v)):
         raise ValueError(f"{name}: q, k, v must be contiguous")
-    bf16 = q.dtype == torch.bfloat16
-    if bf16 and any(t.data_ptr() % 16 for t in (q, k, v)):
-        raise ValueError(f"{name}: bfloat16 q, k, v must start on a 16-byte boundary")
+    if any(t.data_ptr() % 16 for t in (q, k, v)):
+        raise ValueError(f"{name}: q, k, v must start on a 16-byte boundary")
     out = torch.empty_like(q)
     if B == 0:
         return out
     lib = _build.library("attention_core", "rdm_attention_core",
-                   [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [ctypes.c_float, ctypes.c_void_p])
+                         [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5
+                         + [ctypes.c_float, ctypes.c_void_p])
     with torch.cuda.device(q.device):
         err = lib.rdm_attention_core(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, L, C,
-            0 if bf16 else core_rows_per_chunk(C, L), _DTYPE_CODES[q.dtype],
-            int(not softmax_f32), float(C) ** -0.5,
+            _DTYPE_CODES[q.dtype], int(not softmax_f32), float(C) ** -0.5,
             torch.cuda.current_stream(q.device).cuda_stream)
     _build.raise_on(lib, err, name)
     attention_core.launches += 1

@@ -130,7 +130,7 @@ def tiled_resblock_plan(B: int, H: int, c_in: int, c_out: int, groups0: int,
 
 def gn_groups_per_block(C: int, groups: int) -> int:
     """Groups a block of the tiled bodies' GroupNorm kernel takes
-    (``tiled_gemm.cuh``): a power of two dividing ``groups``, as many as make
+    (``groupnorm.cuh``): a power of two dividing ``groups``, as many as make
     a token's channels of the block 16 values where a group is narrower."""
     cg, gpb = C // groups, 1
     while 2 * gpb * cg <= 16 and groups % (2 * gpb) == 0:

@@ -1,10 +1,10 @@
-"""The launch plan of ``csrc/wg_gemm.cuh``'s Hopper GEMM, which the tiled
-bodies' forward products run on (``fused_resblock_tiled.cu``: both
-convolutions and the NIN; ``fused_attn_block_tiled.cu``: the q/k/v and
-output products), computed here as the source computes it, so that the CPU
-tests can hold its tiles, split of K, ring and shared memory to their rules
-at every shape of the configs; a card test holds the built library's plan
-equal to this one."""
+"""The launch plan of ``csrc/wg_gemm.cuh``'s Hopper GEMM, which every product
+of the tiled bodies runs on (``fused_resblock_tiled.cu``: both convolutions
+and the NIN; ``fused_attn_block_tiled.cu``: the forward's q/k/v and output
+products and the backward's do, dq, dk, dv, dh and weight gradients),
+computed here as the source computes it, so that the CPU tests can hold its
+tiles, split of K, ring and shared memory to their rules at every shape of
+the configs; a card test holds the built library's plan equal to this one."""
 from __future__ import annotations
 
 from typing import NamedTuple
@@ -53,25 +53,40 @@ def wg_smem_bytes(bn: int) -> tuple:
                     + 2 * (WG_MAX_N + WG_TEMB_MAX) + (2 * stages + 2) * 8)
 
 
-def gemm_plan(conv: bool, B: int, H: int, M: int, N: int, c: int) -> GemmPlan:
-    """The plan of an M x N product with K = 9 c (conv: B images of H x H)
-    or c: a conv tile is nh whole image rows of one sample or nb whole
-    samples; K is split only where the tiles fill less than half of WG_SMS."""
+def _finish(tiles_m: int, N: int, steps: int, max_splits: int, box: tuple) -> GemmPlan:
+    """The plan once the M tiles and the stages are known (``wg_finish_plan``):
+    K is split only where the tiles fill less than half of WG_SMS, in at most
+    ``max_splits``."""
     cdiv = lambda a, b: -(-a // b)
     bn = 128 if N >= 128 else 64
-    steps = (9 if conv else 1) * cdiv(c, 64)
-    if conv:
-        nh, nb = (H, WG_BM // (H * H)) if H * H <= WG_BM else (WG_BM // H, 1)
-        tiles_m = cdiv(B, nb) * cdiv(H, nh)
-        box = (64, H, nh, nb)
-    else:
-        tiles_m = cdiv(M, WG_BM)
-        box = (64, WG_BM, 1, 1)
     tiles_n = cdiv(N, bn)
     tiles = tiles_m * tiles_n
-    s = min(WG_SMS // tiles, WG_MAX_SPLITS, steps) if 2 * tiles < WG_SMS else 1
+    s = min(WG_SMS // tiles, max_splits, steps) if 2 * tiles < WG_SMS else 1
     chunk = cdiv(steps, s)
     splits = cdiv(steps, chunk)
     stages, smem = wg_smem_bytes(bn)
     return GemmPlan(WG_BM, bn, tiles_m, tiles_n, steps, chunk, splits,
                     min(tiles * splits, WG_SMS), stages, smem, box)
+
+
+def gemm_plan(conv: bool, B: int, H: int, M: int, N: int, c: int) -> GemmPlan:
+    """The plan of an M x N product with K-major operands and K = 9 c (conv: B
+    images of H x H) or c: a conv tile is nh whole image rows of one sample or
+    nb whole samples (``wg_plan``)."""
+    cdiv = lambda a, b: -(-a // b)
+    steps = (9 if conv else 1) * cdiv(c, 64)
+    if conv:
+        nh, nb = (H, WG_BM // (H * H)) if H * H <= WG_BM else (WG_BM // H, 1)
+        return _finish(cdiv(B, nb) * cdiv(H, nh), N, steps, WG_MAX_SPLITS, (64, H, nh, nb))
+    return _finish(cdiv(M, WG_BM), N, steps, WG_MAX_SPLITS, (64, WG_BM, 1, 1))
+
+
+def gemm_plan_rows(M: int, N: int, steps: int, mtps: int, samples: int, a_mn: bool,
+                   max_splits: int) -> GemmPlan:
+    """The plan of a product read through 3-D maps (``wg_plan_rows``): M x N
+    outputs over ``steps`` stages of K 64; batched where ``mtps`` > 0 (that
+    many M tiles a sample, each reading both operands at its sample); the A
+    box 64 x 64 (MN-major, two a stage) or 64 x 128 (K-major)."""
+    tiles_m = mtps * samples if mtps else -(-M // WG_BM)
+    return _finish(tiles_m, N, steps, max_splits, (64, 64 if a_mn else WG_BM, 1, 1))
+

@@ -123,19 +123,40 @@ def test_wrapper_takes_plain_version_on_cpu_and_raises_elsewhere():
         attn_ops.attention_core(q, q, q)
 
 
-def test_core_rows_per_chunk():
-    assert attn_ops.core_rows_per_chunk(64, 81) == 81      # flagship: one chunk
-    r = attn_ops.core_rows_per_chunk(128, 128)
-    assert 1 <= r < 128
-    # k^T and v, and per chunk row one row of q and of scores
-    assert 4 * (128 * 128 + 128 * 128 + r * (129 + 128)) <= 232448
+@pytest.mark.parametrize("B,L,C", [(64, 81, 64), (16, 128, 128)])
+def test_3xtf32_split_meets_the_float32_tolerance(B, L, C):
+    """The float32 kernel's 3xTF32 split, emulated in plain torch (TF32
+    rounding of the low 13 mantissa bits to nearest, as cvt.rna.tf32.f32
+    does; hi x lo + lo x hi + hi x hi), holds the tolerance the card holds
+    the kernel to: 1e-5 at the output's scale of the plain version."""
+    q, k, v = (torch.from_numpy(a) for a in make_qkv(B, L, C, B + L + C))
+    ref = attn_ops.attention_core_reference(q, k, v)
+    ours = attn_ops.attention_core_3xtf32(q, k, v)
+    scale = max(1.0, float(ref.abs().max()))
+    assert float((ours - ref).abs().max()) <= 1e-5 * scale
+    # TF32 alone would not: one product's rounding moves p v by about 1e-3
+    hi = attn_ops.tf32_round
+    s = torch.matmul(hi(q), hi(k).transpose(-1, -2)) * C ** -0.5
+    one = torch.matmul(hi(torch.softmax(s, -1)), hi(v))
+    assert float((one - ref).abs().max()) > 1e-4 * scale
+
+
+def test_tf32_round_is_cvt_rna():
+    """TF32 keeps 10 mantissa bits: the low 13 bits of the float32 pattern
+    rounded to nearest, ties away from zero, for either sign."""
+    x = torch.tensor([1.0 + 2.0 ** -11, 1.0 + 2.0 ** -12, -(1.0 + 2.0 ** -11),
+                      1.0 + 3 * 2.0 ** -12, 3.0], dtype=torch.float32)
+    want = torch.tensor([1.0 + 2.0 ** -10, 1.0, -(1.0 + 2.0 ** -10), 1.0 + 2.0 ** -10, 3.0])
+    assert torch.equal(attn_ops.tf32_round(x), want)
+    assert not (attn_ops.tf32_round(torch.randn(1000)).view(torch.int32) & 0x1FFF).any()
 
 
 def test_core_plan_fits_every_accepted_shape():
-    """The bfloat16 kernel's plan for every (L, C) the wrapper takes: keys
-    and channels padded to whole tiles, one warp per 16 query rows in each
-    consumer group and a producer warp, two staged samples of each group's
-    own, all of it within one block's shared memory."""
+    """The kernel's plan for every (L, C) the wrapper takes: keys and
+    channels padded to whole tiles; in bfloat16 one warp per 16 query rows
+    in each consumer group and a producer warp, two staged samples of each
+    group's own; in float32 one sample a block; all of it within one
+    block's shared memory."""
     for L in range(1, 129):
         for C in range(8, 129, 8):
             plan = attn_ops.core_plan(L, C)
@@ -147,12 +168,21 @@ def test_core_plan_fits_every_accepted_shape():
             assert plan.samples_in_flight == 2 * plan.groups
             assert plan.smem_bytes == 1024 + plan.samples_in_flight * (sample + 16)
             assert plan.smem_bytes <= 232448
+            # float32: a sample a block, one warp per 16 query rows, q, k and v
+            # staged as 16 key_tiles rows of C + 4 floats
+            f32 = attn_ops.core_plan(L, C, torch.float32)
+            assert f32[:2] == plan[:2] and (f32.groups, f32.samples_in_flight) == (1, 1)
+            assert f32.warps == -(-L // 16) and f32.warps * 16 <= 16 * f32.key_tiles
+            assert f32.smem_bytes == 3 * 16 * f32.key_tiles * (C + 4) * 4 <= 232448
     # the flagship's shape: 2 groups of 6 warps and a producer, 4 samples of 36,864 bytes
     assert attn_ops.core_plan(81, 64) == (6, 4, 2, 13, 4, 148544)
     assert attn_ops.core_plan(128, 128) == (8, 8, 1, 9, 2, 197664)    # the largest
+    assert attn_ops.core_plan(81, 64, torch.float32) == (6, 4, 1, 6, 1, 78336)
+    assert attn_ops.core_plan(128, 128, torch.float32) == (8, 8, 1, 8, 1, 202752)
     for L, C in [(0, 64), (129, 64), (81, 136), (81, 60), (81, 0)]:
-        with pytest.raises(ValueError):
-            attn_ops.core_plan(L, C)
+        for dtype in (torch.bfloat16, torch.float32):
+            with pytest.raises(ValueError):
+                attn_ops.core_plan(L, C, dtype)
 
 
 # ---------------------------------------------------------------------------

@@ -12,6 +12,7 @@ This file imports no JAX: the card's machine runs it.
 """
 import logging
 import math
+import os
 
 import numpy as np
 import pytest
@@ -77,17 +78,21 @@ def test_attention_envelope_excludes(C, L, dtype):
         attn_ops.attn_body(C, L, dtype)
 
 
-def check_gemm_plan(plan, M, N, K, conv_H=None):
-    """A product's plan on the Hopper GEMM: its tiles cover M and N, its
-    splits cover K's stages once, on tap and 64-channel-chunk boundaries,
-    its shared memory fits a block, and its A box is a legal TMA box."""
+def check_gemm_plan(plan, M, N, K, conv_H=None, a_mn=False, samples=None, max_splits=16):
+    """A product's plan on the Hopper GEMM: its tiles cover M and N (per
+    sample where ``samples`` is given: M rows of each of them), its splits
+    cover K's stages once, on tap and 64-channel-chunk boundaries, at most
+    ``max_splits`` of them, its shared memory fits a block, and its A box is
+    a legal TMA box: K-major 64 x 128 rows, MN-major (``a_mn``) 64 x 64 K
+    rows (two a stage), or the convolution's (64, W, nh, nb)."""
     cdiv = lambda a, b: -(-a // b)
     assert plan.bm == 128 and plan.bn in (64, 128) and (plan.bn == 128) == (N >= 128)
     assert plan.tiles_n * plan.bn >= N > (plan.tiles_n - 1) * plan.bn
     taps = 9 if conv_H else 1
     assert K % taps == 0 and plan.steps == taps * cdiv(K // taps, 64)
     assert plan.chunk >= 1 and (plan.splits - 1) * plan.chunk < plan.steps <= plan.splits * plan.chunk
-    assert plan.splits == 1 or 2 * plan.tiles_m * plan.tiles_n < 132
+    assert plan.splits == 1 or (2 * plan.tiles_m * plan.tiles_n < 132
+                                and plan.splits <= max_splits)
     assert plan.blocks == min(plan.tiles_m * plan.tiles_n * plan.splits, 132)
     assert plan.smem_bytes <= _build.SMEM_LIMIT and plan.stages >= 3
     box = plan.box
@@ -101,46 +106,68 @@ def check_gemm_plan(plan, M, N, K, conv_H=None):
         assert plan.tiles_m == cdiv(B, nb) * cdiv(H, nh)
         assert nb * H * H >= min(128, H * H) or nh * W >= 128 - W
     else:
-        assert box[1:] == (128, 1, 1) and plan.tiles_m == cdiv(M, 128)
+        assert box[1:] == ((64, 1, 1) if a_mn else (128, 1, 1))
+        assert plan.tiles_m == (samples or 1) * cdiv(M, 128)
     # every stride of the tensor maps is a multiple of 16 bytes
-    assert (K // taps) * 2 % 16 == 0
+    assert (K // taps) * 2 % 16 == 0 or samples
+
+
+def source_launches(function: str) -> dict:
+    """The launches that ``function`` of ``csrc/fused_attn_block_tiled.cu``
+    makes, counted in its text: kernel launches, the backward's products, the
+    ds kernel, the forward's first three launches, and its clock marks."""
+    src = open(os.path.join(_build.CSRC_DIR, "fused_attn_block_tiled.cu")).read()
+    body = src[src.index(f"int {function}("):]
+    body = body[:body.index("\n}\n")]
+    return {"kernels": body.count("<<<"), "products": body.count("bwd_product<"),
+            "ds": body.count("dispatch_ds("), "forward_core": body.count("forward_core("),
+            "marks": body.count("clock.mark()")}
 
 
 @pytest.mark.parametrize("B", [64, 3, 1])
 @pytest.mark.parametrize("which", sorted(ATTN_SHAPES))
 def test_attention_tiled_plan(which, B):
     """The tiled attention's plan at the configs' shapes: shared memory
-    within a block's 227 KB, every query row in a tile of the forward (128)
-    and of the ds kernel (64), the keys padded to 16 and inside the key
-    tiles each kernel is built for, the weight gradients' splits covering
-    every token row once, the two forward products on the Hopper GEMM over
-    all B Lp rows, and the backward's 64 x 64 grids."""
+    within a block's 227 KB, every query row in a 128-row tile of both
+    attention kernels, the keys padded to 16 and inside the key tiles they
+    are built for; every product on the Hopper GEMM: the forward's two and
+    the backward's do and dh over all B Lp rows, dq, dk and dv per sample
+    (dk's and dv's A MN-major), none of them split, and the weight gradients
+    (both operands MN-major) with K over every sample's 64-token stages,
+    split; the backward's launch count as the source counts it."""
     C, L, _ = ATTN_SHAPES[which]
+    cdiv = lambda a, b: -(-a // b)
     plan = attn_ops.tiled_plan(B, C, L)
-    assert max(plan.fwd_smem_bytes, plan.bwd_smem_bytes) <= _build.SMEM_LIMIT
-    assert plan.fwd_query_tiles * attn_ops.TILED_FWD_ROWS >= L
-    assert plan.query_tiles * attn_ops.TILED_QUERY_ROWS >= L
+    assert max(plan.fwd_smem_bytes, plan.ds_smem_bytes) <= _build.SMEM_LIMIT
+    assert plan.query_tiles * attn_ops.TILED_FWD_ROWS >= L > (plan.query_tiles - 1) * 128
     assert plan.padded_tokens % 16 == 0 and L <= plan.padded_tokens < L + 16
-    assert plan.padded_tokens <= 16 * plan.key_tiles and L <= 64 * plan.fwd_key_tiles
-    assert plan.fwd_threads == 288
+    assert plan.key_tiles in (1, 2, 4) and L <= 64 * plan.key_tiles
+    assert plan.threads == 288
     rows = B * plan.padded_tokens
-    assert plan.grad_chunk % 32 == 0 and plan.grad_splits <= 64
-    assert (plan.grad_splits - 1) * plan.grad_chunk < rows <= plan.grad_splits * plan.grad_chunk
     check_gemm_plan(plan.qkv, rows, 3 * C, C)
     check_gemm_plan(plan.proj, rows, C, C)
+    check_gemm_plan(plan.do, rows, C, C, max_splits=1)
+    for p, a_mn in ((plan.dq, False), (plan.dk, True), (plan.dv, True)):
+        check_gemm_plan(p, L, C, L, a_mn=a_mn, samples=B, max_splits=1)
+    check_gemm_plan(plan.dh, rows, C, 3 * C, max_splits=1)
+    for p, N in ((plan.dwqkv, 3 * C), (plan.dwp, C)):
+        check_gemm_plan(p, C, N, B * 64 * cdiv(L, 64), a_mn=True,
+                        max_splits=attn_ops.TILED_GRAD_SPLITS)
     splits = (plan.qkv.splits > 1) + (plan.proj.splits > 1)
-    assert plan.fwd_launches == 4 + splits and plan.bwd_launches == 16 + (plan.qkv.splits > 1)
-    t = lambda n: -(-n // 64)
-    assert plan.gemm_tiles[5] == (t(C + 1), t(3 * C)) and plan.gemm_tiles[6] == (t(C + 1), t(C))
-    assert all(g == (t(L), t(C)) for g in plan.gemm_tiles[:5])
-    assert len(plan.flat()) == 40
+    assert plan.fwd_launches == 4 + splits and plan.bwd_launches == 14 + (plan.qkv.splits > 1)
+    n = source_launches("rdm_attn_tiled_bwd")
+    assert plan.bwd_launches == 3 * n["forward_core"] + n["kernels"] + n["products"] + n["ds"] \
+        + (plan.qkv.splits > 1)
+    assert n["marks"] == len(attn_ops.TILED_BWD_PARTS) + 1
+    assert len(plan.flat()) == 8 + 9 * 14
     if which == "ddpmpp":
-        assert (plan.fwd_smem_bytes, plan.bwd_smem_bytes) == (164928, 202752)
-        assert (plan.fwd_query_tiles, plan.fwd_key_tiles, plan.query_tiles, plan.key_tiles,
-                plan.padded_tokens) == (2, 4, 4, 16, 256)
+        assert (plan.fwd_smem_bytes, plan.ds_smem_bytes) == (164928, 197696)
+        assert (plan.query_tiles, plan.key_tiles, plan.padded_tokens) == (2, 4, 256)
     else:
-        assert (plan.fwd_query_tiles, plan.fwd_key_tiles, plan.query_tiles, plan.key_tiles,
-                plan.padded_tokens) == (1, 2, 2, 8, 96)
+        assert (plan.query_tiles, plan.key_tiles, plan.padded_tokens) == (1, 2, 96)
+    if B == 64:
+        # the weight gradients' splits fill the card
+        assert plan.dwqkv.blocks >= 96 and plan.dwp.blocks >= 64
 
 
 def test_resblock_body_of_each_shape():
