@@ -82,7 +82,11 @@ Phases, each printing one JSON line with its elapsed seconds:
               rows and float32 on 8,192, shoot_jvp on 1024 lanes; the
               quantiles of the per-row error and the mass against SHOOT_TOL
               (the reasons are stated there), two runs bit for bit, cold
-              times (the L2 flushed) beside the operation-count bound
+              times (the L2 flushed) beside the operation-count bound; the
+              manifold chain by width: manifold_target at 1 row (the
+              chain's own time), 1024 and the full count, shoot_jvp at 1
+              and 33 lanes, a slice launched alone bit-equal to the same
+              rows of the full launch, the lanes a row and the registers
 15. oracle_native  the port's native CR3BP oracle (its own C++ copy, built
               with g++ at first use) grades the 1024 in-tree round-2 physical
               samples (8 basin hops, optimal mode): feasible 1012 +- 3 and
@@ -314,9 +318,11 @@ from torch.utils.flop_counter import FlopCounterMode
 import rdm_tpu_torch
 from rdm_tpu_torch import datagen
 from rdm_tpu_torch.benchmark import GTOHaloBenchmarker, GTOHaloBenchmarkConfig
+from rdm_tpu_torch.benchmark import common as bench_common
 from rdm_tpu_torch.benchmark import costs as cost_lib
 from rdm_tpu_torch.benchmark import dp_check
 from rdm_tpu_torch.benchmark import profile_train_decomp as decomp_lib
+from rdm_tpu_torch.benchmark import shoot_chain as shoot_chain_lib
 from rdm_tpu_torch.benchmark import tiled_attn_parts
 from rdm_tpu_torch.benchmark import trace as trace_lib
 from rdm_tpu_torch.benchmark.common import (SAMPLING_EPS, LoadedModel, generate_raw_samples,
@@ -336,8 +342,6 @@ from rdm_tpu_torch.ops import micro_cf
 from rdm_tpu_torch.ops import resblock as rb_ops
 from rdm_tpu_torch.parallel import launch as dp_launch
 from rdm_tpu_torch.parallel import mesh as dp_mesh
-from rdm_tpu_torch.physics import halo as halo_lib
-from rdm_tpu_torch.physics import manifold as manifold_lib
 from rdm_tpu_torch.physics import oracle as oracle_lib
 from rdm_tpu_torch.physics import solver_gpu
 from rdm_tpu_torch.physics.oracle import evaluate_warmstarts_native
@@ -1059,37 +1063,10 @@ SHOOT_TOL = {
 QUANTILES = {"q50": 0.5, "q75": 0.75, "q99": 0.99}
 
 
-def cr3bp_inputs(lanes, seed, device):
-    """Seeded round-2 lanes in the NLP's box: theta (float64), the host's
-    float64 halo data, the float32 table interpolation and the spiral end."""
-    physical = np.load(ROUND2_PHYSICAL)
-    idx = np.random.default_rng(seed).choice(len(physical), lanes, replace=lanes > len(physical))
-    G, H = physical[idx, 1:], physical[idx, 0]
-    theta = solver_gpu._clamp_vars(torch.as_tensor(G, device=device), 20, 40.0, 15.0)
-    sd = halo_lib.interp_seed(H)
-    d64 = tuple(torch.as_tensor(np.asarray(a, np.float64), device=device)
-                for a in (sd["state0"], sd["period"], sd["vstable"]))
-    d32 = manifold_lib.interp_seed(torch.as_tensor(H, dtype=torch.float32, device=device))
-    spiral = torch.as_tensor(oracle_lib._mission_constants(6.48423370092)[0], device=device)
-    return theta, d64, d32, spiral
-
-
 def time_cold(fn, reps=5) -> float:
     """Mean ms of ``fn`` over ``reps`` launches, the L2 flushed (a 256 MB
     write) before each, after one warm-up; CUDA events."""
-    flush = torch.empty(64 * 2**20, dtype=torch.int32, device="cuda")
-    fn()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(reps):
-        flush.zero_()
-        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        a.record()
-        fn()
-        b.record()
-        b.synchronize()
-        times.append(a.elapsed_time(b))
-    return float(np.mean(times))
+    return float(np.mean(bench_common.cold_ms(fn, reps)))
 
 
 def time_once(fn):
@@ -1162,7 +1139,7 @@ def jvp_rows(a, b):
 def cr3bp_kernel_phase(device, L=1024) -> dict:
     """The three shooting kernels at the shapes of one 1024-lane LM
     iteration against their plain versions on seeded round-2 lanes."""
-    theta, d64, d32, sp64 = cr3bp_inputs(L, 30, device)
+    theta, d64, d32, sp64 = bench_common.shoot_inputs(L, 30, device)
     sp32 = sp64.float()
     th32 = theta.float()
     cases = {}
@@ -1221,7 +1198,44 @@ def cr3bp_kernel_phase(device, L=1024) -> dict:
         shoot_ops.shoot_jvp_ops(L), PEAK_FLOPS[torch.float32], L, torch.float32)
     for c in cases.values():
         print(json.dumps({"shoot_case": c}), flush=True)
+    cases["chain"] = chain_case(
+        {"f64": ((*d64_10, tau10, len10), (1, L, L * 10)),
+         "f32": ((*d32_8, th8[:, 64].contiguous(), th8[:, 65].contiguous()), (1, L, L * 8))},
+        (th32, tgt32, *d32), (sp32, 1.0, 20, 5.0, 11.0), (1, 33))
+    print(json.dumps({"shoot_chain": cases["chain"]}), flush=True)
     return cases
+
+
+def chain_case(targets, jvp_args, jvp_tail, jvp_lanes) -> dict:
+    """The manifold chain by width: ``manifold_target`` cold at each row
+    count of ``targets`` (dtype tag -> (arguments, row counts)), 1 row being
+    the chain's own time, and ``shoot_jvp`` at each of ``jvp_lanes``; the
+    first rows and a slice from the middle launched alone equal the same
+    rows of the full launch bit for bit (a row's result does not depend on
+    its launch); the lanes a row and each kernel's registers as built."""
+    out = {"lanes_a_row": {str(k).replace("torch.", ""): v for k, v in shoot_ops.LANES.items()},
+           "manifold_target_ms": {}, "shoot_jvp_ms": {}}
+    for tag, (args, rows) in targets.items():
+        full = shoot_ops.manifold_target(*args)
+        for m in rows:
+            k = (len(full) - m) // 2
+            mid = tuple(a[k:k + m].contiguous() for a in args)
+            check(torch.equal(shoot_ops.manifold_target(*mid), full[k:k + m]),
+                  f"manifold_target {tag}: rows {k}..{k + m} alone differ from the full launch")
+            part = tuple(a[:m].contiguous() for a in args)
+            out["manifold_target_ms"][f"{tag} {m} rows"] = time_cold(
+                lambda: shoot_ops.manifold_target(*part))
+    full = shoot_ops.shoot_jvp(*jvp_args, *jvp_tail)
+    for n in jvp_lanes:
+        k = (len(full) - n) // 2
+        mid = tuple(a[k:k + n].contiguous() for a in jvp_args)
+        check(torch.equal(shoot_ops.shoot_jvp(*mid, *jvp_tail), full[k:k + n]),
+              f"shoot_jvp: lanes {k}..{k + n} alone differ from the full launch")
+        part = tuple(a[:n].contiguous() for a in jvp_args)
+        out["shoot_jvp_ms"][f"{n} lanes"] = time_cold(lambda: shoot_ops.shoot_jvp(*part, *jvp_tail))
+    with open(_build.library_path("cr3bp_shoot")[:-3] + ".log") as f:
+        out["registers"] = shoot_chain_lib.registers(f.read())
+    return out
 
 
 def oracle_gpu_phase(native_feasible) -> dict:
@@ -3203,7 +3217,8 @@ def main() -> int:
     t0 = time.perf_counter()
     rb_cases = [resblock_case(1024, H, ci, co, torch.bfloat16, i, device, timed=True)
                 for i, (H, ci, co) in enumerate(RESBLOCK_SHAPES)]
-    rb_f32 = resblock_case(1024, 9, 64, 64, torch.float32, 20, device, timed=False)
+    # float32 (the scalar body) timed at the flagship's first shape, beside its bound
+    rb_f32 = resblock_case(1024, 9, 64, 64, torch.float32, 20, device, timed=True)
     # ragged: B 3 (one partial group) and 1025 (no persistent grid divides
     # it) at every shape in bfloat16, B 3 at three shapes in float32
     rb_ragged = [resblock_case(B, H, ci, co, torch.bfloat16, 21 + i, device, timed=False)
@@ -3467,6 +3482,7 @@ def main() -> int:
         "b4096": {k: train_case[k] for k in ("ms", "kernel_ms", "warm_ms", "plain_ms",
                                              "bound_ms")},
         "max_err_f32": f32_case["max_abs_err"],
+        "f32": {k: f32_case[k] for k in ("ms", "kernel_ms", "plain_ms", "bound_ms", "bound_by")},
         "max_err_bf16": main_case["max_abs_err"],
         "kernel_us": main_case["ms"] * 1e3,
         "plain_us": main_case["plain_ms"] * 1e3,
@@ -3536,6 +3552,8 @@ def main() -> int:
         "kernel_ms": per_launch(rb_cases, "kernel_ms"),
         "module_ms": per_launch(rb_cases, "module_ms"),
         "max_err_f32": rb_f32["max_abs_err"],
+        "f32": {k: rb_f32[k] for k in ("ms", "kernel_ms", "plain_ms", "module_ms", "bound_ms",
+                                       "bound_by")},
         "max_err_bf16": max(c["max_abs_err"] for c in rb_cases),
         "per_forward_ms": rb_forward,
         "shape": "mean per launch over the 17 blocks of one forward, B=1024 bfloat16 "
@@ -3682,6 +3700,14 @@ def main() -> int:
             entry["whole_arc_f32"] = {k: shoot_cases["arc_f32"][k] for k in
                                       ("rows", "max_abs_err", "err_quantiles", "mass_err", "ms",
                                        "plain_ms", "bound_ms")}
+        chain = shoot_cases["chain"]
+        entry["registers"] = {k: v for k, v in chain["registers"].items() if k.startswith(name)}
+        if name == "manifold_target":
+            entry["lanes_a_row"] = chain["lanes_a_row"]
+            entry["ms_by_rows"] = chain["manifold_target_ms"]
+        if name == "shoot_jvp":
+            entry["lanes_a_row"] = chain["lanes_a_row"]["float32"]
+            entry["ms_by_lanes"] = dict(chain["shoot_jvp_ms"], **{f"{c['rows']} lanes": c["ms"]})
         kernels.append(entry)
     print(json.dumps({"phase": "total", "seconds": round(time.perf_counter() - T_START, 3)}),
           flush=True)

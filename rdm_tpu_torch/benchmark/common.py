@@ -189,3 +189,44 @@ def trace_kernels(fn, steps: int, top: int = 12, path: str | None = None,
         **({"counted": {k: sum(v[1] for n, v in by_name.items() if test(n))
                         for k, test in count.items()}} if count else {}),
     }
+
+
+ROUND2 = os.path.join(os.path.dirname(os.path.dirname(os.path.dirname(
+    os.path.abspath(__file__)))), "benchmark_results", "round2_flagship_1024", "gto_halo",
+    "generated_samples.npy")
+
+
+def shoot_inputs(n: int, seed: int, device):
+    """n seeded round-2 lanes of the shooting kernels' inputs (drawn again
+    where n > 1024) in the NLP's box: theta (float64), the host's float64
+    halo data, the float32 table interpolation and the spiral end (float64)."""
+    from ..physics import halo, manifold, solver_gpu
+    from ..physics.oracle import _mission_constants
+    physical = np.load(ROUND2)
+    idx = np.random.default_rng(seed).choice(len(physical), n, replace=n > len(physical))
+    G, H = physical[idx, 1:], physical[idx, 0]
+    theta = solver_gpu._clamp_vars(torch.as_tensor(G, device=device), 20, 40.0, 15.0)
+    sd = halo.interp_seed(H)
+    d64 = tuple(torch.as_tensor(np.asarray(a, np.float64), device=device)
+                for a in (sd["state0"], sd["period"], sd["vstable"]))
+    d32 = manifold.interp_seed(torch.as_tensor(H, dtype=torch.float32, device=device))
+    spiral = torch.as_tensor(_mission_constants(6.48423370092)[0], device=device)
+    return theta, d64, d32, spiral
+
+
+def cold_ms(fn, reps: int = 5) -> list:
+    """ms of each of ``reps`` launches of ``fn``, the L2 flushed (a 256 MB
+    write) before each, after one warm-up; CUDA events."""
+    flush = torch.empty(64 * 2**20, dtype=torch.int32, device="cuda")
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        flush.zero_()
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b))
+    return times

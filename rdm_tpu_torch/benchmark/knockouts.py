@@ -46,13 +46,29 @@ Variants:
   operands into one float: the operands are still loaded and built); ``no_weight_grads`` (the weight and bias gradient products and
   their accumulation skipped); ``load_store`` (everything between a
   sample's arrival and its dx store cut out: the TMA loads, the bulk
-  stores, the weight staging and the slot writes are left).
+  stores, the weight staging and the slot writes are left);
+* the solver's manifold target (``manifold_target`` of
+  ``csrc/cr3bp_shoot.cu`` in both types at 1, 1024 and a grading's largest
+  row count, round-2 rows): ``whole``; ``halo_only`` (the back-integration
+  cut to no steps); ``back_only`` (the halo phase cut to no steps);
+* its float32 Jacobian (``shoot_jvp`` at L 1024, round-2 lanes): ``whole``;
+  ``legs_only`` (the target columns 64 and 65 return at once);
+  ``targets_only`` (the 64 leg columns return at once).
+  The shooting kernels' times are taken as ``chip_smoke.py`` takes them,
+  in ms: the L2 flushed before each of five launches, CUDA events.
+
+    python -m rdm_tpu_torch.benchmark.knockouts --only target,jvp
+
+runs these alone (``--only`` takes prefixes of the variants' names);
+``benchmark/shoot_chain.py`` times them for two copies of the source in
+turns.
 
 The edits match the sources' text; one that no longer matches raises and
 names itself.  The last line printed is one JSON object of all the times.
 """
 from __future__ import annotations
 
+import argparse
 import contextlib
 import ctypes
 import json
@@ -60,13 +76,16 @@ import os
 import shutil
 import subprocess
 
+import numpy as np
 import torch
 
 from ..ops import _build
 from ..ops import attention as attn_ops
+from ..ops import cr3bp as shoot_ops
 from ..ops import micro_cf
 from ..ops import resblock as rb_ops
 from ..scripts.micro_cf import cold_us, describe, randn
+from .common import cold_ms, shoot_inputs
 
 OUT = os.path.join(_build.BUILD_DIR, "knockouts")
 B, L, C = 1024, 81, 64
@@ -138,6 +157,22 @@ EDITS.update({
                        "    // 0. GroupNorm statistics: group gi is cg * L contiguous values; a",
                        ""),
 })
+# the shooting Jacobian's column groups: each edit returns at the top of the
+# other group's branch (the anchors are in the parent's source too)
+JVP_TARGETS = "    // the target's columns: the phase (64) and the arc length (65)\n"
+JVP_LEGS = "    // the legs against the fixed target, one variable seeded\n"
+# the manifold target's two phases: the back-integration or the halo phase
+# cut to no steps
+EDITS.update({
+    "target_whole": ("cr3bp_shoot.cu", None, None),
+    "target_halo_only": ("cr3bp_shoot.cu", "constexpr int kManifoldSteps = 1024;",
+                         "constexpr int kManifoldSteps = 0;"),
+    "target_back_only": ("cr3bp_shoot.cu", "constexpr int kHaloSteps = 256;",
+                         "constexpr int kHaloSteps = 0;"),
+    "jvp_whole": ("cr3bp_shoot.cu", None, None),
+    "jvp_legs_only": ("cr3bp_shoot.cu", JVP_TARGETS, JVP_TARGETS + "    if (L > 0) return;\n"),
+    "jvp_targets_only": ("cr3bp_shoot.cu", JVP_LEGS, JVP_LEGS + "    if (L > 0) return;\n"),
+})
 # a variant that cuts its source from its edit's text up to this text
 CUT_TO = {"bwd_load_store": "    fence_proxy_async();             // the bulk store reads these bytes"}
 # further edits of four variants: the dots load no w, the resblock's
@@ -153,7 +188,8 @@ NO_ATTENTION = ("    attn_rows16<NT, 4, false>(qp, kp, vp, r0, L, scale, acc);",
 MAIN_SOURCE = {"core": "attention_core.cu", "dots": "micro_cf.cu", "transpose": "micro_cf.cu",
                "roll": "micro_cf.cu",
                "resblock": "fused_resblock.cu", "attn": "fused_attn_block.cu",
-               "bwd": "fused_attn_block_bwd.cu"}
+               "bwd": "fused_attn_block_bwd.cu", "target": "cr3bp_shoot.cu",
+               "jvp": "cr3bp_shoot.cu"}
 NO_W_LOAD = ("      for (int t = 0; t < taps; ++t) {\n        mbar_expect_tx",
              "      for (int t = 0; t < 0; ++t) {\n        mbar_expect_tx")
 
@@ -165,10 +201,11 @@ def _edit(src: str, old: str, new: str, name: str) -> str:
     return src.replace(old, new)
 
 
-def edited_source(name: str):
-    """The file a variant edits and its edited text."""
+def edited_source(name: str, csrc: str = _build.CSRC_DIR):
+    """The file a variant edits and its edited text (of the copy of
+    ``csrc/`` at ``csrc``)."""
     fname, old, new = EDITS[name]
-    with open(os.path.join(_build.CSRC_DIR, fname)) as f:
+    with open(os.path.join(csrc, fname)) as f:
         src = f.read()
     if name in CUT_TO:
         _edit(src, old, new, name)
@@ -185,16 +222,19 @@ def edited_source(name: str):
     return fname, src
 
 
-def build_variants() -> dict:
-    """Build every variant at once; return its library path by name.  Every
-    edit is made before the first nvcc starts, so one that no longer applies
-    leaves no compiler running."""
-    edited = {name: edited_source(name) for name in EDITS}
+def build_variants(names=None, csrc: str = _build.CSRC_DIR, out: str = OUT) -> dict:
+    """Build the variants ``names`` (default: all) of the copy of ``csrc/``
+    at ``csrc`` at once, one nvcc each, into ``out/<name>``; return each
+    library's path by name.  Every edit is made before the first nvcc
+    starts, so one that no longer applies leaves no compiler running.  The
+    compiler's resource report (``-Xptxas -v``) is kept as ``lib.log``
+    beside each library."""
+    edited = {name: edited_source(name, csrc) for name in (names or EDITS)}
     jobs = {}
     for name, (fname, src) in edited.items():
-        d = os.path.join(OUT, name)
+        d = os.path.join(out, name)
         shutil.rmtree(d, ignore_errors=True)
-        shutil.copytree(_build.CSRC_DIR, d)
+        shutil.copytree(csrc, d)
         with open(os.path.join(d, fname), "w") as f:
             f.write(src)
         main = MAIN_SOURCE[name.split("_")[0]]
@@ -205,9 +245,11 @@ def build_variants() -> dict:
                                             text=True))
     failed = []
     for name, (lib, proc) in jobs.items():
-        out, _ = proc.communicate()
+        log, _ = proc.communicate()
         if proc.returncode:
-            failed.append(f"{name}:\n{out[-3000:]}")
+            failed.append(f"{name}:\n{log[-3000:]}")
+        with open(lib[:-3] + ".log", "w") as f:
+            f.write(log)
     if failed:
         raise RuntimeError("nvcc failed for " + "\n".join(failed))
     return {name: lib for name, (lib, _) in jobs.items()}
@@ -348,55 +390,143 @@ def bwd_times(libs, device) -> dict:
     return times
 
 
-def main() -> dict:
+# manifold_target's row counts: 1 (the chain's own time), 1024, and the
+# largest launch of a grading in each type
+TARGET_ROWS = {torch.float64: (1, 1024, 10240), torch.float32: (1, 1024, 8192)}
+JVP_L = 1024
+
+
+def target_key(dtype, rows: int) -> str:
+    return f"{'f64' if dtype == torch.float64 else 'f32'} {rows} rows"
+
+
+def target_cases(device) -> dict:
+    """manifold_target's arguments at each of ``TARGET_ROWS``, by name:
+    round-2 lanes with tau and length moved a little, as the solver's ladder
+    moves them."""
+    cases = {}
+    for dtype, counts in TARGET_ROWS.items():
+        for rows in counts:
+            theta, d64, d32, _ = shoot_inputs(rows, 40, device)
+            gen = torch.Generator(device=device).manual_seed(41)
+            tau = (theta[:, 64] + 0.01 * torch.randn(rows, generator=gen, device=device,
+                                                     dtype=torch.float64)).clamp(0, 1)
+            length = (theta[:, 65] + 0.1 * torch.randn(rows, generator=gen, device=device,
+                                                       dtype=torch.float64)).clamp(5, 11)
+            cases[target_key(dtype, rows)] = (*(d64 if dtype == torch.float64 else d32),
+                                           tau.to(dtype).contiguous(),
+                                           length.to(dtype).contiguous())
+    return cases
+
+
+def target_times(libs, cases, label: str = "") -> dict:
+    """Cold ms (mean of five) of each manifold_target variant of ``libs`` on
+    each of ``cases`` (``target_cases``), as ``chip_smoke.py`` takes the
+    shooting kernels': the L2 flushed before each launch, CUDA events."""
+    times = {}
+    for name in ("target_whole", "target_halo_only", "target_back_only"):
+        if name not in libs:
+            continue
+        for key, a in cases.items():
+            with bound_to(libs[name]):
+                t = float(np.mean(cold_ms(lambda: shoot_ops.manifold_target(*a))))
+            times[f"{name} {key}"] = t
+            print(f"manifold_target {key:<15s} {label}{name[7:]:<10s}: cold {t:.4f} ms",
+                  flush=True)
+    return times
+
+
+def jvp_args(L: int, device):
+    """shoot_jvp's arguments at L lanes: the float32 theta, each lane's
+    float32 target and halo data, as one LM iteration of a float32 grading
+    gives them."""
+    theta, _, d32, sp = shoot_inputs(L, 30, device)
+    th = theta.float()
+    tgt = shoot_ops.manifold_target_reference(*d32, th[:, 64].contiguous(),
+                                              th[:, 65].contiguous())
+    return (th, tgt, *d32, sp.float(), 1.0, 20, 5.0, 11.0)
+
+
+def jvp_times(libs, args, label: str = "") -> dict:
+    """Cold ms (mean of five) of each shoot_jvp variant of ``libs`` on
+    ``args`` (``jvp_args``), taken as ``target_times`` takes them."""
+    times = {}
+    for name in ("jvp_whole", "jvp_legs_only", "jvp_targets_only"):
+        if name not in libs:
+            continue
+        with bound_to(libs[name]):
+            times[name] = float(np.mean(cold_ms(lambda: shoot_ops.shoot_jvp(*args))))
+        print(f"shoot_jvp L {len(args[0])} {label}{name[4:]:<13s}: cold {times[name]:.4f} ms",
+              flush=True)
+    return times
+
+
+def main(argv=None) -> dict:
+    p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    p.add_argument("--only", default="", help="comma-separated prefixes of the variants to run "
+                   "(core, dots, transpose, roll, resblock, attn, bwd, target, jvp); default all")
+    args = p.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("knockouts: needs a CUDA card")
     device = torch.device("cuda")
     print(describe(device), flush=True)
-    libs = {name: ctypes.CDLL(path) for name, path in build_variants().items()}
+    only = tuple(x for x in args.only.split(",") if x)
+    names = [n for n in EDITS if not only or n.split("_")[0] in only]
+    libs = {name: ctypes.CDLL(path) for name, path in build_variants(names).items()}
     for lib in libs.values():
         lib.rdm_cuda_error_string.argtypes = [ctypes.c_int]
         lib.rdm_cuda_error_string.restype = ctypes.c_char_p
     times = {}
+    have = lambda prefix: f"{prefix}_whole" in libs
 
     def make_qkv(i):
         return tuple(randn((B, L, C), 3 * i + t, device) for t in range(3))
 
     qkv_bytes = 3 * B * L * C * 2
-    for softmax_f32 in (True, False):
+    for softmax_f32 in ((True, False) if have("core") else ()):
         tag = "softmax_f32" if softmax_f32 else "scores_in_t"
         for name in ("core_whole", "core_no_exp", "core_load_store"):
             us = cold_us(core_fn(libs[name], softmax_f32), make_qkv, qkv_bytes, device)
             times[f"{name} {tag}"] = us
             print(f"attention core {name[5:]:<11s} {tag}: cold {us:.2f} us", flush=True)
-    sdpa = lambda t: torch.nn.functional.scaled_dot_product_attention(*(x.unsqueeze(1) for x in t))
-    times["sdpa"] = cold_us(sdpa, make_qkv, qkv_bytes, device)
-    print(f"scaled_dot_product_attention: cold {times['sdpa']:.2f} us", flush=True)
-    for K in (C, 3 * C):
+    if have("core"):
+        sdpa = lambda t: torch.nn.functional.scaled_dot_product_attention(
+            *(x.unsqueeze(1) for x in t))
+        times["sdpa"] = cold_us(sdpa, make_qkv, qkv_bytes, device)
+        print(f"scaled_dot_product_attention: cold {times['sdpa']:.2f} us", flush=True)
+    for K in ((C, 3 * C) if have("dots") else ()):
         w = randn((micro_cf.dots_taps(C, K), C, K), 0, device)
         make_x = lambda i, K=K: randn((K, N), 1 + i, device)
         for name in ("dots_whole", "dots_no_products", "dots_no_w"):
             us = cold_us(dots_fn(libs[name], w, K), make_x, 2 * K * N, device)
             times[f"{name} K={K}"] = us
             print(f"dots K={K} {name[5:]:<12s}: cold {us:.2f} us", flush=True)
-    for name in ("transpose_whole", "transpose_copy"):
+    for name in (("transpose_whole", "transpose_copy") if have("transpose") else ()):
         for key, shape in (("nc_to_cn", (N, C)), ("cn_to_nc", (C, N))):
             with bound_to(libs[name]):
                 us = cold_us(micro_cf.cf_transpose, lambda i: randn(shape, 1 + i, device),
                              2 * N * C, device)
             times[f"{name} {key}"] = us
             print(f"transpose {key} {name[10:]:<6s}: cold {us:.2f} us", flush=True)
-    for name in ("roll_whole", "roll_no_taps"):
+    for name in (("roll_whole", "roll_no_taps") if have("roll") else ()):
         with bound_to(libs[name]):
             us = cold_us(micro_cf.cf_masked_roll_sum, lambda i: randn((C, N), 1 + i, device),
                          2 * N * C, device)
         times[name] = us
         print(f"roll sum {name[5:]:<8s}: cold {us:.2f} us", flush=True)
-    times.update(resblock_times(libs, device))
-    times.update(attn_times(libs, device))
-    times.update(bwd_times(libs, device))
-    print(json.dumps({"knockouts_us": times}), flush=True)
-    return times
+    if have("resblock"):
+        times.update(resblock_times(libs, device))
+    if have("attn"):
+        times.update(attn_times(libs, device))
+    if have("bwd"):
+        times.update(bwd_times(libs, device))
+    ms = {}
+    if have("target"):
+        ms["manifold_target"] = target_times(libs, target_cases(device))
+    if have("jvp"):
+        ms["shoot_jvp"] = jvp_times(libs, jvp_args(JVP_L, device))
+    print(json.dumps({"knockouts_us": times, "knockouts_ms": ms}), flush=True)
+    return dict(times, **ms)
 
 
 if __name__ == "__main__":

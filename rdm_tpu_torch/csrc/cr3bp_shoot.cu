@@ -6,40 +6,61 @@
 // is one vmapped XLA program (rdm_tpu/physics/solver_tpu.py) whose cost is its
 // lax.scan integrations (_shoot_forward/_shoot_backward :150-186, the
 // manifold target of physics/manifold.py:40-167 and dynamics_df.py:154-242).
-// Three kernels take their place, one thread per (lane, variant) from start to
-// end in registers, a variant being a base point, a finite-difference column
-// or a ladder rung:
+// Three kernels take their place, every state in registers from start to end:
 //
-// * shoot_legs<T>: the forward leg from the spiral end and the backward leg
-//   from the variant's target (32 coast + 16 x n_fwd segment steps each, 192
-//   at 20 segments); the 7-residual with the finite flag, 1e6 in every entry
-//   where a leg or the target is not finite.  full = 1 integrates the whole
-//   forward arc instead (terminal mass).
-// * manifold_target<T>: 256 halo-phase steps carrying the stable direction,
-//   then 1024 ballistic steps backward.  float64 carries the direction with
-//   the variational equations (the 12-dim system of dynamics_f64._ode12);
-//   float32 with the tangent of the RK4 map (each step on Dual<float>), as
-//   the JAX package's two precisions do.
-// * shoot_jvp_f32: the float32 Jacobian of the residual, one thread per
-//   (lane, column) on Dual<float>; the phase column 64 differentiates the
-//   tangent transport itself on Dual<Dual<float>>, the length column 65 the
-//   back-integration's step.  Threads are laid out column by column, so a
-//   warp runs one column of 32 lanes and the long target columns do not
-//   hold up the others.
+// * shoot_legs<T>, one thread per (lane, variant), a variant being a base
+//   point, a finite-difference column or a ladder rung: the forward leg from
+//   the spiral end and the backward leg from the variant's target (32 coast
+//   + 16 x n_fwd segment steps each, 192 at 20 segments); the 7-residual
+//   with the finite flag, 1e6 in every entry where a leg or the target is
+//   not finite.  full = 1 integrates the whole forward arc instead.
+// * manifold_target<T>, the manifold chain: 256 halo-phase steps carrying
+//   the stable direction, then 1024 ballistic steps backward.  float64
+//   carries the direction with the variational equations (the 12-dim system
+//   of dynamics_f64._ode12), a thread a row; float32 with the tangent of the
+//   RK4 map (each step on Dual<float>), as the JAX package's two precisions
+//   do, a row on a group of kChainLanes lanes of one warp (below).
+// * shoot_jvp_f32: the float32 Jacobian of the residual on Dual<float>; the
+//   phase column 64 differentiates the tangent transport itself on
+//   Dual<Dual<float>>, the length column 65 the back-integration's step.
+//   Its two target columns come first in the grid, a group of kChainLanes
+//   lanes a lane on the same chain code, so that their chains start in the
+//   first wave and run under the 64 leg columns, which follow one thread per
+//   (lane, column), column by column.
 //
-// Bound on this card: the arithmetic.  A thread reads its 66 variables and
-// a few more and writes 7 or 8 values, then runs thousands of dependent
-// RK4 stages (one eom: 2 square roots, 6 divisions, ~40 other operations).
-// ops/cr3bp.py (*_ops) counts the operations; their floor is that count over
-// the FP64 (34 TFLOP/s) or FP32 (67 TFLOP/s) non-tensor peak.  The design
-// keeps every state in registers and touches memory only at the ends; it
-// does nothing yet about the latency of the dependent chain (one state a
-// thread) or the divisions and square roots, which cost many instructions
-// each in float64.  Every expression follows the plain version's order of
-// operations (physics/cr3bp.py:eom_c, manifold.py:ode6_c,
-// dynamics_f64._ode12, physics/dual.py); nvcc contracts multiplies and adds
-// into FMAs, so the kernels agree with the plain versions to a tolerance, not
-// bit for bit.
+// What limits them.  shoot_legs and the leg columns fill the card (65,536 to
+// 67,584 threads at 1024 lanes) and are bound by the arithmetic of their
+// 192-384 dependent RK4 steps a thread.  The manifold chain is bound by its
+// latency: a launch has at most 10,240 rows (2 finite-difference columns and
+// 8 rungs a lane), which with a thread a row is less than a warp for each
+// of the card's schedulers, so a launch takes one thread's 1,280 dependent
+// steps whatever its width (3.2 ms at 1 row and 3.5 ms at 10,240 in float64
+// on an H100 at 700 W, benchmark/shoot_chain.py).  The operation-count bound
+// (ops/cr3bp.py: *_ops over the FP64 or FP32 peak, 0.11 ms there) is not the
+// floor at these widths: the chain is, and each of its stages waits on two
+// square roots and six divisions (ode6; four and ten in ode12).
+//
+// The float32 chain over a group of lanes.  A row runs on kChainLanes = 8
+// lanes of one warp, each holding the whole state and running the RK4 update
+// alike; only a stage's six gravity terms (c u) / r^3 are spread, one a lane
+// (lanes 6 and 7 compute an unread one): the lane computes its term from one
+// reciprocal square root of its primary's distance (CUDA's double rsqrt
+// rounded once to float; 1 / r^3 = ir^3) and products, the group exchanges
+// the terms by __shfl_sync once a stage, and every lane then assembles the
+// derivative as manifold.ode6_c does.  This spends the SMs that a launch of
+// at most 10,240 rows leaves idle on a shorter chain a lane: a stage waits on
+// one reciprocal square root, not on two square roots and six divisions.
+// Lanes holding the same values run the same instructions, so they stay
+// equal, and a row's result depends neither on how many rows share its
+// launch nor on where it lies; a warp that runs the chain is whole (a group
+// past the last row runs that row and stores nothing).  The float64 chain
+// keeps a thread a row: split the same way it ran 1.6-1.8x faster, but its
+// changed roundings moved the float64 solver's verdicts on phase datagen's
+// uniform guesses below chip_smoke.py's agreement gate (PERF.md).
+// Every other expression follows the plain version's order of operations
+// (physics/cr3bp.py:eom_c, manifold.py:ode6_c, dynamics_f64._ode12,
+// physics/dual.py); nvcc contracts multiplies and adds into FMAs, so the
+// kernels agree with the plain versions to a tolerance, not bit for bit.
 #include <cuda_runtime.h>
 
 #include <cstdint>
@@ -152,6 +173,19 @@ __device__ __forceinline__ Dual<T> sqrt_(const Dual<T>& a) {
   using R = typename RealOf<T>::type;
   const T s = sqrt_(a.v);
   return {s, a.d * (R(0.5) / s)};
+}
+
+// 1 / sqrt(x): CUDA's double rsqrt (within 1 ulp); in float32 through it,
+// rounded once to float.
+__device__ __forceinline__ double rsqrt_(double x) { return rsqrt(x); }
+__device__ __forceinline__ float rsqrt_(float x) {
+  return static_cast<float>(rsqrt(static_cast<double>(x)));
+}
+template <class T>
+__device__ __forceinline__ Dual<T> rsqrt_(const Dual<T>& a) {
+  using R = typename RealOf<T>::type;
+  const T y = rsqrt_(a.v);
+  return {y, a.d * ((R(-0.5) * y) * (y * y))};
 }
 
 __device__ __forceinline__ float sin_(float x) { return sinf(x); }
@@ -381,38 +415,120 @@ shoot_legs_kernel(const T* __restrict__ theta, const T* __restrict__ tgt,
   finite[m] = ok;
 }
 
-// --- manifold target -----------------------------------------------------------
+// --- the float32 manifold chain over a group of lanes ---------------------------
 
-// 1024 ballistic steps backward over length from seed (in place).
+// Lanes a row of the float32 manifold chain takes: manifold_target<float> and
+// shoot_jvp's target columns (2, 4 and 8 were measured; PERF.md).  Lane j < 6
+// computes the stage's gravity term j, that of primary j % 2 (0 the Earth, 1
+// the Moon) in component j / 2, (c u) / r^3: the only square root and
+// divisions of the ballistic field (manifold.ode6_c).  Lanes 6 and 7 compute
+// an unread term, so that every lane runs the same instructions.
+constexpr int kChainLanes = 8;
+constexpr int kChainTerms = 6;
+
+// Lane j's part of a stage, set once a launch: its primary's distance along
+// x, u = (x + c1) + c2 (x + mu, or (x - 1) + mu as ode6_c forms it), and its
+// term's numerator cn * (u, y or z), the component w.
+struct ChainJob {
+  float c1, c2, cn;
+  int w;
+};
+
+__device__ __forceinline__ ChainJob chain_job(int j, const Consts& c) {
+  const int k = j % 2, i = j / 2;
+  ChainJob jb;
+  jb.c1 = k == 0 ? float(c.mu) : -1.f;
+  jb.c2 = k == 0 ? 0.f : float(c.mu);
+  jb.cn = j >= kChainTerms ? 1.f
+          : k == 1         ? float(c.mu)
+          : i == 2         ? float(-(1.0 - c.mu))
+                           : float(1.0 - c.mu);
+  jb.w = j >= kChainTerms ? 0 : i;
+  return jb;
+}
+
+// A value of lane src of this lane's group (whole warps run the chain).
+__device__ __forceinline__ float shfl_(float x, int src) {
+  return __shfl_sync(0xffffffffu, x, src, kChainLanes);
+}
+template <class T>
+__device__ __forceinline__ Dual<T> shfl_(const Dual<T>& x, int src) {
+  return {shfl_(x.v, src), shfl_(x.d, src)};
+}
+
+// The ballistic field at t over a row's group of lanes (S a float32 real or
+// dual): each lane computes its term, with its primary's inverse distance
+// from one reciprocal square root (1 / r^3 = ir^3) where ode6_c takes a
+// square root and divisions, takes the others' from their lanes, and
+// assembles the whole derivative as ode6_c does, in its order of operations.
+template <class S>
+__device__ __forceinline__ void chain_field(const S (&t)[6], S (&dt)[6], const ChainJob& jb) {
+  using R = typename RealOf<S>::type;
+  const S yy = t[1] * t[1], zz = t[2] * t[2];
+  const S u = (t[0] + jb.c1) + jb.c2;
+  const S ir3 = pow3_(rsqrt_((pow2_(u) + yy) + zz));
+  const S num = jb.w == 0 ? u : (jb.w == 1 ? t[1] : t[2]);
+  const S val = (jb.cn * num) * ir3;
+  S g[kChainTerms];
+#pragma unroll
+  for (int v = 0; v < kChainTerms; ++v) g[v] = shfl_(val, v);
+  dt[0] = t[3];
+  dt[1] = t[4];
+  dt[2] = t[5];
+  dt[3] = ((t[0] - g[0]) - g[1]) + R(2) * t[4];
+  dt[4] = ((t[1] - g[2]) - g[3]) - R(2) * t[3];
+  dt[5] = g[4] - g[5];
+}
+
+// One RK4 step of the chain's field.
+template <class S, class D>
+__device__ __forceinline__ void chain_step(S (&s)[6], const D& dt, const ChainJob& jb) {
+  rk4_step<6>(s, dt, [&](const S (&a)[6], S (&da)[6]) { chain_field(a, da, jb); });
+}
+
+// 1024 ballistic steps backward over length from seed (in place): a thread
+// alone (float64), or over the chain's group of lanes.
 template <class S, class D>
 __device__ __forceinline__ void back_integrate(S (&s)[6], const D& dt, const Consts& c) {
   for (int i = 0; i < kManifoldSteps; ++i)
     rk4_step<6>(s, dt, [&](const S (&x)[6], S (&dx)[6]) { ode6(x, dx, c); });
 }
+template <class S, class D>
+__device__ __forceinline__ void back_integrate(S (&s)[6], const D& dt, const ChainJob& jb) {
+  for (int i = 0; i < kManifoldSteps; ++i) chain_step(s, dt, jb);
+}
 
 // The halo phase of the float32 target: state and tangent on Dual<float>.
 __device__ __forceinline__ void halo_phase_f32(const float* s0, const float* v0, float dt,
-                                               float (&x)[6], float (&v)[6], const Consts& c) {
+                                               float (&x)[6], float (&v)[6],
+                                               const ChainJob& jb) {
   Dual<float> s[6];
   for (int i = 0; i < 6; ++i) s[i] = {s0[i], v0[i]};
-  for (int i = 0; i < kHaloSteps; ++i)
-    rk4_step<6>(s, dt, [&](const Dual<float> (&a)[6], Dual<float> (&da)[6]) { ode6(a, da, c); });
+  for (int i = 0; i < kHaloSteps; ++i) chain_step(s, dt, jb);
   for (int i = 0; i < 6; ++i) {
     x[i] = s[i].v;
     v[i] = s[i].d;
   }
 }
 
+// --- manifold target -----------------------------------------------------------
+
+// float64: a thread a row, the first design (the lane split changed the float64
+// verdicts of phase datagen's gate; see the notes above).  float32: row m =
+// t / kChainLanes runs on the lanes j = t % kChainLanes of its group; a group
+// past the last row runs the last row and stores nothing, a warp wholly past
+// it returns, so every warp that runs the chain is whole; lane j < 6 stores
+// component j.
 template <class T>
 __global__ void __launch_bounds__(kThreads)
 manifold_target_kernel(const T* __restrict__ state0, const T* __restrict__ period,
                        const T* __restrict__ vstable, const T* __restrict__ tau_frac,
                        const T* __restrict__ length, Consts c, T* __restrict__ out, int M) {
-  const int m = blockIdx.x * blockDim.x + threadIdx.x;
-  if (m >= M) return;
-  const T dt = (clip_(tau_frac[m], T(0), T(1)) * period[m]) / T(kHaloSteps);
-  T x[6], v[6];
   if constexpr (std::is_same<T, double>::value) {
+    const int m = blockIdx.x * blockDim.x + threadIdx.x;
+    if (m >= M) return;
+    const T dt = (clip_(tau_frac[m], T(0), T(1)) * period[m]) / T(kHaloSteps);
+    T x[6], v[6];
     double sv[12];
     for (int i = 0; i < 6; ++i) {
       sv[i] = state0[static_cast<size_t>(m) * 6 + i];
@@ -424,21 +540,46 @@ manifold_target_kernel(const T* __restrict__ state0, const T* __restrict__ perio
       x[i] = sv[i];
       v[i] = sv[6 + i];
     }
+    T nrm = v[0] * v[0];
+    for (int i = 1; i < 6; ++i) nrm = nrm + v[i] * v[i];
+    nrm = sqrt_(nrm) + T(1e-30);
+    T s[6];
+    for (int i = 0; i < 6; ++i) s[i] = x[i] + T(1e-4) * (v[i] / nrm);
+    back_integrate(s, (-length[m]) / T(kManifoldSteps), c);
+    for (int i = 0; i < 6; ++i) out[static_cast<size_t>(m) * 6 + i] = s[i];
   } else {
-    halo_phase_f32(state0 + static_cast<size_t>(m) * 6, vstable + static_cast<size_t>(m) * 6,
-                   dt, x, v, c);
+    constexpr int G = kChainLanes;
+    const long long t = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
+    if ((t & ~31LL) >= static_cast<long long>(M) * G) return;
+    const int row = static_cast<int>(t / G), j = static_cast<int>(t % G);
+    const int m = row < M ? row : M - 1;
+    const ChainJob jb = chain_job(j, c);
+    const T dt = (clip_(tau_frac[m], T(0), T(1)) * period[m]) / T(kHaloSteps);
+    T x[6], v[6];
+    halo_phase_f32(state0 + static_cast<size_t>(m) * 6, vstable + static_cast<size_t>(m) * 6, dt,
+                   x, v, jb);
+    T nrm = v[0] * v[0];
+    for (int i = 1; i < 6; ++i) nrm = nrm + v[i] * v[i];
+    nrm = sqrt_(nrm) + T(1e-30);
+    T s[6];
+    for (int i = 0; i < 6; ++i) s[i] = x[i] + T(1e-4) * (v[i] / nrm);
+    back_integrate(s, (-length[m]) / T(kManifoldSteps), jb);
+    if (row < M && j < 6) out[static_cast<size_t>(m) * 6 + j] = s[j];
   }
-  T nrm = v[0] * v[0];
-  for (int i = 1; i < 6; ++i) nrm = nrm + v[i] * v[i];
-  nrm = sqrt_(nrm) + T(1e-30);
-  T s[6];
-  for (int i = 0; i < 6; ++i) s[i] = x[i] + T(1e-4) * (v[i] / nrm);
-  back_integrate(s, (-length[m]) / T(kManifoldSteps), c);
-  for (int i = 0; i < 6; ++i) out[static_cast<size_t>(m) * 6 + i] = s[i];
 }
 
 // --- float32 Jacobian ------------------------------------------------------------
 
+// Threads of each target column: L groups of kChainLanes, whole warps.
+__host__ __device__ inline long long jvp_target_threads(int L) {
+  return (static_cast<long long>(L) * kChainLanes + 31) / 32 * 32;
+}
+
+// The target columns come first, so that their chains start in the first
+// wave: threads [0, R) run column 64 and [R, 2R) column 65, a lane a group
+// of kChainLanes as in manifold_target (the groups past L masked); then one
+// thread per (column < 64, lane), column by column.  Mirrored by
+// ops/cr3bp.py: jvp_layout.
 __global__ void __launch_bounds__(kThreads)
 shoot_jvp_kernel(const float* __restrict__ theta, const float* __restrict__ tgt,
                  const float* __restrict__ state0, const float* __restrict__ period,
@@ -446,9 +587,24 @@ shoot_jvp_kernel(const float* __restrict__ theta, const float* __restrict__ tgt,
                  double thrust, int n_segments, float min_mani, float max_mani, Consts c,
                  float* __restrict__ J, int L) {
   using D = Dual<float>;
+  constexpr int G = kChainLanes;
   const long long t = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (t >= static_cast<long long>(kNvar) * L) return;
-  const int col = static_cast<int>(t / L), lane = static_cast<int>(t % L);
+  const long long per_col = jvp_target_threads(L);
+  if (t >= 2 * per_col + static_cast<long long>(64) * L) return;
+  int col, lane, j = 0, stride = 1;
+  bool store = true;
+  if (t < 2 * per_col) {
+    col = 64 + static_cast<int>(t / per_col);
+    const long long u = t % per_col;
+    const int grp = static_cast<int>(u / G);
+    j = static_cast<int>(u % G);
+    stride = G;
+    store = grp < L;
+    lane = store ? grp : L - 1;
+  } else {
+    col = static_cast<int>((t - 2 * per_col) / L);
+    lane = static_cast<int>((t - 2 * per_col) % L);
+  }
   const float* th = theta + static_cast<size_t>(lane) * kNvar;
   const int n_fwd = (n_segments + 1) / 2;
   const float seg_dt0 = max_(th[0], 1e-3f);
@@ -490,6 +646,7 @@ shoot_jvp_kernel(const float* __restrict__ theta, const float* __restrict__ tgt,
     }
   } else {
     // the target's columns: the phase (64) and the arc length (65)
+    const ChainJob jb = chain_job(j, c);
     const float* s0 = state0 + static_cast<size_t>(lane) * 6;
     const float* v0 = vstable + static_cast<size_t>(lane) * 6;
     const float tau_c = clip_(th[64], 0.f, 1.f);
@@ -503,8 +660,7 @@ shoot_jvp_kernel(const float* __restrict__ theta, const float* __restrict__ tgt,
       const H dt = {{dt_h, 0.f}, {(d_tau * period[lane]) / float(kHaloSteps), 0.f}};
       H s[6];
       for (int i = 0; i < 6; ++i) s[i] = {{s0[i], v0[i]}, {0.f, 0.f}};
-      for (int i = 0; i < kHaloSteps; ++i)
-        rk4_step<6>(s, dt, [&](const H (&a)[6], H (&da)[6]) { ode6(a, da, c); });
+      for (int i = 0; i < kHaloSteps; ++i) chain_step(s, dt, jb);
       D x[6], v[6];
       for (int i = 0; i < 6; ++i) {
         x[i] = {s[i].v.v, s[i].d.v};
@@ -516,14 +672,14 @@ shoot_jvp_kernel(const float* __restrict__ theta, const float* __restrict__ tgt,
       for (int i = 0; i < 6; ++i) seed[i] = x[i] + 1e-4f * (v[i] / nrm);
     } else {
       float x[6], v[6];
-      halo_phase_f32(s0, v0, dt_h, x, v, c);
+      halo_phase_f32(s0, v0, dt_h, x, v, jb);
       float nrm = v[0] * v[0];
       for (int i = 1; i < 6; ++i) nrm = nrm + v[i] * v[i];
       nrm = sqrtf(nrm) + 1e-30f;
       for (int i = 0; i < 6; ++i) seed[i] = {x[i] + 1e-4f * (v[i] / nrm), 0.f};
       dt_b.d = (-clip_d(th[65], min_mani, max_mani)) / float(kManifoldSteps);
     }
-    back_integrate(seed, dt_b, c);
+    back_integrate(seed, dt_b, jb);
     // the backward leg from that target, the controls and times as they are
     D s[7];
     for (int i = 0; i < 6; ++i) s[i] = seed[i];
@@ -540,8 +696,9 @@ shoot_jvp_kernel(const float* __restrict__ theta, const float* __restrict__ tgt,
     for (int i = 0; i < kNres; ++i) out[i] = -s[i].d;
   }
   out[6] = out[6] / 100.f;
-  for (int i = 0; i < kNres; ++i)
-    J[(static_cast<size_t>(lane) * kNres + i) * kNvar + col] = out[i];
+  if (store)
+    for (int i = 0; i < kNres; ++i)
+      if (i % stride == j) J[(static_cast<size_t>(lane) * kNres + i) * kNvar + col] = out[i];
 }
 
 inline Consts consts(double mu, double a_coef, double mdot_div, double tu_s) {
@@ -570,7 +727,10 @@ int launch_manifold_target(const void* state0, const void* period, const void* v
                            const void* tau_frac, const void* length, double mu, double a_coef,
                            double mdot_div, double tu_s, void* out, int M, void* stream) {
   if (M < 1) return static_cast<int>(cudaErrorInvalidValue);
-  manifold_target_kernel<T><<<blocks_for(M), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+  const long long threads =
+      static_cast<long long>(M) * (std::is_same<T, double>::value ? 1 : kChainLanes);
+  manifold_target_kernel<T><<<blocks_for(threads), kThreads, 0,
+                              static_cast<cudaStream_t>(stream)>>>(
       static_cast<const T*>(state0), static_cast<const T*>(period),
       static_cast<const T*>(vstable), static_cast<const T*>(tau_frac),
       static_cast<const T*>(length), consts(mu, a_coef, mdot_div, tu_s), static_cast<T*>(out),
@@ -622,7 +782,7 @@ int rdm_shoot_jvp_f32(const void* theta, const void* tgt, const void* state0, co
                       double min_mani, double max_mani, double mu, double a_coef,
                       double mdot_div, double tu_s, void* J, int L, void* stream) {
   if (L < 1 || n_segments < 1 || n_segments > 20) return static_cast<int>(cudaErrorInvalidValue);
-  shoot_jvp_kernel<<<blocks_for(static_cast<long long>(kNvar) * L), kThreads, 0,
+  shoot_jvp_kernel<<<blocks_for(2 * jvp_target_threads(L) + 64LL * L), kThreads, 0,
                      static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(theta), static_cast<const float*>(tgt),
       static_cast<const float*>(state0), static_cast<const float*>(period),
@@ -631,6 +791,9 @@ int rdm_shoot_jvp_f32(const void* theta, const void* tgt, const void* state0, co
       consts(mu, a_coef, mdot_div, tu_s), static_cast<float*>(J), L);
   return static_cast<int>(cudaGetLastError());
 }
+
+// The lanes a row of the float32 chain takes as built (ops/cr3bp.py: LANES).
+int rdm_shoot_chain_lanes() { return kChainLanes; }
 
 const char* rdm_cuda_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));

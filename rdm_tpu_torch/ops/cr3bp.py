@@ -1,28 +1,51 @@
 """The shooting kernels of the batched warm-start solver (``physics/solver_gpu.py``).
 
-Three hand-written CUDA kernels of ``csrc/cr3bp_shoot.cu``, one thread per
-(lane, variant) from start to end in registers; a variant is a base point, a
-finite-difference column or a ladder rung.  They have no Pallas counterpart:
-the JAX package runs the same integrations as XLA scans inside one vmapped
-program (``rdm_tpu/physics/solver_tpu.py``).
+Three hand-written CUDA kernels of ``csrc/cr3bp_shoot.cu`` with every state
+in registers.  They have no Pallas counterpart: the JAX package runs the
+same integrations as XLA scans inside one vmapped program
+(``rdm_tpu/physics/solver_tpu.py``).
 
 * ``shoot_legs(theta, tgt, spiral_end, thrust, n_segments)``, float32 or
-  float64: the forward leg from the spiral end and the backward leg from
-  each row's target, 192 RK4 steps each at 20 segments; returns the
-  7-residual and the finite flag (a non-finite leg or target gives 1e6 in
-  every entry).  ``full=True`` integrates the whole forward arc instead and
-  returns its state (terminal mass).  Plain version:
-  ``solver_gpu._residual_with_target`` / ``solver_gpu._shoot``.
-* ``manifold_target(state0, period, vstable, tau_frac, length)``: 256 halo
-  steps then 1024 steps of ballistic back-integration.  float64 transports
-  the tangent with the variational equations (``dynamics_f64``), float32
-  with the tangent of the RK4 map (``manifold``), as the JAX package does
-  for its two precisions.
+  float64, one thread per (lane, variant), a variant being a base point, a
+  finite-difference column or a ladder rung: the forward leg from the
+  spiral end and the backward leg from each row's target, 192 RK4 steps
+  each at 20 segments; returns the 7-residual and the finite flag (a
+  non-finite leg or target gives 1e6 in every entry).  ``full=True``
+  integrates the whole forward arc instead and returns its state (terminal
+  mass).  Plain version: ``solver_gpu._residual_with_target`` /
+  ``solver_gpu._shoot``.
+* ``manifold_target(state0, period, vstable, tau_frac, length)``: the
+  manifold chain, 256 halo steps then 1024 steps of ballistic
+  back-integration, a row a thread in float64 and a group of lanes in
+  float32.  float64 transports the tangent with the variational
+  equations (``dynamics_f64``), float32 with the tangent of the RK4 map
+  (``manifold``), as the JAX package does for its two precisions.
 * ``shoot_jvp(theta, tgt, state0, period, vstable, ...)``, float32: the
-  7 x 66 Jacobian of the float32 residual as forward-mode derivatives, one
-  thread per (lane, column) on dual numbers (the phase column on nested
-  duals through the tangent transport).  Plain version: the same
-  derivatives on the dual numbers of ``physics/dual.py``.
+  7 x 66 Jacobian of the float32 residual as forward-mode derivatives on
+  dual numbers (the phase column on nested duals through the tangent
+  transport).  Plain version: the same derivatives on the dual numbers of
+  ``physics/dual.py``.
+
+What limits them. ``shoot_legs`` and the Jacobian's 64 leg columns fill the
+card (65,536-67,584 threads at 1024 lanes) and are bound by their
+arithmetic. The manifold chain is bound by its latency: a launch has at
+most 10,240 rows, and with a thread a row the card held less than a warp a
+scheduler, so a launch took one thread's 1,280 dependent steps whatever its
+width (``PERF.md``: 3.2 ms at 1 row, 3.5 at 10,240 in float64); the
+operation-count bound over the peak (``*_ops`` below, 0.11 ms) is not the
+floor at these widths. So a row of the float32 chain runs on a group of
+``LANES`` lanes of one warp: every lane holds the whole state and runs the
+RK4 update alike, the stage's six gravity terms are spread over the lanes,
+one a lane, each from one reciprocal square root and products in place of
+a square root and divisions, and exchanged by ``__shfl_sync`` once a
+stage. float64 keeps a thread a row: split the same way it ran
+faster, but it moved the float64 solver's verdicts below the smoke's
+agreement gate (``PERF.md``). ``shoot_jvp`` launches its two target columns
+first (``jvp_layout``), on the same chain code, so that they start in the
+first wave and run under the leg columns. The layouts are mirrored here
+(``target_layout``, ``jvp_layout``); the card tests hold the lanes a row
+to the built library. A row's result does not depend on how many rows share its
+launch or where it lies in it.
 
 Each wrapper runs the plain version for CPU tensors and, for CUDA tensors,
 launches its kernel or raises; it never falls back.  Each counts its
@@ -33,6 +56,7 @@ from __future__ import annotations
 import ctypes
 import threading
 
+import numpy as np
 import torch
 
 from . import _build
@@ -89,6 +113,59 @@ def shoot_jvp_ops(L: int, n_segments: int = 20) -> int:
     per_lane += 256 * DUAL_OPS**2 * rk4_ops(OPS_ODE6, 6) + tail
     per_lane += 256 * DUAL_OPS * rk4_ops(OPS_ODE6, 6) + tail
     return L * per_lane
+
+
+# ---------------------------------------------------------------------------
+# the manifold chain's layout (csrc/cr3bp_shoot.cu), mirrored; the card tests
+# hold the lanes a row to the built library (rdm_shoot_chain_lanes)
+
+# lanes a row of the chain takes: float64 a thread a row; float32 kChainLanes
+LANES = {torch.float64: 1, torch.float32: 8}
+THREADS = 128                      # kThreads, a block
+
+
+def _blocks(threads: int) -> int:
+    return -(-threads // THREADS)
+
+
+def target_layout(M: int) -> dict:
+    """manifold_target's float32 grid at M rows (float64 runs a thread a
+    row), a thread an entry: ``row`` (-1 where the thread's warp lies wholly
+    past the last row and returns; a masked group runs the last row),
+    ``lane`` (its place in the row's group), ``store`` (the group's row is
+    its own).  A storing lane j < 6 writes component j."""
+    G = LANES[torch.float32]
+    t = np.arange(_blocks(M * G) * THREADS)
+    live = (t & ~31) < M * G
+    row = t // G
+    return dict(row=np.where(live, np.minimum(row, M - 1), -1), lane=t % G,
+                store=live & (row < M))
+
+
+def jvp_target_threads(L: int) -> int:
+    """Threads of each of shoot_jvp's target columns: L groups, whole warps."""
+    return -(-L * LANES[torch.float32] // 32) * 32
+
+
+def jvp_layout(L: int) -> dict:
+    """shoot_jvp's grid at L lanes, a thread an entry: ``col`` (-1 past the
+    grid's work), ``lane``, ``j`` (its place in a target column's group),
+    ``stride`` (the lanes a row in the target columns, 1 in the leg columns)
+    and ``store``; a storing thread writes the rows i of J with
+    i % stride == j.  The target columns 64 and 65 come first, then columns
+    0-63, each L threads."""
+    G = LANES[torch.float32]
+    per_col = jvp_target_threads(L)
+    n = 2 * per_col + 64 * L
+    t = np.arange(_blocks(n) * THREADS)
+    tgt = t < 2 * per_col
+    grp = (t % per_col) // G
+    legs = t - 2 * per_col
+    col = np.where(tgt, 64 + t // per_col, legs // L)
+    return dict(col=np.where(t < n, col, -1),
+                lane=np.where(tgt, np.minimum(grp, L - 1), legs % L),
+                j=np.where(tgt, t % per_col % G, 0), stride=np.where(tgt, G, 1),
+                store=(t < n) & (~tgt | (grp < L)))
 
 
 # ---------------------------------------------------------------------------
