@@ -78,15 +78,18 @@ Phases, each printing one JSON line with its elapsed seconds:
               each against its plain PyTorch version on the same inputs:
               shoot_legs float64 on 67,584 rows (66 forward-difference
               columns a lane) and float32 on 8,192 (8 ladder rungs a lane)
-              and on the whole forward arc, manifold_target float64 on 10,240
+              and on the whole forward arc, shoot_legs_fd on the same
+              forward-difference rows (bit-equal to shoot_legs on the trial
+              rows, and against its plain version), manifold_target float64 on 10,240
               rows and float32 on 8,192, shoot_jvp on 1024 lanes; the
               quantiles of the per-row error and the mass against SHOOT_TOL
               (the reasons are stated there), two runs bit for bit, cold
               times (the L2 flushed) beside the operation-count bound; the
               manifold chain by width: manifold_target at 1 row (the
               chain's own time), 1024 and the full count, shoot_jvp at 1
-              and 33 lanes, a slice launched alone bit-equal to the same
-              rows of the full launch, the lanes a row and the registers
+              and 33 lanes, shoot_legs at 1 row, a slice launched alone
+              bit-equal to the same rows of the full launch, the lanes a row
+              in both types and the registers
 15. oracle_native  the port's native CR3BP oracle (its own C++ copy, built
               with g++ at first use) grades the 1024 in-tree round-2 physical
               samples (8 basin hops, optimal mode): feasible 1012 +- 3 and
@@ -1031,7 +1034,13 @@ def oracle_native_phase():
 # ---------------------------------------------------------------------------
 # the shooting kernels of the GPU solver and the solver itself
 
-SHOOT_KERNELS = (shoot_ops.shoot_legs, shoot_ops.manifold_target, shoot_ops.shoot_jvp)
+SHOOT_KERNELS = (shoot_ops.shoot_legs, shoot_ops.shoot_legs_fd, shoot_ops.manifold_target,
+                 shoot_ops.shoot_jvp)
+# the float64 Jacobian's kernel, which a float32 grading never launches
+F64_ONLY = ("shoot_legs_fd",)
+# each shooting wrapper's kernels in shoot_chain.registers' report
+REGISTER_KEYS = {"shoot_legs": ("shoot_legs<", "shoot_arc<"), "shoot_legs_fd": ("shoot_legs_fd",),
+                 "manifold_target": ("manifold_target",), "shoot_jvp": ("shoot_jvp",)}
 # Tolerances of the shooting kernels against their plain versions on the
 # same inputs, on quantiles of the per-row error.  The kernels contract
 # multiplies and adds into FMAs, and a CR3BP arc amplifies a difference of
@@ -1148,6 +1157,7 @@ def cr3bp_kernel_phase(device, L=1024) -> dict:
     # ladder rungs), tau and length moved
     tgt64 = shoot_ops.manifold_target(*d64, theta[:, 64].contiguous(),
                                       theta[:, 65].contiguous())
+    rep = lambda x, k: x.repeat_interleave(k, 0).contiguous()
     h = 1e-6 * (theta.abs() + 1.0)
     trial = (theta[:, None, :] + torch.diag_embed(h)).reshape(-1, 66).contiguous()
     tg = tgt64[:, None, :].expand(L, 66, 6).reshape(-1, 6).contiguous()
@@ -1156,8 +1166,24 @@ def cr3bp_kernel_phase(device, L=1024) -> dict:
         (trial, tg, sp64, 1.0, 20), rel_rows, SHOOT_TOL["legs_f64"],
         shoot_ops.shoot_legs_ops(trial.shape[0]), PEAK_FLOPS_F64, trial.shape[0], torch.float64,
         mass_err=mass_rel)
+    # the same 66 rows a lane as the float64 Jacobian forms them: each moved
+    # leg once (shoot_legs_fd), columns 64-65 against their moved targets;
+    # bit-equal to shoot_legs on the trial rows
+    moved = solver_gpu._target(solver_gpu._fd_tail(theta, h), [rep(x, 2) for x in d64], 5.0,
+                               11.0).reshape(L, 2, 6)
+    fd_args = (theta, h, tgt64, moved, sp64, 1.0, 20)
+    tg_fd = tg.reshape(L, 66, 6).clone()
+    tg_fd[:, 64:] = moved
+    fd_rows = shoot_ops.shoot_legs_fd(*fd_args)
+    check(torch.equal(fd_rows, shoot_ops.shoot_legs(trial, tg_fd.reshape(-1, 6), sp64, 1.0,
+                                                    20)[0].reshape(L, 66, 7)),
+          "shoot_legs_fd differs from shoot_legs on the trial rows")
+    flat = lambda f: (lambda a, b: f(a.reshape(-1, 7), b.reshape(-1, 7)))
+    cases["legs_fd_f64"] = shoot_case(
+        "shoot_legs_fd f64", shoot_ops.shoot_legs_fd, shoot_ops.shoot_legs_fd_reference, fd_args,
+        flat(rel_rows), SHOOT_TOL["legs_f64"], shoot_ops.shoot_legs_fd_ops(L), PEAK_FLOPS_F64,
+        L, torch.float64, mass_err=flat(mass_rel))
     gen = torch.Generator(device=device).manual_seed(31)
-    rep = lambda x, k: x.repeat_interleave(k, 0).contiguous()
     tau10 = (rep(theta[:, 64], 10) + 0.01 * torch.randn(L * 10, generator=gen, device=device,
                                                          dtype=torch.float64)).clamp(0, 1)
     len10 = (rep(theta[:, 65], 10) + 0.1 * torch.randn(L * 10, generator=gen, device=device,
@@ -1201,20 +1227,25 @@ def cr3bp_kernel_phase(device, L=1024) -> dict:
     cases["chain"] = chain_case(
         {"f64": ((*d64_10, tau10, len10), (1, L, L * 10)),
          "f32": ((*d32_8, th8[:, 64].contiguous(), th8[:, 65].contiguous()), (1, L, L * 8))},
-        (th32, tgt32, *d32), (sp32, 1.0, 20, 5.0, 11.0), (1, 33))
+        (th32, tgt32, *d32), (sp32, 1.0, 20, 5.0, 11.0), (1, 33),
+        {"f64": (theta[:1], tgt64[:1], sp64, 1.0, 20), "f32": (th8[:1], tgt8[:1], sp32, 1.0, 20)})
     print(json.dumps({"shoot_chain": cases["chain"]}), flush=True)
     return cases
 
 
-def chain_case(targets, jvp_args, jvp_tail, jvp_lanes) -> dict:
+def chain_case(targets, jvp_args, jvp_tail, jvp_lanes, legs_one) -> dict:
     """The manifold chain by width: ``manifold_target`` cold at each row
     count of ``targets`` (dtype tag -> (arguments, row counts)), 1 row being
     the chain's own time, and ``shoot_jvp`` at each of ``jvp_lanes``; the
     first rows and a slice from the middle launched alone equal the same
     rows of the full launch bit for bit (a row's result does not depend on
-    its launch); the lanes a row and each kernel's registers as built."""
+    its launch); ``shoot_legs`` at 1 row (``legs_one``: dtype tag ->
+    arguments), one leg's chain; the lanes a row and each kernel's
+    registers as built."""
     out = {"lanes_a_row": {str(k).replace("torch.", ""): v for k, v in shoot_ops.LANES.items()},
-           "manifold_target_ms": {}, "shoot_jvp_ms": {}}
+           "manifold_target_ms": {}, "shoot_jvp_ms": {},
+           "shoot_legs_ms": {f"{tag} 1 row": time_cold(lambda a=a: shoot_ops.shoot_legs(*a))
+                             for tag, a in legs_one.items()}}
     for tag, (args, rows) in targets.items():
         full = shoot_ops.manifold_target(*args)
         for m in rows:
@@ -2887,7 +2918,9 @@ def studies_phase() -> dict:
                                         str(STUDY_N), "tpu",
                                         "--out", os.path.join(tmp, "gt.json")])
         launched = {k: v - before[k] for k, v in _shooting_launches().items()}
-        check(_finite_json(gt) and gt["n"] == STUDY_N and all(v > 0 for v in launched.values()),
+        # float32 on the card: every shooting kernel but the float64 Jacobian's
+        check(_finite_json(gt) and gt["n"] == STUDY_N
+              and all(v > 0 for k, v in launched.items() if k not in F64_ONLY),
               f"gt_roundtrip_control {gt}, launched {launched}")
         out["gt_roundtrip_control"] = {**gt, "launches": launched,
                                        "wall_s": time.perf_counter() - t}
@@ -3671,6 +3704,9 @@ def main() -> int:
             ("shoot_legs", "legs_f64", "legs_f32",
              "no Pallas kernel: rdm_tpu/physics/solver_tpu.py:150 (_shoot_forward, "
              "_shoot_backward: lax.scan legs)"),
+            ("shoot_legs_fd", "legs_fd_f64", None,
+             "no Pallas kernel: rdm_tpu/physics/solver_tpu.py:690 (_jac_fd_df: the legs of "
+             "the forward-difference columns)"),
             ("manifold_target", "target_f64", "target_f32",
              "no Pallas kernel: rdm_tpu/physics/manifold.py:137 (manifold_target_from_data) "
              "and dynamics_df.py:222"),
@@ -3680,7 +3716,8 @@ def main() -> int:
         entry = {"name": name, "route": "cuda", "source": "rdm_tpu_torch/csrc/cr3bp_shoot.cu",
                  "replaces": replaces, "launches": gpu["f64"]["launches"][name],
                  "launches_f32": gpu["f32"]["launches"][name],
-                 "launches_datagen": gen_fields["launches"][name], "launches_note": shoot_note,
+                 "launches_datagen": gen_fields["launches"].get(name, 0),
+                 "launches_note": shoot_note,
                  "max_abs_err": c["max_abs_err"], "ms": c["ms"], "plain_ms": c["plain_ms"],
                  "bound_ms": c["bound_ms"], "bound_by": c["bound_by"], "library_ms": None,
                  "err_quantiles": c["err_quantiles"], "mass_err": c["mass_err"],
@@ -3700,8 +3737,10 @@ def main() -> int:
             entry["whole_arc_f32"] = {k: shoot_cases["arc_f32"][k] for k in
                                       ("rows", "max_abs_err", "err_quantiles", "mass_err", "ms",
                                        "plain_ms", "bound_ms")}
+            entry["ms_by_rows"] = shoot_cases["chain"]["shoot_legs_ms"]
         chain = shoot_cases["chain"]
-        entry["registers"] = {k: v for k, v in chain["registers"].items() if k.startswith(name)}
+        entry["registers"] = {k: v for k, v in chain["registers"].items()
+                              if k.startswith(REGISTER_KEYS[name])}
         if name == "manifold_target":
             entry["lanes_a_row"] = chain["lanes_a_row"]
             entry["ms_by_rows"] = chain["manifold_target_ms"]

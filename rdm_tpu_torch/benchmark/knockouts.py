@@ -53,11 +53,17 @@ Variants:
   cut to no steps); ``back_only`` (the halo phase cut to no steps);
 * its float32 Jacobian (``shoot_jvp`` at L 1024, round-2 lanes): ``whole``;
   ``legs_only`` (the target columns 64 and 65 return at once);
-  ``targets_only`` (the 64 leg columns return at once).
+  ``targets_only`` (the 64 leg columns return at once);
+* the shooting legs (``shoot_legs`` in float64 at 1 row and 1,024 x 8
+  rows, a ladder's residual; the float64 Jacobian's 66 rows a lane at 1
+  and 1,024 lanes, through ``shoot_legs_fd`` or, for a library without
+  it, the 66 trial rows a lane through ``shoot_legs``): ``whole`` (the
+  ``target_whole`` build); ``no_fwd`` and ``no_bwd`` (the forward or the
+  backward leg integrates no step).
   The shooting kernels' times are taken as ``chip_smoke.py`` takes them,
   in ms: the L2 flushed before each of five launches, CUDA events.
 
-    python -m rdm_tpu_torch.benchmark.knockouts --only target,jvp
+    python -m rdm_tpu_torch.benchmark.knockouts --only target,jvp,legs
 
 runs these alone (``--only`` takes prefixes of the variants' names);
 ``benchmark/shoot_chain.py`` times them for two copies of the source in
@@ -173,6 +179,23 @@ EDITS.update({
     "jvp_legs_only": ("cr3bp_shoot.cu", JVP_TARGETS, JVP_TARGETS + "    if (L > 0) return;\n"),
     "jvp_targets_only": ("cr3bp_shoot.cu", JVP_LEGS, JVP_LEGS + "    if (L > 0) return;\n"),
 })
+# the shooting legs with one leg cut to no steps: each edit names the text
+# of the two-leg thread (a parent's source) and of the thread a leg, and
+# applies to the one the copy holds
+TWO_LEG_FWD = ("  coast(sf, max_(th[1], T(0)) / T(kCoastSteps), thrust, c);\n"
+               "  segments(sf, 0, 1, full ? n_segments : n_fwd, dt_seg, thrust, c, seg);\n")
+TWO_LEG_BWD = ("  coast(sb, (-max_(th[2], T(0))) / T(kCoastSteps), thrust, c);\n"
+               "  segments(sb, n_segments - 1, -1, n_segments - n_fwd, -dt_seg, thrust, c, seg);\n")
+ONE_LEG = ("  coast(s, tc / T(kCoastSteps), thrust, c);\n"
+           "  segments(s, k0, step, n, dt, thrust, c, seg);\n")
+EDITS.update({
+    "legs_no_fwd": ("cr3bp_shoot.cu", (TWO_LEG_FWD, ONE_LEG),
+                    ("  if (M < 0) {\n" + TWO_LEG_FWD + "  }\n",
+                     "  if (!fwd) {\n" + ONE_LEG + "  }\n")),
+    "legs_no_bwd": ("cr3bp_shoot.cu", (TWO_LEG_BWD, ONE_LEG),
+                    ("  if (M < 0) {\n" + TWO_LEG_BWD + "  }\n",
+                     "  if (fwd) {\n" + ONE_LEG + "  }\n")),
+})
 # a variant that cuts its source from its edit's text up to this text
 CUT_TO = {"bwd_load_store": "    fence_proxy_async();             // the bulk store reads these bytes"}
 # further edits of four variants: the dots load no w, the resblock's
@@ -189,12 +212,19 @@ MAIN_SOURCE = {"core": "attention_core.cu", "dots": "micro_cf.cu", "transpose": 
                "roll": "micro_cf.cu",
                "resblock": "fused_resblock.cu", "attn": "fused_attn_block.cu",
                "bwd": "fused_attn_block_bwd.cu", "target": "cr3bp_shoot.cu",
-               "jvp": "cr3bp_shoot.cu"}
+               "jvp": "cr3bp_shoot.cu", "legs": "cr3bp_shoot.cu"}
 NO_W_LOAD = ("      for (int t = 0; t < taps; ++t) {\n        mbar_expect_tx",
              "      for (int t = 0; t < 0; ++t) {\n        mbar_expect_tx")
 
 
-def _edit(src: str, old: str, new: str, name: str) -> str:
+def _edit(src: str, old, new, name: str) -> str:
+    if isinstance(old, tuple):
+        # alternatives: the one text of ``old`` that the source holds
+        hits = [i for i, o in enumerate(old) if src.count(o) == 1]
+        if len(hits) != 1:
+            raise RuntimeError(f"knockout {name}: the source holds {len(hits)} of its "
+                               f"{len(old)} alternative texts, not one")
+        old, new = old[hits[0]], new[hits[0]]
     if src.count(old) != 1:
         raise RuntimeError(f"knockout {name}: the source has {old!r} "
                            f"{src.count(old)} times, not once")
@@ -296,11 +326,29 @@ def bound_to(lib):
             getattr(lib, fname).restype = res
         return lib
 
+    real_fd = shoot_ops.shoot_legs_fd
     _build.library = library
+    if not hasattr(lib, "rdm_shoot_legs_fd_f64"):
+        # a parent from before the finite-difference entry: its own route
+        shoot_ops.shoot_legs_fd = fd_rows_by_trials
     try:
         yield
     finally:
         _build.library = real
+        shoot_ops.shoot_legs_fd = real_fd
+
+
+def fd_rows_by_trials(theta, h, tgt, tgt_moved, spiral_end, thrust, n_segments):
+    """The float64 Jacobian's residual rows [n, 66, 7] as the solver formed
+    them before ``shoot_legs_fd``: 66 trial rows a lane (theta with h added
+    on the diagonal) through one ``shoot_legs`` launch of 66 n rows, each
+    integrating both legs; columns 64-65 against their moved targets."""
+    n = theta.shape[0]
+    trial = (theta[:, None, :] + torch.diag_embed(h)).reshape(-1, shoot_ops.NVAR)
+    tg = tgt[:, None, :].expand(n, shoot_ops.NVAR, 6).clone()
+    tg[:, 64:] = tgt_moved
+    r, _ = shoot_ops.shoot_legs(trial, tg.reshape(-1, 6), spiral_end, thrust, n_segments)
+    return r.reshape(n, shoot_ops.NVAR, shoot_ops.NRES)
 
 
 def resblock_times(libs, device) -> dict:
@@ -461,10 +509,76 @@ def jvp_times(libs, args, label: str = "") -> dict:
     return times
 
 
+# shoot_legs' cases: 1 row (the legs' own chain), 1,024 lanes x 8 rungs in
+# both types; the Jacobian's rows at 1 and 1,024 lanes
+LEGS_ROWS = (1, 8192)
+FD_LANES = (1, 1024)
+
+
+def legs_cases(device) -> dict:
+    """shoot_legs' and the float64 Jacobian's arguments by name: round-2
+    lanes, the ladder's rungs moved as in phase ``kernel_cr3bp``, each
+    row's target from ``manifold_target`` (built from this package), and
+    the Jacobian's steps and moved targets as ``solver_gpu`` forms them."""
+    from ..physics import solver_gpu
+    theta, d64, d32, sp = shoot_inputs(1024, 30, device)
+    gen = torch.Generator(device=device).manual_seed(31)
+    rep = lambda x, k: x.repeat_interleave(k, 0).contiguous()
+    th8 = solver_gpu._clamp_vars(
+        rep(theta, 8) + 1e-3 * torch.randn(8192, 66, generator=gen, device=device,
+                                           dtype=torch.float64), 20, 40.0, 15.0)
+    cases = {}
+    for dtype, data in ((torch.float64, d64), (torch.float32, d32)):
+        th = th8.to(dtype)
+        tgt = shoot_ops.manifold_target(*(rep(x, 8) for x in data), th[:, 64].contiguous(),
+                                        th[:, 65].contiguous())
+        for rows in LEGS_ROWS if dtype == torch.float64 else LEGS_ROWS[-1:]:
+            cases[f"legs {target_key(dtype, rows)}"] = (th[:rows].contiguous(),
+                                                        tgt[:rows].contiguous(), sp.to(dtype),
+                                                        1.0, 20)
+    tgt = shoot_ops.manifold_target(*d64, theta[:, 64].contiguous(),
+                                    theta[:, 65].contiguous())
+    h = solver_gpu._FD_STEP * (theta.abs() + 1.0)
+    tgt_moved = solver_gpu._target(solver_gpu._fd_tail(theta, h), [rep(x, 2) for x in d64],
+                                   5.0, 11.0).reshape(-1, 2, 6)
+    for lanes in FD_LANES:
+        cases[f"fd {lanes} lanes"] = (theta[:lanes].contiguous(), h[:lanes].contiguous(),
+                                      tgt[:lanes].contiguous(), tgt_moved[:lanes].contiguous(),
+                                      sp, 1.0, 20)
+    return cases
+
+
+def legs_call(key: str, args):
+    """The call a case of ``legs_cases`` times: ``shoot_legs`` or the
+    Jacobian's rows (``shoot_legs_fd``, a parent's route under
+    ``bound_to``)."""
+    if key.startswith("fd"):
+        return lambda: shoot_ops.shoot_legs_fd(*args)
+    return lambda: shoot_ops.shoot_legs(*args)
+
+
+def legs_times(libs, cases, label: str = "") -> dict:
+    """Cold ms (mean of five) of ``shoot_legs`` whole (the ``target_whole``
+    build) and with each leg knocked out on each of ``cases``, taken as
+    ``target_times`` takes them."""
+    times = {}
+    for name in ("target_whole", "legs_no_fwd", "legs_no_bwd"):
+        if name not in libs:
+            continue
+        tag = "whole" if name == "target_whole" else name[5:]
+        for key, a in cases.items():
+            with bound_to(libs[name]):
+                t = float(np.mean(cold_ms(legs_call(key, a))))
+            times[f"legs_{tag} {key}"] = t
+            print(f"shoot_legs {key:<20s} {label}{tag:<7s}: cold {t:.4f} ms", flush=True)
+    return times
+
+
 def main(argv=None) -> dict:
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     p.add_argument("--only", default="", help="comma-separated prefixes of the variants to run "
-                   "(core, dots, transpose, roll, resblock, attn, bwd, target, jvp); default all")
+                   "(core, dots, transpose, roll, resblock, attn, bwd, target, jvp, legs); "
+                   "default all")
     args = p.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("knockouts: needs a CUDA card")
@@ -472,6 +586,8 @@ def main(argv=None) -> dict:
     print(describe(device), flush=True)
     only = tuple(x for x in args.only.split(",") if x)
     names = [n for n in EDITS if not only or n.split("_")[0] in only]
+    if "legs_no_fwd" in names and "target_whole" not in names:
+        names.append("target_whole")             # the legs' whole build
     libs = {name: ctypes.CDLL(path) for name, path in build_variants(names).items()}
     for lib in libs.values():
         lib.rdm_cuda_error_string.argtypes = [ctypes.c_int]
@@ -525,6 +641,10 @@ def main(argv=None) -> dict:
         ms["manifold_target"] = target_times(libs, target_cases(device))
     if have("jvp"):
         ms["shoot_jvp"] = jvp_times(libs, jvp_args(JVP_L, device))
+    if "legs_no_fwd" in libs:
+        with bound_to(libs["legs_no_fwd"]):
+            legs = legs_cases(device)
+        ms["shoot_legs"] = legs_times(libs, legs)
     print(json.dumps({"knockouts_us": times, "knockouts_ms": ms}), flush=True)
     return dict(times, **ms)
 

@@ -13,7 +13,10 @@ what it needs), timed on the host clock (ending in a synchronisation), and
 graded once more under ``torch.profiler``.  With ``--parent`` (another copy
 of ``csrc/``, e.g. a parent commit's) the shooting kernels are also built
 from that copy and the two copies grade in turns, parent, change, change,
-parent, each bound through ``knockouts.bound_to``; the lanes whose
+parent, each bound through ``knockouts.bound_to``, which also gives each
+copy its own route to the float64 Jacobian's rows: ``shoot_legs_fd`` where
+the copy's library has it, else (a parent from before it) one
+``shoot_legs`` launch of the 66 trial rows a lane; the lanes whose
 feasible verdict differs between the copies are listed with the other
 precisions' verdicts on them.  Prints one JSON line: per precision and
 copy the wall times, the grades, the device time (the sum of the kernels'
@@ -40,7 +43,8 @@ from ..physics.solver_gpu import refine_warmstarts_gpu
 from .common import ROUND2, trace_kernels
 from .knockouts import bound_to, build_variants
 
-KERNELS = (shoot_ops.shoot_legs, shoot_ops.manifold_target, shoot_ops.shoot_jvp)
+KERNELS = (shoot_ops.shoot_legs, shoot_ops.shoot_legs_fd, shoot_ops.manifold_target,
+           shoot_ops.shoot_jvp)
 OUT = os.path.join(_build.BUILD_DIR, "profile_oracle")
 
 

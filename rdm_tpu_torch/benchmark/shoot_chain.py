@@ -1,22 +1,30 @@
-"""The manifold chain on the card for two copies of the source in turns:
-``manifold_target`` and ``shoot_jvp`` of ``csrc/cr3bp_shoot.cu`` as
-``benchmark/knockouts.py`` cuts them, their registers, and each copy's
-float64 verdicts against the native oracle's.
+"""The shooting kernels on the card for two copies of the source in turns:
+``manifold_target``, ``shoot_jvp`` and ``shoot_legs`` of
+``csrc/cr3bp_shoot.cu`` as ``benchmark/knockouts.py`` cuts them, their
+registers, and each copy's float64 verdicts against the native oracle's.
 
     python -m rdm_tpu_torch.benchmark.shoot_chain [--parent DIR] [--agreement]
 
 It needs the card and ``nvcc``.  The variants are ``knockouts.py``'s
 ``target_*`` (``manifold_target`` whole, halo phase only, back-integration
 only, at 1, 1024 and a grading's largest row count in each type: the 1-row
-time is the chain's, the floor of a design that gives a row one thread)
-and ``jvp_*`` (``shoot_jvp`` at L 1024 whole and by column group).  They
+time is the chain's, the floor of a design that gives a row one thread),
+``jvp_*`` (``shoot_jvp`` at L 1024 whole and by column group) and
+``legs_*`` (``shoot_legs`` at 1 row and 1,024 x 8 rows in float64 and
+8,192 in float32, and the float64 Jacobian's 66 residual rows a lane at 1
+and 1,024 lanes, whole and with the forward or the backward leg
+knocked out).  Each copy forms the Jacobian's rows by its own route: a
+library with ``rdm_shoot_legs_fd_f64`` through ``shoot_legs_fd``, one
+without it (a parent from before that entry) through one ``shoot_legs``
+launch of the 66 trial rows a lane (``knockouts.bound_to`` picks).  They
 are built from this package's ``csrc/`` and, with ``--parent``, from
 another copy of ``csrc/`` (e.g. a parent commit's), one nvcc each, all
 started together, into ``rdm_tpu_torch/_build/shoot_chain/<copy>/``; the
 package's wrappers call each build through ``knockouts.bound_to``.  With
 ``--parent`` the copies run in turns, parent, change, change, parent, and
-the change's ``manifold_target`` at each type's largest row count is
-compared with the parent's bit for bit.  Registers and spills come from
+the change's ``manifold_target`` at each type's largest row count,
+``shoot_legs`` at 8,192 rows in each type and the Jacobian's rows at 1,024
+lanes are compared with the parent's bit for bit (``same_bits_as_parent``).  Registers and spills come from
 ptxas' report (``-Xptxas -v``).  ``--agreement`` holds each copy's float64
 verdicts to the native oracle's lane by lane, as ``chip_smoke.py`` does
 (at least 0.98), on the 1024 round-2 samples and phase ``datagen``'s first
@@ -45,8 +53,10 @@ from .common import ROUND2
 
 OUT = os.path.join(_build.BUILD_DIR, "shoot_chain")
 VARIANTS = ("target_whole", "target_halo_only", "target_back_only", "jvp_whole",
-            "jvp_legs_only", "jvp_targets_only")
+            "jvp_legs_only", "jvp_targets_only", "legs_no_fwd", "legs_no_bwd")
 KERNELS = {"shoot_legs_kernelId": "shoot_legs<double>", "shoot_legs_kernelIf": "shoot_legs<float>",
+           "shoot_arc_kernelId": "shoot_arc<double>", "shoot_arc_kernelIf": "shoot_arc<float>",
+           "fd_legs_kernel": "shoot_legs_fd (legs)", "fd_rows_kernel": "shoot_legs_fd (rows)",
            "manifold_target_kernelId": "manifold_target<double>",
            "manifold_target_kernelIf": "manifold_target<float>",
            "shoot_jvp_kernel": "shoot_jvp_f32"}
@@ -140,22 +150,30 @@ def main(argv=None) -> dict:
 
     cases = knockouts.target_cases(device)
     jvp = knockouts.jvp_args(knockouts.JVP_L, device)
+    first = "parent" if args.parent else "change"
+    with knockouts.bound_to(libs[first]["target_whole"]):
+        legs = knockouts.legs_cases(device)
     turns = ["parent", "change", "change", "parent"] if args.parent else ["change"]
     for c in turns:
         times = dict(knockouts.target_times(libs[c], cases, f"{c} "),
-                     **knockouts.jvp_times(libs[c], jvp, f"{c} "))
+                     **knockouts.jvp_times(libs[c], jvp, f"{c} "),
+                     **knockouts.legs_times(libs[c], legs, f"{c} "))
         for k, t in times.items():
             out["ms"].setdefault(k, {}).setdefault(c, []).append(t)
     if args.parent:
-        # the change's targets at each type's largest launch against the parent's
+        # the change's outputs at the largest launches against the parent's
+        compared = [(knockouts.target_key(d, n[-1]), cases[knockouts.target_key(d, n[-1])],
+                     shoot_ops.manifold_target) for d, n in knockouts.TARGET_ROWS.items()]
+        compared += [(k, a, lambda *a: shoot_ops.shoot_legs(*a)[0]) for k, a in legs.items()
+                     if k.startswith("legs") and not k.endswith(" 1 rows")]
+        compared += [(k, a, lambda *a: shoot_ops.shoot_legs_fd(*a)) for k, a in legs.items()
+                     if k == f"fd {knockouts.FD_LANES[-1]} lanes"]
         out["same_bits_as_parent"] = {}
-        for dtype, counts in knockouts.TARGET_ROWS.items():
-            key = knockouts.target_key(dtype, counts[-1])
-            a = cases[key]
+        for key, a, fn in compared:
             got = []
             for c in ("parent", "change"):
                 with knockouts.bound_to(libs[c]["target_whole"]):
-                    got.append(shoot_ops.manifold_target(*a))
+                    got.append(fn(*a))
             out["same_bits_as_parent"][key] = bool(torch.equal(*got))
         print(json.dumps({"same_bits_as_parent": out["same_bits_as_parent"]}), flush=True)
     if args.agreement:

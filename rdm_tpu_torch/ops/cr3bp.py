@@ -1,24 +1,32 @@
 """The shooting kernels of the batched warm-start solver (``physics/solver_gpu.py``).
 
-Three hand-written CUDA kernels of ``csrc/cr3bp_shoot.cu`` with every state
-in registers.  They have no Pallas counterpart: the JAX package runs the
+Hand-written CUDA kernels of ``csrc/cr3bp_shoot.cu`` with every state in
+registers.  They have no Pallas counterpart: the JAX package runs the
 same integrations as XLA scans inside one vmapped program
 (``rdm_tpu/physics/solver_tpu.py``).
 
 * ``shoot_legs(theta, tgt, spiral_end, thrust, n_segments)``, float32 or
-  float64, one thread per (lane, variant), a variant being a base point, a
-  finite-difference column or a ladder rung: the forward leg from the
-  spiral end and the backward leg from each row's target, 192 RK4 steps
-  each at 20 segments; returns the 7-residual and the finite flag (a
+  float64, one thread per (row, leg), a row being a base point or a ladder
+  rung: the forward leg from the spiral end and the backward leg from each
+  row's target, 192 RK4 steps each at 20 segments; returns the 7-residual
+  and the finite flag (a
   non-finite leg or target gives 1e6 in every entry).  ``full=True``
   integrates the whole forward arc instead and returns its state (terminal
   mass).  Plain version: ``solver_gpu._residual_with_target`` /
   ``solver_gpu._shoot``.
+* ``shoot_legs_fd(theta, h, tgt, tgt_moved, spiral_end, thrust,
+  n_segments)``, float64: the forward-difference Jacobian's 66 residual
+  rows a lane (theta with h_j added to variable j), each leg a column
+  moves integrated once (``fd_jobs``: 69 legs a lane at 20 segments, not
+  66 two-leg rows) and the base point's legs serving the rest; bit-equal
+  to ``shoot_legs`` on the 66 trial rows.  Plain version:
+  ``shoot_legs_fd_reference``, the same legs through ``_shoot_forward`` /
+  ``_shoot_backward``.
 * ``manifold_target(state0, period, vstable, tau_frac, length)``: the
   manifold chain, 256 halo steps then 1024 steps of ballistic
-  back-integration, a row a thread in float64 and a group of lanes in
-  float32.  float64 transports the tangent with the variational
-  equations (``dynamics_f64``), float32 with the tangent of the RK4 map
+  back-integration, a row on a group of ``LANES`` lanes of one warp.
+  float64 transports the tangent with the variational equations
+  (``dynamics_f64``), float32 with the tangent of the RK4 map
   (``manifold``), as the JAX package does for its two precisions.
 * ``shoot_jvp(theta, tgt, state0, period, vstable, ...)``, float32: the
   7 x 66 Jacobian of the float32 residual as forward-mode derivatives on
@@ -26,26 +34,31 @@ same integrations as XLA scans inside one vmapped program
   transport).  Plain version: the same derivatives on the dual numbers of
   ``physics/dual.py``.
 
-What limits them. ``shoot_legs`` and the Jacobian's 64 leg columns fill the
-card (65,536-67,584 threads at 1024 lanes) and are bound by their
-arithmetic. The manifold chain is bound by its latency: a launch has at
-most 10,240 rows, and with a thread a row the card held less than a warp a
-scheduler, so a launch took one thread's 1,280 dependent steps whatever its
-width (``PERF.md``: 3.2 ms at 1 row, 3.5 at 10,240 in float64); the
-operation-count bound over the peak (``*_ops`` below, 0.11 ms) is not the
-floor at these widths. So a row of the float32 chain runs on a group of
-``LANES`` lanes of one warp: every lane holds the whole state and runs the
-RK4 update alike, the stage's six gravity terms are spread over the lanes,
-one a lane, each from one reciprocal square root and products in place of
-a square root and divisions, and exchanged by ``__shfl_sync`` once a
-stage. float64 keeps a thread a row: split the same way it ran
-faster, but it moved the float64 solver's verdicts below the smoke's
-agreement gate (``PERF.md``). ``shoot_jvp`` launches its two target columns
+What limits them. Every kernel here is bound by a chain of dependent RK4
+steps, each waiting on square roots and divisions, as much as by its
+arithmetic. ``shoot_legs`` runs a thread a leg (a row's forward and
+backward legs on two adjacent lanes, which exchange their end states by
+``__shfl_xor_sync``), so a launch takes one leg's 192 steps, not two
+legs' 384; its whole-arc form keeps a thread a row. ``shoot_legs_fd``
+integrates only the legs a column moves: about half the two-leg rows'
+work. The manifold chain has at most 10,240 rows a launch, too few to
+fill the card with a thread a row, so a launch took one thread's 1,280
+dependent steps whatever its width (``PERF.md``: 3.0 ms at 1 row, 3.4 at
+10,240 in float64); the operation-count bound over the peak (``*_ops``
+below, 0.11 ms) is not the floor at these widths. So a row runs on a group
+of ``LANES`` lanes of one warp: every lane holds the whole state and runs
+the RK4 update alike, and a stage's square roots and divisions are spread
+over the lanes and exchanged by ``__shfl_sync``. float32 computes its six
+gravity terms from one reciprocal square root and products, one a lane;
+float64 keeps the one-thread kernel's operations and bits (each rounded
+once by an intrinsic, fused where that kernel was fused: the header of
+``csrc/cr3bp_shoot.cu``), four lanes each taking one square root and up
+to three divisions. ``shoot_jvp`` launches its two target columns
 first (``jvp_layout``), on the same chain code, so that they start in the
 first wave and run under the leg columns. The layouts are mirrored here
-(``target_layout``, ``jvp_layout``); the card tests hold the lanes a row
-to the built library. A row's result does not depend on how many rows share its
-launch or where it lies in it.
+(``target_layout``, ``jvp_layout``, ``fd_layout``); the card tests hold the
+lanes a row to the built library. A row's result does not depend on how
+many rows share its launch or where it lies in it.
 
 Each wrapper runs the plain version for CPU tensors and, for CUDA tensors,
 launches its kernel or raises; it never falls back.  Each counts its
@@ -68,8 +81,9 @@ _SOURCE = "cr3bp_shoot"
 _SUFFIX = {torch.float32: "f32", torch.float64: "f64"}
 
 # Operations (an add, multiply, division or square root: one each) of one
-# evaluation of each vector field as the kernels write it (eom7, ode6,
-# ode12 of csrc/cr3bp_shoot.cu), and of one RK4 step over n components:
+# evaluation of each vector field as the plain versions write it (eom7,
+# field6, field12 of csrc/cr3bp_shoot.cu, without the float64 chain's
+# copies of a division), and of one RK4 step over n components:
 # the arithmetic of the kernels' bounds.  A dual operation costs about
 # three real ones (a product three multiplies and an add, a sum two), a
 # dual of duals about nine.
@@ -98,6 +112,14 @@ def manifold_target_ops(M: int, dtype) -> int:
     return M * (256 * halo + 1024 * rk4_ops(OPS_ODE6, 6))
 
 
+def shoot_legs_fd_ops(L: int, n_segments: int = 20) -> int:
+    """Operations of ``shoot_legs_fd`` on L lanes: the legs it integrates
+    (``fd_jobs``: the base point's two and each column's moved ones)."""
+    fwd, bwd = _leg_steps(n_segments)
+    steps = sum(bwd if leg else fwd for _, leg in fd_jobs(n_segments))
+    return L * steps * rk4_ops(OPS_EOM7, 7)
+
+
 def shoot_jvp_ops(L: int, n_segments: int = 20) -> int:
     """Operations of ``shoot_jvp`` on L lanes: each column runs only the
     legs its variable moves; 64 and 65 also run the target."""
@@ -119,8 +141,8 @@ def shoot_jvp_ops(L: int, n_segments: int = 20) -> int:
 # the manifold chain's layout (csrc/cr3bp_shoot.cu), mirrored; the card tests
 # hold the lanes a row to the built library (rdm_shoot_chain_lanes)
 
-# lanes a row of the chain takes: float64 a thread a row; float32 kChainLanes
-LANES = {torch.float64: 1, torch.float32: 8}
+# lanes a row of the chain takes: kChainLanes64 and kChainLanes
+LANES = {torch.float64: 4, torch.float32: 8}
 THREADS = 128                      # kThreads, a block
 
 
@@ -128,13 +150,13 @@ def _blocks(threads: int) -> int:
     return -(-threads // THREADS)
 
 
-def target_layout(M: int) -> dict:
-    """manifold_target's float32 grid at M rows (float64 runs a thread a
-    row), a thread an entry: ``row`` (-1 where the thread's warp lies wholly
-    past the last row and returns; a masked group runs the last row),
-    ``lane`` (its place in the row's group), ``store`` (the group's row is
-    its own).  A storing lane j < 6 writes component j."""
-    G = LANES[torch.float32]
+def target_layout(M: int, dtype=torch.float32) -> dict:
+    """manifold_target's grid at M rows in ``dtype``, a thread an entry:
+    ``row`` (-1 where the thread's warp lies wholly past the last row and
+    returns; a masked group runs the last row), ``lane`` (its place in the
+    row's group), ``store`` (the group's row is its own).  A storing lane j
+    writes components j, j + G, ... below 6 (G the lanes a row)."""
+    G = LANES[dtype]
     t = np.arange(_blocks(M * G) * THREADS)
     live = (t & ~31) < M * G
     row = t // G
@@ -168,6 +190,50 @@ def jvp_layout(L: int) -> dict:
                 store=(t < n) & (~tgt | (grp < L)))
 
 
+def moves(col: int, leg: int, n_segments: int) -> bool:
+    """Whether variable ``col`` moves the forward (``leg`` 0) or backward
+    (1) leg: the forward leg reads t_shoot, t_c1 and the controls of
+    segments [0, n_fwd); the backward leg t_shoot, t_c2, the others, the
+    mass and, through the target, the phase and the arc length."""
+    n_fwd = (n_segments + 1) // 2
+    if leg == 0:
+        return col <= 1 or 3 <= col < 3 + 3 * n_fwd
+    return col in (0, 2, 63, 64, 65) or 3 + 3 * n_fwd <= col < 3 + 3 * n_segments
+
+
+def fd_jobs(n_segments: int) -> list:
+    """The legs ``shoot_legs_fd`` integrates for one lane, in the kernel's
+    order, as (column, leg): the base point's forward and backward legs
+    (column -1), then every leg a column moves, column by column."""
+    return [(-1, 0), (-1, 1)] + [(c, g) for c in range(NVAR) for g in (0, 1)
+                                 if moves(c, g, n_segments)]
+
+
+def fd_job_of(col: int, leg: int, n_segments: int) -> int:
+    """The job whose end state column ``col`` takes for ``leg``, as the
+    kernel computes it: the column's own where it moves the leg, else the
+    base point's (0 or 1)."""
+    if not moves(col, leg, n_segments):
+        return leg
+    if col <= 2:
+        return (2, 4, 5)[col] + (col == 0 and leg == 1)
+    if col < 3 + 3 * n_segments:
+        return col + 3
+    return col - 57 + 3 * n_segments
+
+
+def fd_layout(L: int, n_segments: int) -> dict:
+    """``shoot_legs_fd``'s grid of legs at L lanes, a thread an entry:
+    ``job`` (its index in ``fd_jobs``, -1 past the grid's work), ``lane``,
+    ``col`` and ``leg``; job by job, L threads each."""
+    jobs = np.array(fd_jobs(n_segments))
+    n = len(jobs) * L
+    t = np.arange(_blocks(n) * THREADS)
+    job = np.where(t < n, t // L, -1)
+    return dict(job=job, lane=t % L, col=np.where(job >= 0, jobs[job, 0], -2),
+                leg=np.where(job >= 0, jobs[job, 1], -1))
+
+
 # ---------------------------------------------------------------------------
 # plain versions
 
@@ -177,6 +243,39 @@ def shoot_legs_reference(theta, tgt, spiral_end, thrust, n_segments, full=False)
         s = sg._shoot(theta, spiral_end, thrust, n_segments)
         return s, torch.isfinite(s).all(-1)
     return sg._residual_with_target(theta, tgt, spiral_end, thrust, n_segments)
+
+
+def shoot_legs_fd_reference(theta, h, tgt, tgt_moved, spiral_end, thrust, n_segments):
+    """The float64 Jacobian's residual rows [n, 66, 7]: row j of a lane is
+    the residual at theta with h_j added to variable j, against the lane's
+    target (columns 64-65: against ``tgt_moved``).  Each leg is integrated
+    once where a column moves it, and the base point's legs (from
+    ``theta + 0.0``, the values a trial row holds off its diagonal) serve
+    every column that does not."""
+    from ..physics import solver_gpu as sg
+    n = theta.shape[0]
+    n_fwd = (n_segments + 1) // 2
+    jobs = fd_jobs(n_segments)
+    E = torch.zeros((n, len(jobs), NVAR), dtype=theta.dtype, device=theta.device)
+    for q, (c, _) in enumerate(jobs):
+        if c >= 0:
+            E[:, q, c] = h[:, c]
+    trial = theta[:, None, :] + E                                   # [n, J, 66]
+    fq = [q for q, (_, g) in enumerate(jobs) if g == 0]
+    bq = [q for q, (_, g) in enumerate(jobs) if g == 1]
+    tg = torch.stack([tgt_moved[:, c - 64] if c >= 64 else tgt for c, g in jobs if g == 1], 1)
+    s_f = sg._shoot_forward(trial[:, fq], spiral_end, thrust, n_segments, n_fwd)
+    s_b = sg._shoot_backward(trial[:, bq], tg, thrust, n_segments, n_fwd)
+    at_f = {q: i for i, q in enumerate(fq)}
+    at_b = {q: i for i, q in enumerate(bq)}
+    s_f = s_f[:, [at_f[fd_job_of(c, 0, n_segments)] for c in range(NVAR)]]
+    s_b = s_b[:, [at_b[fd_job_of(c, 1, n_segments)] for c in range(NVAR)]]
+    tg_col = torch.cat([tgt[:, None, :].expand(n, 64, 6), tgt_moved], 1)
+    r = torch.cat([s_f[..., :6] - s_b[..., :6],
+                   ((s_f[..., 6] - s_b[..., 6]) / sg._MASS_SCALE)[..., None]], dim=-1)
+    finite = (torch.isfinite(s_f).all(-1) & torch.isfinite(s_b).all(-1)
+              & torch.isfinite(tg_col).all(-1))
+    return torch.where(finite[..., None], r, torch.full_like(r, 1e6))
 
 
 def manifold_target_reference(state0, period, vstable, tau_frac, length):
@@ -368,6 +467,38 @@ def shoot_legs(theta, tgt, spiral_end, thrust, n_segments, full=False):
 
 
 shoot_legs.launches = 0
+
+
+def shoot_legs_fd(theta, h, tgt, tgt_moved, spiral_end, thrust, n_segments):
+    """The float64 Jacobian's residual rows [n, 66, 7] at theta [n, 66]
+    with steps h [n, 66]: row j is the residual at theta with h_j added to
+    variable j, against the lane's target tgt [n, 6], rows 64 and 65 against
+    tgt_moved [n, 2, 6]; spiral_end [7]; float64.  Each leg a column moves
+    is integrated once, the base point's legs serve the rest: the residuals
+    of the 66 trial rows through ``shoot_legs``, bit for bit."""
+    n = theta.shape[0]
+    for t, shape in ((theta, (n, NVAR)), (h, (n, NVAR)), (tgt, (n, 6)), (tgt_moved, (n, 2, 6)),
+                     (spiral_end, (7,))):
+        _check_shape("shoot_legs_fd", t, shape)
+    if not 1 <= n_segments <= 20:
+        raise ValueError(f"shoot_legs_fd: n_segments {n_segments} outside [1, 20]")
+    ins = [theta, h, tgt, tgt_moved, spiral_end]
+    if _on_cpu("shoot_legs_fd", ins, (torch.float64,)):
+        return shoot_legs_fd_reference(*ins, thrust, n_segments)
+    out = torch.empty((n, NVAR, NRES), dtype=theta.dtype, device=theta.device)
+    if n:
+        jobs = len(fd_jobs(n_segments))
+        legs = torch.empty((jobs, n, 7), dtype=theta.dtype, device=theta.device)
+        ok = torch.empty((jobs, n), dtype=torch.uint8, device=theta.device)
+        _launch("rdm_shoot_legs_fd_f64", [_P] * 5 + [_D, _I] + [_D] * 4 + [_P] * 3 + [_I, _P],
+                [t.data_ptr() for t in ins] + [float(thrust), int(n_segments), *consts(),
+                                               legs.data_ptr(), ok.data_ptr(), out.data_ptr(), n],
+                theta.device)
+        _count(shoot_legs_fd)
+    return out
+
+
+shoot_legs_fd.launches = 0
 
 
 def manifold_target(state0, period, vstable, tau_frac, length):

@@ -37,7 +37,8 @@ Two precisions, as in the JAX package:
 
 The integrations run in the hand-written kernels of ``csrc/cr3bp_shoot.cu``
 (``ops/cr3bp.py``): ``shoot_legs`` (both shooting legs, or the whole forward
-arc), ``manifold_target`` (the end-boundary target) and ``shoot_jvp`` (the
+arc), ``shoot_legs_fd`` (the float64 Jacobian's residual rows),
+``manifold_target`` (the end-boundary target) and ``shoot_jvp`` (the
 float32 Jacobian).  Everything else is PyTorch on batched tensors.  JAX's
 vmap of a ``while_loop`` becomes one loop on the host over the lanes still
 active: each iteration reads back one "any lane active" flag, gathers the
@@ -205,6 +206,14 @@ def _target(theta, data, min_mani, max_mani):
     return shoot_ops.manifold_target(*data, tau, length)
 
 
+def _fd_tail(theta, h):
+    """Rows 64 and 65 of the forward differences' trial rows theta +
+    diag(h), whose targets move: [n * 2, 66]."""
+    step = torch.zeros((theta.shape[0], NVAR - 64, NVAR), dtype=theta.dtype, device=theta.device)
+    step[:, 0, 64], step[:, 1, 65] = h[:, 64], h[:, 65]
+    return (theta[:, None, :] + step).reshape(-1, NVAR)
+
+
 def _residual_data(theta, data, spiral_end, thrust, n_segments, min_mani, max_mani):
     """The full residual of [n, 66] iterates from pre-interpolated halo data:
     (r [n, 7], target [n, 6], finite [n]).  In float32 it is the JAX
@@ -315,17 +324,16 @@ class _Problem:
     def _jac_fd(self, theta, r0, tgt, lanes):
         """Forward differences of the float64 residual: columns 0-63 move
         only the legs (the target of theta is reused), 64 and 65 the
-        target too."""
+        target too.  The residual rows come from ``shoot_legs_fd``, which
+        integrates each leg a column moves once and the base point's legs
+        for the rest."""
         n = theta.shape[0]
         h = _FD_STEP * (torch.abs(theta) + 1.0)                      # [n, 66]
-        trial = theta[:, None, :] + torch.diag_embed(h)              # [n, 66, 66]
-        tg = tgt[:, None, :].expand(n, NVAR, 6).clone()
-        tail = trial[:, 64:, :].reshape(-1, NVAR)
-        tg[:, 64:] = _target(tail, _gather(self.data, lanes, NVAR - 64), self.min_mani,
-                             self.max_mani).reshape(n, NVAR - 64, 6)
-        rv, _ = shoot_ops.shoot_legs(trial.reshape(-1, NVAR), tg.reshape(-1, 6),
-                                     self.spiral_end, self.thrust, self.n_segments)
-        J = (rv.reshape(n, NVAR, NRES) - r0[:, None, :]) / h[:, :, None]
+        tg = _target(_fd_tail(theta, h), _gather(self.data, lanes, NVAR - 64), self.min_mani,
+                     self.max_mani).reshape(n, NVAR - 64, 6)
+        rv = shoot_ops.shoot_legs_fd(theta, h, tgt, tg, self.spiral_end, self.thrust,
+                                     self.n_segments)
+        J = (rv - r0[:, None, :]) / h[:, :, None]
         return J.transpose(1, 2)
 
     def solve(self, A, b):

@@ -1,14 +1,17 @@
 """The shooting kernels of ``csrc/cr3bp_shoot.cu`` (``ops/cr3bp.py``).
 
 On the CPU: the wrappers' input checks, that a CPU tensor takes the plain
-version without counting a launch, the bound's operation counts, and the
-manifold chain's thread layouts as ``ops/cr3bp.py`` mirrors them (lanes a
-row, the order of ``shoot_jvp``'s columns).
+version without counting a launch, the bound's operation counts, the
+thread layouts as ``ops/cr3bp.py`` mirrors them (the manifold chain's lanes
+a row, the order of ``shoot_jvp``'s columns, ``shoot_legs_fd``'s legs),
+and the plain ``shoot_legs_fd`` against the plain residual of the trial
+rows it replaces.
 On the card (marker ``gpu``): each kernel against its plain version on
 seeded round-2 lanes, two runs bit for bit, the mirrored layout against the
 built library, the chain's kernels at 1 row or lane, a ragged count and the
 grading's full count, where a slice of rows launched alone equals the same
-rows inside the full launch bit for bit, a small solve on the card
+rows inside the full launch bit for bit, ``shoot_legs_fd`` against
+``shoot_legs`` on the trial rows bit for bit, a small solve on the card
 against the same solve on the CPU, and a solve split over two parts of the
 card from an empty build directory against the unsplit one.  The kernels contract multiplies and
 adds into FMAs and the CR3BP arcs amplify a rounding by their sensitivity,
@@ -61,16 +64,26 @@ def test_wrappers_check_their_inputs():
         shoot_ops.shoot_jvp(theta, tgt, *d64, sp, 1.0, 20, 5.0, 11.0)
     with pytest.raises(ValueError, match="n_segments"):
         shoot_ops.shoot_legs(theta, tgt, sp, 1.0, 21)
+    with pytest.raises(ValueError, match="dtype"):
+        shoot_ops.shoot_legs_fd(theta.float(), theta.float(), tgt.float(),
+                                tgt[:, None].repeat(1, 2, 1).float(), sp.float(), 1.0, 20)
+    with pytest.raises(ValueError, match="shape"):
+        shoot_ops.shoot_legs_fd(theta, theta, tgt, tgt, sp, 1.0, 20)
 
 
 def test_cpu_tensors_take_the_plain_version_uncounted():
     theta, d64, d32, sp = lanes(2, 1, "cpu")
-    before = [f.launches for f in (shoot_ops.shoot_legs, shoot_ops.manifold_target)]
+    counted = (shoot_ops.shoot_legs, shoot_ops.manifold_target, shoot_ops.shoot_legs_fd)
+    before = [f.launches for f in counted]
     tgt = shoot_ops.manifold_target(*d64, theta[:, 64].contiguous(), theta[:, 65].contiguous())
     r, finite = shoot_ops.shoot_legs(theta, tgt, sp, 1.0, 20)
     r_ref, f_ref = sg._residual_with_target(theta, tgt, sp, 1.0, 20)
     assert torch.equal(r, r_ref) and torch.equal(finite, f_ref)
-    assert [f.launches for f in (shoot_ops.shoot_legs, shoot_ops.manifold_target)] == before
+    h = theta.abs() + 1.0
+    rows = shoot_ops.shoot_legs_fd(theta, h, tgt, tgt[:, None].repeat(1, 2, 1), sp, 1.0, 20)
+    assert torch.equal(rows, shoot_ops.shoot_legs_fd_reference(
+        theta, h, tgt, tgt[:, None].repeat(1, 2, 1), sp, 1.0, 20))
+    assert [f.launches for f in counted] == before
 
 
 def test_operation_counts():
@@ -84,6 +97,9 @@ def test_operation_counts():
         256 * shoot_ops.rk4_ops(shoot_ops.OPS_ODE12, 12) + ball)
     legs = 64 * 192 + 192 + 192  # each of 64 columns one leg, t_shoot the other too
     assert shoot_ops.shoot_jvp_ops(1) > shoot_ops.DUAL_OPS * legs * step
+    # the float64 Jacobian's rows: the base point's 2 legs and the 67 its
+    # 66 columns move (t_shoot both, 64 and 65 the backward one)
+    assert shoot_ops.shoot_legs_fd_ops(10) == 10 * 69 * 192 * step
 
 
 SOURCE = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
@@ -91,34 +107,38 @@ SOURCE = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))
 
 
 def test_chain_lanes_match_the_source():
-    """The mirror's lanes a row and block size are the source's constants
-    (float64 runs a thread a row)."""
+    """The mirror's lanes a row (in both types) and block sizes are the
+    source's constants (``fd_layout`` pads shoot_legs_fd's legs to whole
+    blocks of kFdThreads)."""
     with open(SOURCE) as f:
         src = f.read()
-    consts = dict(re.findall(r"constexpr int (kChainLanes|kThreads) = (\d+);", src))
+    consts = dict(re.findall(r"constexpr int (kChainLanes64|kChainLanes|kThreads|kFdThreads) "
+                             r"= (\d+)", src))
     assert int(consts["kChainLanes"]) == shoot_ops.LANES[torch.float32]
-    assert shoot_ops.LANES[torch.float64] == 1
-    assert int(consts["kThreads"]) == shoot_ops.THREADS
+    assert int(consts["kChainLanes64"]) == shoot_ops.LANES[torch.float64]
+    assert int(consts["kThreads"]) == int(consts["kFdThreads"]) == shoot_ops.THREADS
 
 
 @pytest.mark.parametrize("M", [1, 2, 3, 4, 5, 7, 8, 15, 16, 17, 37, 100, 511, 1024, 1025,
                                8192, 10240])
 def test_target_layout_stores_each_row_component_once(M):
-    """manifold_target's float32 grid at ragged row counts: each (row,
-    component) is stored by exactly one thread, and a warp either runs whole
-    or returns whole (the chain's shuffles take the whole warp)."""
-    G = shoot_ops.LANES[torch.float32]
-    lay = shoot_ops.target_layout(M)
-    assert len(lay["row"]) % shoot_ops.THREADS == 0
-    written = np.zeros((M, 6), dtype=int)
-    t = np.flatnonzero(lay["store"] & (lay["lane"] < 6))
-    np.add.at(written, (lay["row"][t], lay["lane"][t]), 1)
-    assert (written == 1).all()
-    live = (lay["row"] >= 0).reshape(-1, 32)
-    assert (live.all(axis=1) | ~live.any(axis=1)).all()
-    # a group's lanes are contiguous and share their row
-    rows = lay["row"].reshape(-1, G)
-    assert (rows == rows[:, :1]).all()
+    """manifold_target's grid at ragged row counts, in float32 and float64:
+    each (row, component) is stored by exactly one thread, and a warp either
+    runs whole or returns whole (the chain's shuffles take the whole warp)."""
+    for dtype in (torch.float32, torch.float64):
+        G = shoot_ops.LANES[dtype]
+        lay = shoot_ops.target_layout(M, dtype)
+        assert len(lay["row"]) % shoot_ops.THREADS == 0
+        written = np.zeros((M, 6), dtype=int)
+        for c in range(0, 6, G):
+            t = np.flatnonzero(lay["store"] & (lay["lane"] + c < 6))
+            np.add.at(written, (lay["row"][t], lay["lane"][t] + c), 1)
+        assert (written == 1).all()
+        live = (lay["row"] >= 0).reshape(-1, 32)
+        assert (live.all(axis=1) | ~live.any(axis=1)).all()
+        # a group's lanes are contiguous and share their row
+        rows = lay["row"].reshape(-1, G)
+        assert (rows == rows[:, :1]).all()
 
 
 @pytest.mark.parametrize("L", [1, 2, 3, 4, 5, 7, 8, 15, 16, 17, 33, 100, 257, 1000, 1023, 1024])
@@ -140,6 +160,55 @@ def test_jvp_layout_covers_each_lane_column_once(L):
     warps = col[: targets.max() + 1].reshape(-1, 32)
     assert (warps == warps[:, :1]).all()
     assert (lay["stride"][legs] == 1).all() and (lay["j"][legs] == 0).all()
+
+
+@pytest.mark.parametrize("n_segments", range(1, 21))
+def test_fd_layout_covers_each_moved_leg_once(n_segments):
+    """shoot_legs_fd's grid of legs at ragged lane counts: each leg a column
+    moves and the base point's two legs are run by exactly one thread a
+    lane, no other thread runs, and each column's residual takes its own
+    leg where it moves it and the base point's where it does not."""
+    jobs = shoot_ops.fd_jobs(n_segments)
+    assert len(jobs) == 9 + 3 * n_segments
+    for L in (1, 3, 33, 1024):
+        lay = shoot_ops.fd_layout(L, n_segments)
+        assert len(lay["job"]) % shoot_ops.THREADS == 0
+        live = lay["job"] >= 0
+        assert live.sum() == len(jobs) * L
+        ran = {}
+        for lane, col, leg in zip(lay["lane"][live], lay["col"][live], lay["leg"][live]):
+            ran[lane, col, leg] = ran.get((lane, col, leg), 0) + 1
+        want = {(lane, c, g): 1 for lane in range(L) for c in range(-1, 66) for g in (0, 1)
+                if c < 0 or shoot_ops.moves(c, g, n_segments)}
+        assert ran == want
+    for c in range(66):
+        for g in (0, 1):
+            own = shoot_ops.moves(c, g, n_segments)
+            assert jobs[shoot_ops.fd_job_of(c, g, n_segments)] == ((c, g) if own else (-1, g))
+
+
+@pytest.mark.parametrize("n_segments", [20, 7])
+def test_shoot_legs_fd_plain_matches_the_trial_rows(n_segments):
+    """The plain shoot_legs_fd (each moved leg once, the base point's legs
+    for the rest) against shoot_legs' plain version on the 66 trial rows a
+    lane, theta + diag(h), that the solver formed before it, at 3 seeded
+    lanes with signed zeros among the variables: within 1e-12 of max(1,
+    |r|) per row.  Not bit for bit: the two batch the legs otherwise, and
+    the CPU's vectorised sin and cos may round a batch's tail otherwise than
+    its body."""
+    theta, d64, _, sp = lanes(3, 8, "cpu")
+    theta[0, 1] = -0.0
+    theta[1, 2] = -0.0
+    h = sg._FD_STEP * (theta.abs() + 1.0)
+    tgt = shoot_ops.manifold_target(*d64, theta[:, 64].contiguous(), theta[:, 65].contiguous())
+    tgt_moved = tgt[:, None, :] + torch.tensor([1e-9, -2e-9], dtype=torch.float64)[None, :, None]
+    rows = shoot_ops.shoot_legs_fd(theta, h, tgt, tgt_moved, sp, 1.0, n_segments)
+    trial = (theta[:, None, :] + torch.diag_embed(h)).reshape(-1, 66)
+    tg = tgt[:, None, :].expand(3, 66, 6).clone()
+    tg[:, 64:] = tgt_moved
+    ref, _ = shoot_ops.shoot_legs_reference(trial, tg.reshape(-1, 6), sp, 1.0, n_segments)
+    assert rows.shape == (3, 66, 7)
+    assert rel_rows(rows.reshape(-1, 7), ref).max() < 1e-12
 
 
 # ---------------------------------------------------------------------------
@@ -250,10 +319,51 @@ def test_split_on_a_fresh_build_directory(cuda_device, tmp_path, monkeypatch):
 
 @pytest.mark.gpu
 def test_chain_layout_matches_the_built_library(cuda_device):
-    """The mirror's float32 lanes a row are the built library's."""
+    """The mirror's lanes a row in both types are the built library's."""
     from rdm_tpu_torch.ops import _build
     lib = _build.load_library("cr3bp_shoot")
     assert lib.rdm_shoot_chain_lanes() == shoot_ops.LANES[torch.float32]
+    assert lib.rdm_shoot_chain_lanes_f64() == shoot_ops.LANES[torch.float64]
+
+
+@pytest.fixture(scope="module")
+def fd_lanes():
+    """1024 seeded round-2 lanes of shoot_legs_fd's inputs as one float64
+    Jacobian gives them (steps 1e-6 (|theta| + 1), the moved targets of
+    columns 64 and 65) and the full launch's rows."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    theta, d64, _, sp = lanes(1024, 9, "cuda")
+    h = sg._FD_STEP * (theta.abs() + 1.0)
+    tgt = shoot_ops.manifold_target(*d64, theta[:, 64].contiguous(), theta[:, 65].contiguous())
+    moved = sg._target(sg._fd_tail(theta, h), [x.repeat_interleave(2, 0) for x in d64], 5.0,
+                       11.0).reshape(-1, 2, 6)
+    args = (theta, h, tgt, moved)
+    return args, sp, shoot_ops.shoot_legs_fd(*args, sp, 1.0, 20)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("L", [1, 33, 1024])
+def test_shoot_legs_fd_by_lanes(cuda_device, fd_lanes, L):
+    """At 1, 33 and 1024 lanes: the rows equal ``shoot_legs`` on the 66
+    trial rows a lane (theta + diag(h), columns 64-65 against their moved
+    targets) bit for bit, at 20 segments and at 7 (the unused columns take
+    both base legs); two runs bit for bit; the lanes launched alone (the
+    first L, and L from lane 500) equal the same lanes of the full launch."""
+    args, sp, full = fd_lanes
+    for k in (0, 500):
+        part = tuple(a[k:k + L].contiguous() for a in args)
+        rows = shoot_ops.shoot_legs_fd(*part, sp, 1.0, 20)
+        assert torch.equal(rows, shoot_ops.shoot_legs_fd(*part, sp, 1.0, 20))
+        assert torch.equal(rows, full[k:k + L])
+    theta, h, tgt, moved = (a[:L].contiguous() for a in args)
+    trial = (theta[:, None, :] + torch.diag_embed(h)).reshape(-1, 66)
+    tg = tgt[:, None, :].expand(L, 66, 6).clone()
+    tg[:, 64:] = moved
+    for n_segments in (20, 7):
+        r, _ = shoot_ops.shoot_legs(trial, tg.reshape(-1, 6), sp, 1.0, n_segments)
+        rows = shoot_ops.shoot_legs_fd(theta, h, tgt, moved, sp, 1.0, n_segments)
+        assert torch.equal(rows, r.reshape(L, 66, 7))
 
 
 TARGET_TOL = {torch.float64: {0.5: 1e-12, 0.99: 1e-8}, torch.float32: {0.5: 1e-4, 0.99: 3e-2}}
