@@ -87,9 +87,12 @@ Phases, each printing one JSON line with its elapsed seconds:
               times (the L2 flushed) beside the operation-count bound; the
               manifold chain by width: manifold_target at 1 row (the
               chain's own time), 1024 and the full count, shoot_jvp at 1
-              and 33 lanes, shoot_legs at 1 row, a slice launched alone
-              bit-equal to the same rows of the full launch, the lanes a row
-              in both types and the registers
+              and 33 lanes (and at 1 lane with its target columns' or its
+              leg jobs' threads knocked out, builds of
+              benchmark/knockouts.py made beside phase 2's), shoot_legs at
+              1 row, a slice launched alone bit-equal to the same rows of
+              the full launch, the lanes a row in both types and the
+              registers
 15. oracle_native  the port's native CR3BP oracle (its own C++ copy, built
               with g++ at first use) grades the 1024 in-tree round-2 physical
               samples (8 basin hops, optimal mode): feasible 1012 +- 3 and
@@ -299,6 +302,7 @@ from __future__ import annotations
 import ast
 import contextlib
 import copy
+import ctypes
 import hashlib
 import io
 import json
@@ -312,6 +316,7 @@ import subprocess
 import sys
 import tempfile
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
@@ -324,6 +329,7 @@ from rdm_tpu_torch.benchmark import GTOHaloBenchmarker, GTOHaloBenchmarkConfig
 from rdm_tpu_torch.benchmark import common as bench_common
 from rdm_tpu_torch.benchmark import costs as cost_lib
 from rdm_tpu_torch.benchmark import dp_check
+from rdm_tpu_torch.benchmark import knockouts as knockouts_lib
 from rdm_tpu_torch.benchmark import profile_train_decomp as decomp_lib
 from rdm_tpu_torch.benchmark import shoot_chain as shoot_chain_lib
 from rdm_tpu_torch.benchmark import tiled_attn_parts
@@ -401,6 +407,10 @@ RESBLOCK_SHAPES = {(9, 64, 64): 2, (4, 64, 128): 1, (4, 128, 128): 1, (2, 128, 1
                    (2, 256, 128): 3, (4, 256, 128): 3, (9, 192, 64): 1, (9, 128, 64): 2}
 SOURCES = ("fused_attn_block", "fused_attn_block_bwd", "fused_resblock", "attention_core",
            "micro_cf", "cr3bp_shoot", "fused_attn_block_tiled", "fused_resblock_tiled")
+# shoot_jvp's knock-out builds (variant -> library path), whose 1-lane times
+# say which chain sets a narrow launch
+JVP_PART_VARIANTS = ("jvp_legs_only", "jvp_targets_only")
+JVP_PARTS = {}
 BF16_STEP = 2.0 ** -8
 PARAM_NAMES = ("gamma", "beta", "wq", "bq", "wk", "bk", "wv", "bv", "wp", "bp")
 # The flagship's logged losses at batch 4096 (Training Runs/2026.08.17_184657/
@@ -1264,6 +1274,16 @@ def chain_case(targets, jvp_args, jvp_tail, jvp_lanes, legs_one) -> dict:
               f"shoot_jvp: lanes {k}..{k + n} alone differ from the full launch")
         part = tuple(a[:n].contiguous() for a in jvp_args)
         out["shoot_jvp_ms"][f"{n} lanes"] = time_cold(lambda: shoot_ops.shoot_jvp(*part, *jvp_tail))
+    # one lane with either group's threads knocked out: the chain each sets
+    one = tuple(a[:1].contiguous() for a in jvp_args)
+    out["shoot_jvp_parts_ms"] = {}
+    for name, path in JVP_PARTS.items():
+        lib = ctypes.CDLL(path)
+        lib.rdm_cuda_error_string.argtypes = [ctypes.c_int]
+        lib.rdm_cuda_error_string.restype = ctypes.c_char_p
+        with knockouts_lib.bound_to(lib):
+            out["shoot_jvp_parts_ms"][f"{name[4:]} 1 lane"] = time_cold(
+                lambda: shoot_ops.shoot_jvp(*one, *jvp_tail))
     with open(_build.library_path("cr3bp_shoot")[:-3] + ".log") as f:
         out["registers"] = shoot_chain_lib.registers(f.read())
     return out
@@ -3199,7 +3219,13 @@ def main() -> int:
          nvidia_smi=smi, package=rdm_tpu_torch.__name__)
 
     t0 = time.perf_counter()
-    libs = _build.build(*SOURCES)
+    # shoot_jvp with its target columns' or its leg columns' threads
+    # returning at once (benchmark/knockouts.py), built beside the sources
+    with ThreadPoolExecutor(1) as pool:
+        parts = pool.submit(knockouts_lib.build_variants, JVP_PART_VARIANTS,
+                            out=os.path.join(_build.BUILD_DIR, "smoke_jvp_parts"))
+        libs = _build.build(*SOURCES)
+        JVP_PARTS.update(parts.result())
     ptxas = {}
     for name, lib in zip(SOURCES, libs):
         with open(lib[:-3] + ".log") as f:
@@ -3747,6 +3773,11 @@ def main() -> int:
         if name == "shoot_jvp":
             entry["lanes_a_row"] = chain["lanes_a_row"]["float32"]
             entry["ms_by_lanes"] = dict(chain["shoot_jvp_ms"], **{f"{c['rows']} lanes": c["ms"]})
+            entry["parts_ms"] = chain["shoot_jvp_parts_ms"]
+            entry["parts_note"] = ("1 lane, the target columns' threads (legs_only) or the "
+                                   "leg jobs' (targets_only) returning at once: "
+                                   "benchmark/knockouts.py's jvp variants")
+            entry["design_gflop"] = shoot_ops.shoot_jvp_design_ops(c["rows"]) / 1e9
         kernels.append(entry)
     print(json.dumps({"phase": "total", "seconds": round(time.perf_counter() - T_START, 3)}),
           flush=True)

@@ -51,9 +51,9 @@ Variants:
   ``csrc/cr3bp_shoot.cu`` in both types at 1, 1024 and a grading's largest
   row count, round-2 rows): ``whole``; ``halo_only`` (the back-integration
   cut to no steps); ``back_only`` (the halo phase cut to no steps);
-* its float32 Jacobian (``shoot_jvp`` at L 1024, round-2 lanes): ``whole``;
-  ``legs_only`` (the target columns 64 and 65 return at once);
-  ``targets_only`` (the 64 leg columns return at once);
+* its float32 Jacobian (``shoot_jvp`` at L 1, 33, 256, 512 and 1024, round-2
+  lanes): ``whole``; ``legs_only`` (the target columns' threads return at
+  once); ``targets_only`` (the leg columns' threads return at once);
 * the shooting legs (``shoot_legs`` in float64 at 1 row and 1,024 x 8
   rows, a ladder's residual; the float64 Jacobian's 66 rows a lane at 1
   and 1,024 lanes, through ``shoot_legs_fd`` or, for a library without
@@ -164,9 +164,12 @@ EDITS.update({
                        ""),
 })
 # the shooting Jacobian's column groups: each edit returns at the top of the
-# other group's branch (the anchors are in the parent's source too)
+# other group's branch; the legs' anchor names the text of the thread a
+# column (a parent's source) and of the thread a leg job, and applies to the
+# one the copy holds
 JVP_TARGETS = "    // the target's columns: the phase (64) and the arc length (65)\n"
-JVP_LEGS = "    // the legs against the fixed target, one variable seeded\n"
+JVP_LEGS = ("    // the legs against the fixed target, one variable seeded\n",
+            "    // the legs against the fixed target, a column a thread\n")
 # the manifold target's two phases: the back-integration or the halo phase
 # cut to no steps
 EDITS.update({
@@ -177,7 +180,8 @@ EDITS.update({
                          "constexpr int kHaloSteps = 0;"),
     "jvp_whole": ("cr3bp_shoot.cu", None, None),
     "jvp_legs_only": ("cr3bp_shoot.cu", JVP_TARGETS, JVP_TARGETS + "    if (L > 0) return;\n"),
-    "jvp_targets_only": ("cr3bp_shoot.cu", JVP_LEGS, JVP_LEGS + "    if (L > 0) return;\n"),
+    "jvp_targets_only": ("cr3bp_shoot.cu", JVP_LEGS,
+                         tuple(a + "    if (L > 0) return;\n" for a in JVP_LEGS)),
 })
 # the shooting legs with one leg cut to no steps: each edit names the text
 # of the two-leg thread (a parent's source) and of the thread a leg, and
@@ -326,16 +330,42 @@ def bound_to(lib):
             getattr(lib, fname).restype = res
         return lib
 
-    real_fd = shoot_ops.shoot_legs_fd
+    real_fd, real_jvp = shoot_ops.shoot_legs_fd, shoot_ops.shoot_jvp
     _build.library = library
     if not hasattr(lib, "rdm_shoot_legs_fd_f64"):
         # a parent from before the finite-difference entry: its own route
         shoot_ops.shoot_legs_fd = fd_rows_by_trials
+    if not hasattr(lib, "rdm_shoot_jvp_scratch"):
+        # a parent from before the Jacobian's scratch: its one launch
+        shoot_ops.shoot_jvp = jvp_one_launch
     try:
         yield
     finally:
         _build.library = real
-        shoot_ops.shoot_legs_fd = real_fd
+        shoot_ops.shoot_legs_fd, shoot_ops.shoot_jvp = real_fd, real_jvp
+
+
+# the package's wrapper, whose count a parent's route adds to
+SHOOT_JVP = shoot_ops.shoot_jvp
+
+
+def jvp_one_launch(theta, tgt, state0, period, vstable, spiral_end, thrust, n_segments,
+                   min_mani, max_mani):
+    """The float32 Jacobian [L, 7, 66] through a library from before
+    ``shoot_jvp``'s scratch (one launch, a thread per lane and leg column),
+    counted as the package's wrapper counts."""
+    L = theta.shape[0]
+    J = torch.empty((L, shoot_ops.NRES, shoot_ops.NVAR), dtype=theta.dtype, device=theta.device)
+    if L:
+        ins = [theta, tgt, state0, period, vstable, spiral_end]
+        P, I, D = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
+        shoot_ops._launch("rdm_shoot_jvp_f32", [P] * 6 + [D, I] + [D] * 6 + [P, I, P],
+                          [t.data_ptr() for t in ins] + [float(thrust), int(n_segments),
+                                                         float(min_mani), float(max_mani),
+                                                         *shoot_ops.consts(), J.data_ptr(), L],
+                          theta.device)
+        shoot_ops._count(SHOOT_JVP)
+    return J
 
 
 def fd_rows_by_trials(theta, h, tgt, tgt_moved, spiral_end, thrust, n_segments):
@@ -441,7 +471,9 @@ def bwd_times(libs, device) -> dict:
 # manifold_target's row counts: 1 (the chain's own time), 1024, and the
 # largest launch of a grading in each type
 TARGET_ROWS = {torch.float64: (1, 1024, 10240), torch.float32: (1, 1024, 8192)}
-JVP_L = 1024
+# shoot_jvp's lane counts: 1 (its chains' own time), a ragged 33, 256 and
+# 512 (either side of the width where its threads outgrow one wave), 1024
+JVP_LANES = (1, 33, 256, 512, 1024)
 
 
 def target_key(dtype, rows: int) -> str:
@@ -495,17 +527,26 @@ def jvp_args(L: int, device):
     return (th, tgt, *d32, sp.float(), 1.0, 20, 5.0, 11.0)
 
 
-def jvp_times(libs, args, label: str = "") -> dict:
-    """Cold ms (mean of five) of each shoot_jvp variant of ``libs`` on
-    ``args`` (``jvp_args``), taken as ``target_times`` takes them."""
+def jvp_part(args, L: int) -> tuple:
+    """``jvp_args``' arguments at their first L lanes (the first five are
+    per lane)."""
+    return tuple(a[:L].contiguous() for a in args[:5]) + tuple(args[5:])
+
+
+def jvp_times(libs, args, lanes=JVP_LANES, label: str = "") -> dict:
+    """Cold ms (mean of five) of each shoot_jvp variant of ``libs`` on the
+    first L lanes of ``args`` (``jvp_args``) for each L of ``lanes``, taken
+    as ``target_times`` takes them."""
     times = {}
     for name in ("jvp_whole", "jvp_legs_only", "jvp_targets_only"):
         if name not in libs:
             continue
-        with bound_to(libs[name]):
-            times[name] = float(np.mean(cold_ms(lambda: shoot_ops.shoot_jvp(*args))))
-        print(f"shoot_jvp L {len(args[0])} {label}{name[4:]:<13s}: cold {times[name]:.4f} ms",
-              flush=True)
+        for L in lanes:
+            a = jvp_part(args, L)
+            with bound_to(libs[name]):
+                t = float(np.mean(cold_ms(lambda: shoot_ops.shoot_jvp(*a))))
+            times[f"{name} L {L}"] = t
+            print(f"shoot_jvp L {L:<5d} {label}{name[4:]:<13s}: cold {t:.4f} ms", flush=True)
     return times
 
 
@@ -640,7 +681,7 @@ def main(argv=None) -> dict:
     if have("target"):
         ms["manifold_target"] = target_times(libs, target_cases(device))
     if have("jvp"):
-        ms["shoot_jvp"] = jvp_times(libs, jvp_args(JVP_L, device))
+        ms["shoot_jvp"] = jvp_times(libs, jvp_args(JVP_LANES[-1], device))
     if "legs_no_fwd" in libs:
         with bound_to(libs["legs_no_fwd"]):
             legs = legs_cases(device)

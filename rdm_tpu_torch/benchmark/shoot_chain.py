@@ -9,7 +9,8 @@ It needs the card and ``nvcc``.  The variants are ``knockouts.py``'s
 ``target_*`` (``manifold_target`` whole, halo phase only, back-integration
 only, at 1, 1024 and a grading's largest row count in each type: the 1-row
 time is the chain's, the floor of a design that gives a row one thread),
-``jvp_*`` (``shoot_jvp`` at L 1024 whole and by column group) and
+``jvp_*`` (``shoot_jvp`` at L 1, 33, 256, 512 and 1024, whole and by
+column group: the leg columns' threads or the target columns' alone) and
 ``legs_*`` (``shoot_legs`` at 1 row and 1,024 x 8 rows in float64 and
 8,192 in float32, and the float64 Jacobian's 66 residual rows a lane at 1
 and 1,024 lanes, whole and with the forward or the backward leg
@@ -23,9 +24,13 @@ started together, into ``rdm_tpu_torch/_build/shoot_chain/<copy>/``; the
 package's wrappers call each build through ``knockouts.bound_to``.  With
 ``--parent`` the copies run in turns, parent, change, change, parent, and
 the change's ``manifold_target`` at each type's largest row count,
-``shoot_legs`` at 8,192 rows in each type and the Jacobian's rows at 1,024
-lanes are compared with the parent's bit for bit (``same_bits_as_parent``).  Registers and spills come from
-ptxas' report (``-Xptxas -v``).  ``--agreement`` holds each copy's float64
+``shoot_legs`` at 8,192 rows in each type, the Jacobian's rows at 1,024
+lanes and ``shoot_jvp`` at each of those lane counts (its columns 0-63 and
+64-65 apart) are compared with the parent's bit for bit
+(``same_bits_as_parent``; where they differ, how many entries, the largest
+difference over the lane's largest entry, and the indices along the last
+dimension that differ: for ``shoot_jvp`` the columns within the slice).
+Registers and spills come from ptxas' report (``-Xptxas -v``).  ``--agreement`` holds each copy's float64
 verdicts to the native oracle's lane by lane, as ``chip_smoke.py`` does
 (at least 0.98), on the 1024 round-2 samples and phase ``datagen``'s first
 256 uniform guesses.  The gradings' wall and device time by kernel for the
@@ -59,7 +64,7 @@ KERNELS = {"shoot_legs_kernelId": "shoot_legs<double>", "shoot_legs_kernelIf": "
            "fd_legs_kernel": "shoot_legs_fd (legs)", "fd_rows_kernel": "shoot_legs_fd (rows)",
            "manifold_target_kernelId": "manifold_target<double>",
            "manifold_target_kernelIf": "manifold_target<float>",
-           "shoot_jvp_kernel": "shoot_jvp_f32"}
+           "shoot_jvp_kernel": "shoot_jvp_f32", "shoot_jvp_combine_kernel": "shoot_jvp_f32 (combine)"}
 
 
 def registers(log: str) -> dict:
@@ -80,6 +85,13 @@ def registers(log: str) -> dict:
                          "spill_stores": frame[1]}
             name = None
     return out
+
+
+def same_bits(a, b) -> bool:
+    """Whether a and b hold the same bits (a NaN equals a NaN of the same
+    bits, -0.0 differs from 0.0)."""
+    ints = {torch.float64: torch.int64, torch.float32: torch.int32}[a.dtype]
+    return a.shape == b.shape and torch.equal(a.contiguous().view(ints), b.contiguous().view(ints))
 
 
 def uniform_guesses(n: int):
@@ -149,14 +161,14 @@ def main(argv=None) -> dict:
     print(json.dumps({"registers": out["registers"]}), flush=True)
 
     cases = knockouts.target_cases(device)
-    jvp = knockouts.jvp_args(knockouts.JVP_L, device)
+    jvp = knockouts.jvp_args(knockouts.JVP_LANES[-1], device)
     first = "parent" if args.parent else "change"
     with knockouts.bound_to(libs[first]["target_whole"]):
         legs = knockouts.legs_cases(device)
     turns = ["parent", "change", "change", "parent"] if args.parent else ["change"]
     for c in turns:
         times = dict(knockouts.target_times(libs[c], cases, f"{c} "),
-                     **knockouts.jvp_times(libs[c], jvp, f"{c} "),
+                     **knockouts.jvp_times(libs[c], jvp, label=f"{c} "),
                      **knockouts.legs_times(libs[c], legs, f"{c} "))
         for k, t in times.items():
             out["ms"].setdefault(k, {}).setdefault(c, []).append(t)
@@ -168,13 +180,32 @@ def main(argv=None) -> dict:
                      if k.startswith("legs") and not k.endswith(" 1 rows")]
         compared += [(k, a, lambda *a: shoot_ops.shoot_legs_fd(*a)) for k, a in legs.items()
                      if k == f"fd {knockouts.FD_LANES[-1]} lanes"]
+        for L in knockouts.JVP_LANES:
+            a = knockouts.jvp_part(jvp, L)
+            compared += [(f"jvp L {L} columns {lo}-{hi - 1}",
+                          a, lambda *a, lo=lo, hi=hi: shoot_ops.shoot_jvp(*a)[..., lo:hi])
+                         for lo, hi in ((0, 64), (64, 66))]
         out["same_bits_as_parent"] = {}
         for key, a, fn in compared:
             got = []
             for c in ("parent", "change"):
                 with knockouts.bound_to(libs[c]["target_whole"]):
                     got.append(fn(*a))
-            out["same_bits_as_parent"][key] = bool(torch.equal(*got))
+            out["same_bits_as_parent"][key] = same_bits(*got)
+            if not out["same_bits_as_parent"][key]:
+                # where they differ: the entries, and the largest difference
+                # against the entry's lane's largest parent entry
+                x, y = got[1].double(), got[0].double()
+                ne = (x != y) & ~(torch.isnan(x) & torch.isnan(y))
+                scale = y.abs().flatten(1).amax(1).clamp(min=1e-30).reshape(-1, *[1] * (y.dim() - 1))
+                d = ((x - y).abs() / scale)[ne]
+                out.setdefault("differ", {})[key] = {
+                    "entries": int(ne.sum()), "of": int(ne.numel()),
+                    "max_rel": float(d.max()) if d.numel() else 0.0,
+                    "last_index": torch.nonzero(ne.reshape(-1, ne.shape[-1]).any(0))
+                    .flatten().tolist()}
+        if "differ" in out:
+            print(json.dumps({"differ": out["differ"]}), flush=True)
         print(json.dumps({"same_bits_as_parent": out["same_bits_as_parent"]}), flush=True)
     if args.agreement:
         out["agreement"] = agreement({c: libs[c]["target_whole"] for c in sources})

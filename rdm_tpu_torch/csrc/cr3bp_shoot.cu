@@ -35,8 +35,12 @@
 //   Dual<Dual<float>>, the length column 65 the back-integration's step.
 //   Its two target columns come first in the grid, a group of kChainLanes
 //   lanes a lane on the same chain code, so that their chains start in the
-//   first wave and run under the 64 leg columns, which follow one thread per
-//   (lane, column), column by column.
+//   first wave; they stop at the target's tangent dT.  The leg jobs follow:
+//   a job per (lane, leg, column) runs its leg once, 192 steps (t_shoot's
+//   column moves both legs: a job each).  Six backward jobs seed the leg's
+//   start state: its sensitivity Phi to the target, so columns 64-65 are
+//   -Phi dT, formed with column 0 (its forward tangent minus its backward
+//   one) by a second, small launch.
 //
 // What limits them.  Each kernel is a chain of dependent RK4 steps whose
 // stages wait on square roots and divisions, and the widest launches also
@@ -841,82 +845,116 @@ manifold_target_kernel(const T* __restrict__ state0, const T* __restrict__ perio
 
 // --- float32 Jacobian ------------------------------------------------------------
 
+// The leg columns: a job per (lane, leg, column) integrates its leg once
+// on Dual<float>, the column's tangent seeded where it enters.  The jobs,
+// in the grid's order (mirrored by ops/cr3bp.py: jvp_jobs): on the forward
+// leg t_shoot, t_c1 and each forward segment's controls (a, b, throttle);
+// on the backward leg t_shoot, t_c2, the mass, each backward segment's
+// controls, and the six components of its start state (the target), whose
+// tangents give the leg's sensitivity Phi [7 x 6] to its target.  A job
+// carrying 2 or 3 tangents on one real trajectory, and a job on a pair of
+// lanes that split the field by primary, were measured and lost (PERF.md).
+// kSeedState + i: the code of a job seeded on the start state component i.
+constexpr int kSeedState = 100;
+
+// The per-lane scratch between shoot_jvp's two launches (floats): t_shoot's
+// forward and backward tangents, Phi, and the target's tangents dT/dtheta
+// for the phase (64) and the arc length (65) from the chain.
+constexpr int kScrF0 = 0, kScrB0 = 7, kScrPhi = 14, kScrDT = 14 + 7 * 6;
+constexpr int kJvpScratch = kScrDT + 2 * 6;
+
+// Leg jobs a lane: 2 + 3 n_fwd forward, 9 + 3 (n_segments - n_fwd) backward.
+__host__ __device__ inline int jvp_leg_jobs(int n_segments) { return 11 + 3 * n_segments; }
+
+// Job q's column, and whether it runs the forward leg.
+__device__ __forceinline__ bool jvp_job(int q, int n_segments, int& col) {
+  const int n_fwd = (n_segments + 1) / 2, n_f = 2 + 3 * n_fwd;
+  if (q < n_f) {
+    col = q < 2 ? q : q + 1;                                 // t_shoot, t_c1, segments
+    return true;
+  }
+  const int r = q - n_f, n_b = 3 + 3 * (n_segments - n_fwd);
+  if (r < 3)
+    col = r == 0 ? 0 : (r == 1 ? 2 : 63);                    // t_shoot, t_c2, mass
+  else if (r < n_b)
+    col = r + 3 * n_fwd;                                     // backward segments
+  else
+    col = kSeedState + (r - n_b);                            // the start state
+  return false;
+}
+
+// A job's leg: forward from the spiral end or backward from the lane's
+// target, as leg() runs it, the tangent seeded where its column enters
+// (t_shoot and the coast times at the start, a segment's controls at that
+// segment, the mass and the start state at the start).  Both directions run
+// the same instructions on selected operands, so that a warp of mixed jobs
+// does not diverge.
+__device__ __forceinline__ void jvp_leg(bool fwd, int col, const float* th, const float* spiral,
+                                        const float* tgt, double thrust, int n_segments,
+                                        const Consts& c, Dual<float> (&s)[7]) {
+  using D = Dual<float>;
+  auto var = [&](float v, int k, float dv) { return D{v, col == k ? dv : 0.f}; };
+  const int n_fwd = (n_segments + 1) / 2;
+  const D t_shoot = var(max_(th[0], 1e-3f), 0, max_d(th[0], 1e-3f));
+  const D dt_seg = (t_shoot / float(n_segments)) / float(kSegSteps);
+  for (int i = 0; i < 6; ++i) s[i] = var(fwd ? spiral[i] : tgt[i], kSeedState + i, 1.f);
+  const D mass = var(clip_(th[63], 301.f, 752.f), 63, clip_d(th[63], 301.f, 752.f));
+  s[6] = fwd ? D{spiral[6], 0.f} : mass;
+  const D t_c1 = var(max_(th[1], 0.f), 1, max_d(th[1], 0.f));
+  const D t_c2 = var(max_(th[2], 0.f), 2, max_d(th[2], 0.f));
+  const D tc = fwd ? t_c1 : -t_c2;
+  const int k0 = fwd ? 0 : n_segments - 1, step = fwd ? 1 : -1;
+  const int n = fwd ? n_fwd : n_segments - n_fwd;
+  const D dt = fwd ? dt_seg : -dt_seg;
+  auto seg = [&](int k, D (&u)[3], D& thr) {
+    const D a = var(th[3 + 3 * k], 3 + 3 * k, 1.f);
+    const D b = var(th[4 + 3 * k], 4 + 3 * k, 1.f);
+    const float r = th[5 + 3 * k];
+    thr = var(clip_(r, 0.f, 1.f), 5 + 3 * k, clip_d(r, 0.f, 1.f));
+    u[0] = cos_(b) * cos_(a);
+    u[1] = cos_(b) * sin_(a);
+    u[2] = sin_(b);
+  };
+  coast(s, tc / float(kCoastSteps), thrust, c);
+  segments(s, k0, step, n, dt, thrust, c, seg);
+}
+
 // Threads of each target column: L groups of kChainLanes, whole warps.
 __host__ __device__ inline long long jvp_target_threads(int L) {
   return (static_cast<long long>(L) * kChainLanes + 31) / 32 * 32;
 }
 
+// Threads of shoot_jvp_kernel's grid at L lanes.
+__host__ __device__ inline long long jvp_threads(int L, int n_segments) {
+  return 2 * jvp_target_threads(L) + static_cast<long long>(jvp_leg_jobs(n_segments)) * L;
+}
+
 // The target columns come first, so that their chains start in the first
 // wave: threads [0, R) run column 64 and [R, 2R) column 65, a lane a group
-// of kChainLanes as in manifold_target (the groups past L masked); then one
-// thread per (column < 64, lane), column by column.  Mirrored by
-// ops/cr3bp.py: jvp_layout.
+// of kChainLanes as in manifold_target (the groups past L masked), each to
+// the target's tangent dT; then the leg jobs, job by job, L threads each.
+// A leg job stores its column's entries of J (a backward column as 0 - its
+// tangent: the residual is the forward leg's end less the backward one's),
+// or t_shoot's tangents or a column of Phi into the scratch; shoot_jvp_combine_kernel forms the rest.  Mirrored
+// by ops/cr3bp.py: jvp_layout.
 __global__ void __launch_bounds__(kThreads)
 shoot_jvp_kernel(const float* __restrict__ theta, const float* __restrict__ tgt,
                  const float* __restrict__ state0, const float* __restrict__ period,
                  const float* __restrict__ vstable, const float* __restrict__ spiral,
                  double thrust, int n_segments, float min_mani, float max_mani, Consts c,
-                 float* __restrict__ J, int L) {
+                 float* __restrict__ J, float* __restrict__ scratch, int L) {
   using D = Dual<float>;
   constexpr int G = kChainLanes;
   const long long t = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
   const long long per_col = jvp_target_threads(L);
-  if (t >= 2 * per_col + static_cast<long long>(64) * L) return;
-  int col, lane, j = 0, stride = 1;
-  bool store = true;
+  if (t >= jvp_threads(L, n_segments)) return;
   if (t < 2 * per_col) {
-    col = 64 + static_cast<int>(t / per_col);
-    const long long u = t % per_col;
-    const int grp = static_cast<int>(u / G);
-    j = static_cast<int>(u % G);
-    stride = G;
-    store = grp < L;
-    lane = store ? grp : L - 1;
-  } else {
-    col = static_cast<int>((t - 2 * per_col) / L);
-    lane = static_cast<int>((t - 2 * per_col) % L);
-  }
-  const float* th = theta + static_cast<size_t>(lane) * kNvar;
-  const int n_fwd = (n_segments + 1) / 2;
-  const float seg_dt0 = max_(th[0], 1e-3f);
-  float out[kNres];
-
-  if (col < 64) {
-    // the legs against the fixed target, one variable seeded
-    const bool fwd = col <= 1 || (col >= 3 && col < 3 + 3 * n_fwd);
-    const bool bwd = col == 0 || col == 2 || col == 63 ||
-                     (col >= 3 + 3 * n_fwd && col < 3 + 3 * n_segments);
-    const D t_shoot = {seg_dt0, col == 0 ? max_d(th[0], 1e-3f) : 0.f};
-    const D dt_seg = (t_shoot / float(n_segments)) / float(kSegSteps);
-    auto seg = [&](int k, D (&u)[3], D& thr) {
-      const D a = {th[3 + 3 * k], col == 3 + 3 * k ? 1.f : 0.f};
-      const D b = {th[4 + 3 * k], col == 4 + 3 * k ? 1.f : 0.f};
-      const float r = th[5 + 3 * k];
-      thr = {clip_(r, 0.f, 1.f), col == 5 + 3 * k ? clip_d(r, 0.f, 1.f) : 0.f};
-      u[0] = cos_(b) * cos_(a);
-      u[1] = cos_(b) * sin_(a);
-      u[2] = sin_(b);
-    };
-    for (int i = 0; i < kNres; ++i) out[i] = 0.f;
-    if (fwd) {
-      D s[7];
-      for (int i = 0; i < 7; ++i) s[i] = {spiral[i], 0.f};
-      const D t_c1 = {max_(th[1], 0.f), col == 1 ? max_d(th[1], 0.f) : 0.f};
-      coast(s, t_c1 / float(kCoastSteps), thrust, c);
-      segments(s, 0, 1, n_fwd, dt_seg, thrust, c, seg);
-      for (int i = 0; i < kNres; ++i) out[i] = s[i].d;
-    }
-    if (bwd) {
-      D s[7];
-      for (int i = 0; i < 6; ++i) s[i] = {tgt[static_cast<size_t>(lane) * 6 + i], 0.f};
-      s[6] = {clip_(th[63], 301.f, 752.f), col == 63 ? clip_d(th[63], 301.f, 752.f) : 0.f};
-      const D t_c2 = {max_(th[2], 0.f), col == 2 ? max_d(th[2], 0.f) : 0.f};
-      coast(s, (-t_c2) / float(kCoastSteps), thrust, c);
-      segments(s, n_segments - 1, -1, n_segments - n_fwd, -dt_seg, thrust, c, seg);
-      for (int i = 0; i < kNres; ++i) out[i] = out[i] - s[i].d;
-    }
-  } else {
     // the target's columns: the phase (64) and the arc length (65)
+    const int col = 64 + static_cast<int>(t / per_col);
+    const long long u = t % per_col;
+    const int grp = static_cast<int>(u / G), j = static_cast<int>(u % G);
+    const int lane = grp < L ? grp : L - 1;
+    const float* th = theta + static_cast<size_t>(lane) * kNvar;
     const ChainJob jb = chain_job(j, c);
     const float* s0 = state0 + static_cast<size_t>(lane) * 6;
     const float* v0 = vstable + static_cast<size_t>(lane) * 6;
@@ -951,25 +989,58 @@ shoot_jvp_kernel(const float* __restrict__ theta, const float* __restrict__ tgt,
       dt_b.d = (-clip_d(th[65], min_mani, max_mani)) / float(kManifoldSteps);
     }
     back_integrate(seed, dt_b, jb);
-    // the backward leg from that target, the controls and times as they are
-    D s[7];
-    for (int i = 0; i < 6; ++i) s[i] = seed[i];
-    s[6] = {clip_(th[63], 301.f, 752.f), 0.f};
-    const float dt_seg = (seg_dt0 / float(n_segments)) / float(kSegSteps);
-    coast(s, D{(-max_(th[2], 0.f)) / float(kCoastSteps), 0.f}, thrust, c);
-    segments(s, n_segments - 1, -1, n_segments - n_fwd, D{-dt_seg, 0.f}, thrust, c,
-             [&](int k, D (&u)[3], D& thr) {
-               float uf[3], tf;
-               plain_segment(th, k, uf, tf);
-               for (int i = 0; i < 3; ++i) u[i] = {uf[i], 0.f};
-               thr = {tf, 0.f};
-             });
-    for (int i = 0; i < kNres; ++i) out[i] = -s[i].d;
+    if (grp < L && j < 6)
+      scratch[static_cast<size_t>(lane) * kJvpScratch + kScrDT + (col - 64) * 6 + j] = seed[j].d;
+    return;
   }
-  out[6] = out[6] / 100.f;
-  if (store)
-    for (int i = 0; i < kNres; ++i)
-      if (i % stride == j) J[(static_cast<size_t>(lane) * kNres + i) * kNvar + col] = out[i];
+  {
+    // the legs against the fixed target, a column a thread
+    const long long v = t - 2 * per_col;
+    const int q = static_cast<int>(v / L), lane = static_cast<int>(v % L);
+    int col;
+    const bool fwd = jvp_job(q, n_segments, col);
+    const float* th = theta + static_cast<size_t>(lane) * kNvar;
+    D s[7];
+    jvp_leg(fwd, col, th, spiral, tgt + static_cast<size_t>(lane) * 6, thrust, n_segments, c, s);
+    float* w = scratch + static_cast<size_t>(lane) * kJvpScratch;
+    float out[kNres];
+    for (int i = 0; i < kNres; ++i) out[i] = fwd ? s[i].d : 0.f - s[i].d;
+    out[6] = out[6] / 100.f;
+    for (int i = 0; i < kNres; ++i) {
+      if (col == 0)
+        w[(fwd ? kScrF0 : kScrB0) + i] = s[i].d;
+      else if (col >= kSeedState)
+        w[kScrPhi + i * 6 + (col - kSeedState)] = s[i].d;
+      else
+        J[(static_cast<size_t>(lane) * kNres + i) * kNvar + col] = out[i];
+    }
+  }
+}
+
+// A thread per (lane, row of J): column 0 from t_shoot's two legs (forward
+// minus backward), the target columns as
+// -Phi dT (the target's tangent carried through the backward leg: exact in
+// real arithmetic, as a tangent's transport is linear in its seed), and
+// zeros in the columns of segments past n_segments.
+__global__ void __launch_bounds__(kThreads)
+shoot_jvp_combine_kernel(const float* __restrict__ scratch, int n_segments,
+                         float* __restrict__ J, int L) {
+  const long long t = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (t >= static_cast<long long>(L) * kNres) return;
+  const int lane = static_cast<int>(t / kNres), i = static_cast<int>(t % kNres);
+  const float* w = scratch + static_cast<size_t>(lane) * kJvpScratch;
+  float* row = J + static_cast<size_t>(t) * kNvar;
+  float out = w[kScrF0 + i] - w[kScrB0 + i];
+  row[0] = i == 6 ? out / 100.f : out;
+  for (int cc = 0; cc < 2; ++cc) {
+    const float* dT = w + kScrDT + cc * 6;
+    const float* phi = w + kScrPhi + i * 6;
+    float acc = phi[0] * dT[0];
+    for (int k = 1; k < 6; ++k) acc = acc + phi[k] * dT[k];
+    out = -acc;
+    row[64 + cc] = i == 6 ? out / 100.f : out;
+  }
+  for (int col = 3 + 3 * n_segments; col < 63; ++col) row[col] = 0.f;
 }
 
 inline Consts consts(double mu, double a_coef, double mdot_div, double tu_s) {
@@ -1079,21 +1150,33 @@ int rdm_manifold_target_f32(const void* state0, const void* period, const void* 
 }
 
 // theta [L, 66], tgt [L, 6], state0 [L, 6], period [L], vstable [L, 6],
-// spiral [7], J [L, 7, 66]: contiguous float32.
+// spiral [7], J [L, 7, 66], scratch [L, rdm_shoot_jvp_scratch()] between the
+// two launches: contiguous float32.
 int rdm_shoot_jvp_f32(const void* theta, const void* tgt, const void* state0, const void* period,
                       const void* vstable, const void* spiral, double thrust, int n_segments,
                       double min_mani, double max_mani, double mu, double a_coef,
-                      double mdot_div, double tu_s, void* J, int L, void* stream) {
+                      double mdot_div, double tu_s, void* J, void* scratch, int L,
+                      void* stream) {
   if (L < 1 || n_segments < 1 || n_segments > 20) return static_cast<int>(cudaErrorInvalidValue);
-  shoot_jvp_kernel<<<blocks_for(2 * jvp_target_threads(L) + 64LL * L), kThreads, 0,
-                     static_cast<cudaStream_t>(stream)>>>(
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  shoot_jvp_kernel<<<blocks_for(jvp_threads(L, n_segments)), kThreads, 0, st>>>(
       static_cast<const float*>(theta), static_cast<const float*>(tgt),
       static_cast<const float*>(state0), static_cast<const float*>(period),
       static_cast<const float*>(vstable), static_cast<const float*>(spiral), thrust, n_segments,
       static_cast<float>(min_mani), static_cast<float>(max_mani),
-      consts(mu, a_coef, mdot_div, tu_s), static_cast<float*>(J), L);
+      consts(mu, a_coef, mdot_div, tu_s), static_cast<float*>(J), static_cast<float*>(scratch),
+      L);
+  const int err = static_cast<int>(cudaGetLastError());
+  if (err) return err;
+  shoot_jvp_combine_kernel<<<blocks_for(static_cast<long long>(L) * kNres), kThreads, 0, st>>>(
+      static_cast<const float*>(scratch), n_segments, static_cast<float*>(J), L);
   return static_cast<int>(cudaGetLastError());
 }
+
+// shoot_jvp's floats of scratch a lane and its leg jobs a lane
+// (ops/cr3bp.py: JVP_SCRATCH, jvp_jobs).
+int rdm_shoot_jvp_scratch() { return kJvpScratch; }
+int rdm_shoot_jvp_leg_jobs(int n_segments) { return jvp_leg_jobs(n_segments); }
 
 // The lanes a row of the float32 and the float64 chain take as built
 // (ops/cr3bp.py: LANES).

@@ -32,7 +32,11 @@ same integrations as XLA scans inside one vmapped program
   7 x 66 Jacobian of the float32 residual as forward-mode derivatives on
   dual numbers (the phase column on nested duals through the tangent
   transport).  Plain version: the same derivatives on the dual numbers of
-  ``physics/dual.py``.
+  ``physics/dual.py``.  A leg job integrates one leg with one tangent
+  (``jvp_jobs``), a thread a job; columns 64-65 carry the target's tangent
+  through the backward leg as -Phi dT, Phi the leg's sensitivity to its
+  start state (six more jobs), formed with column 0's two legs by a
+  second, small launch.
 
 What limits them. Every kernel here is bound by a chain of dependent RK4
 steps, each waiting on square roots and divisions, as much as by its
@@ -55,7 +59,8 @@ once by an intrinsic, fused where that kernel was fused: the header of
 ``csrc/cr3bp_shoot.cu``), four lanes each taking one square root and up
 to three divisions. ``shoot_jvp`` launches its two target columns
 first (``jvp_layout``), on the same chain code, so that they start in the
-first wave and run under the leg columns. The layouts are mirrored here
+first wave and run under the leg jobs; each leg job runs one leg, 192
+steps (t_shoot's column moves both legs: a job each). The layouts are mirrored here
 (``target_layout``, ``jvp_layout``, ``fd_layout``); the card tests hold the
 lanes a row to the built library. A row's result does not depend on how
 many rows share its launch or where it lies in it.
@@ -137,6 +142,18 @@ def shoot_jvp_ops(L: int, n_segments: int = 20) -> int:
     return L * per_lane
 
 
+def shoot_jvp_design_ops(L: int, n_segments: int = 20) -> int:
+    """Operations of ``shoot_jvp`` as it runs now on L lanes: each leg job
+    one dual leg, the target columns' chains without a leg, and the
+    combine's products.  ``shoot_jvp_ops`` stays the bound, the count every
+    design is held to."""
+    fwd, bwd = _leg_steps(n_segments)
+    leg = DUAL_OPS * rk4_ops(OPS_EOM7, 7)
+    legs = sum((bwd if side else fwd) * leg for side, _ in jvp_jobs(n_segments))
+    chain = (256 * (DUAL_OPS**2 + DUAL_OPS) + 2 * 1024 * DUAL_OPS) * rk4_ops(OPS_ODE6, 6)
+    return L * (legs + chain + NRES * 2 * 12)
+
+
 # ---------------------------------------------------------------------------
 # the manifold chain's layout (csrc/cr3bp_shoot.cu), mirrored; the card tests
 # hold the lanes a row to the built library (rdm_shoot_chain_lanes)
@@ -164,30 +181,62 @@ def target_layout(M: int, dtype=torch.float32) -> dict:
                 store=live & (row < M))
 
 
+# shoot_jvp's leg jobs (kSeedState, kJvpScratch and its offsets): the code
+# of a job seeded on the backward leg's start state component i
+# (SEED_STATE + i), and the floats a lane of the scratch between its two
+# launches holds: t_shoot's forward and backward tangents [7] each, Phi
+# [7, 6], dT [2, 6]
+SEED_STATE = 100
+JVP_SCRATCH_AT = {"f0": 0, "b0": 7, "phi": 14, "dT": 14 + 7 * 6}
+JVP_SCRATCH = JVP_SCRATCH_AT["dT"] + 2 * 6
+
+
 def jvp_target_threads(L: int) -> int:
     """Threads of each of shoot_jvp's target columns: L groups, whole warps."""
     return -(-L * LANES[torch.float32] // 32) * 32
 
 
-def jvp_layout(L: int) -> dict:
-    """shoot_jvp's grid at L lanes, a thread an entry: ``col`` (-1 past the
-    grid's work), ``lane``, ``j`` (its place in a target column's group),
-    ``stride`` (the lanes a row in the target columns, 1 in the leg columns)
-    and ``store``; a storing thread writes the rows i of J with
-    i % stride == j.  The target columns 64 and 65 come first, then columns
-    0-63, each L threads."""
+def jvp_jobs(n_segments: int) -> list:
+    """shoot_jvp's leg jobs a lane in the kernel's order, as (leg, column):
+    leg 0 forward, 1 backward; the forward leg's 0, 1 and each forward
+    segment's controls, the backward leg's 0, 2, 63, each backward
+    segment's controls and its start state (SEED_STATE + 0..5)."""
+    n_fwd = (n_segments + 1) // 2
+    return ([(0, c) for c in (0, 1, *range(3, 3 + 3 * n_fwd))]
+            + [(1, c) for c in (0, 2, 63, *range(3 + 3 * n_fwd, 3 + 3 * n_segments))]
+            + [(1, SEED_STATE + i) for i in range(6)])
+
+
+def jvp_threads(L: int, n_segments: int = 20) -> int:
+    """Threads of shoot_jvp's first grid at L lanes."""
+    return 2 * jvp_target_threads(L) + len(jvp_jobs(n_segments)) * L
+
+
+def jvp_layout(L: int, n_segments: int = 20) -> dict:
+    """shoot_jvp's first grid at L lanes, a thread an entry: ``col`` (64 or
+    65 for a target column's thread, -1 otherwise), ``job`` (a leg job's
+    index in ``jvp_jobs``, -1 otherwise; both -1 past the grid's work),
+    ``lane``, ``j`` (its place in a target column's group), ``store`` (a
+    target thread stores the target's tangent component j), and a leg
+    job's ``leg`` and ``seeded`` (its column in ``jvp_jobs``), -1 for other
+    threads.  The target columns 64 and 65 come first, a group of LANES
+    lanes a lane in whole warps, then the leg jobs, job by job, L threads
+    each."""
     G = LANES[torch.float32]
     per_col = jvp_target_threads(L)
-    n = 2 * per_col + 64 * L
+    jobs = np.array(jvp_jobs(n_segments))
+    n = jvp_threads(L, n_segments)
     t = np.arange(_blocks(n) * THREADS)
     tgt = t < 2 * per_col
     grp = (t % per_col) // G
+    j = t % per_col % G
     legs = t - 2 * per_col
-    col = np.where(tgt, 64 + t // per_col, legs // L)
-    return dict(col=np.where(t < n, col, -1),
+    job = np.where(~tgt & (t < n), legs // max(L, 1), -1)
+    return dict(col=np.where(tgt, 64 + t // per_col, -1), job=job,
                 lane=np.where(tgt, np.minimum(grp, L - 1), legs % L),
-                j=np.where(tgt, t % per_col % G, 0), stride=np.where(tgt, G, 1),
-                store=(t < n) & (~tgt | (grp < L)))
+                j=np.where(tgt, j, 0), store=tgt & (grp < L) & (j < 6),
+                leg=np.where(job >= 0, jobs[job, 0], -1),
+                seeded=np.where(job >= 0, jobs[job, 1], -1))
 
 
 def moves(col: int, leg: int, n_segments: int) -> bool:
@@ -289,6 +338,35 @@ def _tangent(x, like):
     return x.d if isinstance(x, _dual.Dual) else torch.zeros_like(like)
 
 
+def backward_leg_plain(s, theta, thrust, n_segments):
+    """The backward leg of L lanes from the 7 components s (tensors or duals
+    of [L]) with theta's controls and times as they are: coast t_c2, then
+    segments n_segments - 1 down to n_fwd.  Its tangents are those the
+    start state carries: seeded on the start state's six components, the
+    leg's sensitivity Phi that ``shoot_jvp`` applies to the target's
+    tangent."""
+    from ..physics import cr3bp
+
+    d = _dual
+    T = theta.t()
+    n_fwd = (n_segments + 1) // 2
+
+    def eom(u, thr):
+        return lambda x: cr3bp.eom_c(x, u, thr, thrust)
+
+    dt = (-torch.clamp(T[2], min=0.0)) / 32
+    for _ in range(32):
+        s = d.rk4_c(eom((0.0, 0.0, 0.0), 0.0), s, dt)
+    dt = -((torch.clamp(T[0], min=1e-3) / n_segments) / 16)
+    for k in range(n_segments - 1, n_fwd - 1, -1):
+        a, b = T[3 + 3 * k], T[4 + 3 * k]
+        u = (b.cos() * a.cos(), b.cos() * a.sin(), b.sin())
+        thr = torch.clamp(T[5 + 3 * k], 0.0, 1.0)
+        for _ in range(16):
+            s = d.rk4_c(eom(u, thr), s, dt)
+    return s
+
+
 def shoot_jvp_reference(theta, tgt, state0, period, vstable, spiral_end, thrust,
                         n_segments, min_mani, max_mani):
     """J [L, 7, 66] of the float32 residual on dual numbers, as the kernel
@@ -314,12 +392,10 @@ def shoot_jvp_reference(theta, tgt, state0, period, vstable, spiral_end, thrust,
     t_shoot = var(0, torch.clamp(T[0], min=1e-3), d.max_d(T[0], 1e-3))
     seg_dt = t_shoot / n_segments
 
-    def segment(s, k, dt, seeded=True):
-        a, b, r = T[3 + 3 * k], T[4 + 3 * k], T[5 + 3 * k]
-        thr = torch.clamp(r, 0.0, 1.0)
-        if seeded:
-            a, b = var(3 + 3 * k, a), var(4 + 3 * k, b)
-            thr = var(5 + 3 * k, thr, d.clip_d(r, 0.0, 1.0))
+    def segment(s, k, dt):
+        r = T[5 + 3 * k]
+        a, b = var(3 + 3 * k, T[3 + 3 * k]), var(4 + 3 * k, T[4 + 3 * k])
+        thr = var(5 + 3 * k, torch.clamp(r, 0.0, 1.0), d.clip_d(r, 0.0, 1.0))
         u = (b.cos() * a.cos(), b.cos() * a.sin(), b.sin())
         for _ in range(16):
             s = d.rk4_c(eom(u, thr), s, dt)
@@ -373,10 +449,7 @@ def shoot_jvp_reference(theta, tgt, state0, period, vstable, spiral_end, thrust,
     for _ in range(1024):
         s = d.rk4_c(manifold.ode6_c, s, dt)
     # the backward leg from that target, controls and times as they are
-    t_shoot = torch.clamp(T[0], min=1e-3)
-    s = coast(s + (torch.clamp(T[63], 301.0, 752.0),), (-torch.clamp(T[2], min=0.0)) / 32)
-    for k in range(n_segments - 1, n_fwd - 1, -1):
-        s = segment(s, k, -((t_shoot / n_segments) / 16), seeded=False)
+    s = backward_leg_plain(s + (torch.clamp(T[63], 301.0, 752.0),), theta, thrust, n_segments)
     rows = [-_tangent(s[i], torch.zeros_like(zero).expand(2, L)) for i in range(7)]
     rows[6] = rows[6] / 100.0
     tail = torch.stack(rows, dim=0).permute(2, 0, 1)         # [L, 7, 2]
@@ -540,9 +613,11 @@ def shoot_jvp(theta, tgt, state0, period, vstable, spiral_end, thrust, n_segment
         return shoot_jvp_reference(*ins, thrust, n_segments, min_mani, max_mani)
     J = torch.empty((L, NRES, NVAR), dtype=theta.dtype, device=theta.device)
     if L:
-        _launch("rdm_shoot_jvp_f32", [_P] * 6 + [_D, _I] + [_D] * 6 + [_P, _I, _P],
+        scratch = torch.empty((L, JVP_SCRATCH), dtype=theta.dtype, device=theta.device)
+        _launch("rdm_shoot_jvp_f32", [_P] * 6 + [_D, _I] + [_D] * 6 + [_P, _P, _I, _P],
                 [t.data_ptr() for t in ins] + [float(thrust), int(n_segments), float(min_mani),
-                                               float(max_mani), *consts(), J.data_ptr(), L],
+                                               float(max_mani), *consts(), J.data_ptr(),
+                                               scratch.data_ptr(), L],
                 theta.device)
         _count(shoot_jvp)
     return J

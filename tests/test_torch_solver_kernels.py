@@ -119,6 +119,40 @@ def test_chain_lanes_match_the_source():
     assert int(consts["kThreads"]) == int(consts["kFdThreads"]) == shoot_ops.THREADS
 
 
+def test_jvp_constants_match_the_source():
+    """shoot_jvp's start state seed code and the scratch's offsets as the
+    mirror has them are the source's."""
+    with open(SOURCE) as f:
+        src = f.read()
+    (seed,) = re.findall(r"constexpr int kSeedState = (\d+);", src)
+    assert int(seed) == shoot_ops.SEED_STATE
+    (offsets,) = re.findall(r"constexpr int kScrF0 = (\d+), kScrB0 = (\d+), kScrPhi = (\d+), "
+                            r"kScrDT = (\d+) \+ (\d+) \* (\d+);", src)
+    f0, b0, phi, dt, rows, cols = map(int, offsets)
+    at = shoot_ops.JVP_SCRATCH_AT
+    assert (f0, b0, phi, dt + rows * cols) == (at["f0"], at["b0"], at["phi"], at["dT"])
+    assert "constexpr int kJvpScratch = kScrDT + 2 * 6;" in src
+    assert shoot_ops.JVP_SCRATCH == at["dT"] + 12
+
+
+@pytest.mark.parametrize("n_segments", range(1, 21))
+def test_jvp_jobs_seed_each_moved_leg_once(n_segments):
+    """shoot_jvp's leg jobs: each column 0-63 is seeded on exactly the legs
+    it moves, once each (t_shoot on both, the others on one), the start
+    state's six components once on the backward leg, and the forward jobs
+    come first."""
+    jobs = shoot_ops.jvp_jobs(n_segments)
+    seen = {}
+    for leg, c in jobs:
+        seen[c, leg] = seen.get((c, leg), 0) + 1
+    want = {(c, g): 1 for c in range(64) for g in (0, 1) if shoot_ops.moves(c, g, n_segments)}
+    want.update({(shoot_ops.SEED_STATE + i, 1): 1 for i in range(6)})
+    assert seen == want
+    legs = [leg for leg, _ in jobs]
+    assert legs == sorted(legs)
+    assert len(jobs) == 3 * n_segments + 11
+
+
 @pytest.mark.parametrize("M", [1, 2, 3, 4, 5, 7, 8, 15, 16, 17, 37, 100, 511, 1024, 1025,
                                8192, 10240])
 def test_target_layout_stores_each_row_component_once(M):
@@ -143,23 +177,73 @@ def test_target_layout_stores_each_row_component_once(M):
 
 @pytest.mark.parametrize("L", [1, 2, 3, 4, 5, 7, 8, 15, 16, 17, 33, 100, 257, 1000, 1023, 1024])
 def test_jvp_layout_covers_each_lane_column_once(L):
-    """shoot_jvp's grid at ragged lane counts: each (lane, column, row of J)
-    is written by exactly one thread, the target columns' threads come
-    before every leg column's, and no warp mixes two columns of the targets
-    or a target column with the legs."""
-    lay = shoot_ops.jvp_layout(L)
-    written = np.zeros((L, 66, 7), dtype=int)
-    s = np.flatnonzero(lay["store"])
-    for i in range(7):
-        w = s[i % lay["stride"][s] == lay["j"][s]]
-        np.add.at(written, (lay["lane"][w], lay["col"][w], i), 1)
-    assert (written == 1).all()
-    col = lay["col"]
-    targets, legs = np.flatnonzero(col >= 64), np.flatnonzero((col >= 0) & (col < 64))
-    assert targets.max() < legs.min()
-    warps = col[: targets.max() + 1].reshape(-1, 32)
-    assert (warps == warps[:, :1]).all()
-    assert (lay["stride"][legs] == 1).all() and (lay["j"][legs] == 0).all()
+    """shoot_jvp's two launches at ragged lane counts, at 20 and 7
+    segments: each (lane, column, row of J) is stored exactly once (a leg
+    job's column by the job; column 0 from t_shoot's forward and backward
+    tangents, columns 64 and 65 as -Phi dT, and the columns of segments
+    past the last as zeros, by the combine launch, a thread per lane and
+    row), each entry of a lane's scratch is written by exactly one thread
+    (column 0's two legs, Phi by the start state's jobs, dT by lane j < 6 of
+    a target column's group), the target columns' threads come before
+    every leg job's, no warp mixes the two target columns or a target
+    column with the legs, and the groups past the last lane store
+    nothing."""
+    at = shoot_ops.JVP_SCRATCH_AT
+    for n_segments in (20, 7):
+        lay = shoot_ops.jvp_layout(L, n_segments)
+        assert len(lay["col"]) % shoot_ops.THREADS == 0
+        written = np.zeros((L, 66, 7), dtype=int)
+        scratch = np.zeros((L, shoot_ops.JVP_SCRATCH), dtype=int)
+        s = np.flatnonzero(lay["store"])
+        np.add.at(scratch, (lay["lane"][s], at["dT"] + (lay["col"][s] - 64) * 6 + lay["j"][s]), 1)
+        legs = np.flatnonzero(lay["job"] >= 0)
+        assert len(legs) == len(shoot_ops.jvp_jobs(n_segments)) * L
+        col, lane, fwd = lay["seeded"][legs], lay["lane"][legs], lay["leg"][legs] == 0
+        rows = np.arange(7)
+        for t in np.flatnonzero((col > 0) & (col < 64)):
+            written[lane[t], col[t], rows] += 1
+        for t in np.flatnonzero(col == 0):
+            scratch[lane[t], (at["f0"] if fwd[t] else at["b0"]) + rows] += 1
+        for t in np.flatnonzero(col >= shoot_ops.SEED_STATE):
+            assert not fwd[t]
+            scratch[lane[t], at["phi"] + rows * 6 + col[t] - shoot_ops.SEED_STATE] += 1
+        written[:, [0, 64, 65]] += 1
+        written[:, 3 + 3 * n_segments:63] += 1
+        assert (written == 1).all() and (scratch == 1).all()
+        col = lay["col"]
+        targets = np.flatnonzero(col >= 64)
+        assert targets.max() < legs.min()
+        warps = col[: targets.max() + 1].reshape(-1, 32)
+        assert (warps == warps[:, :1]).all()
+        live = (lay["job"] >= 0) | (col >= 64)
+        assert not live[len(targets) + len(legs):].any()
+
+
+def test_backward_leg_sensitivity_transports_a_seed():
+    """The identity behind shoot_jvp's columns 64 and 65, in float64 on the
+    dual numbers of physics/dual.py: the backward leg's sensitivity Phi
+    [7 x 6] to its start state (six tangents seeded on the start state)
+    times a seed equals that seed carried through the leg as one tangent,
+    within 1e-10 of the lane's largest entry, at 20 and 7 segments on 4
+    seeded round-2 lanes; the mass row of Phi is zero."""
+    from rdm_tpu_torch.physics.dual import Dual
+
+    theta, d64, _, _ = lanes(4, 11, "cpu")
+    tgt = shoot_ops.manifold_target(*d64, theta[:, 64].contiguous(), theta[:, 65].contiguous())
+    mass = torch.clamp(theta[:, 63], 301.0, 752.0)
+    E = torch.eye(6, dtype=torch.float64)[:, :, None]
+    v = torch.from_numpy(np.random.default_rng(12).standard_normal((6, 4)))
+    for n_segments in (20, 7):
+        phi_leg = shoot_ops.backward_leg_plain(
+            tuple(Dual(tgt[:, i], E[:, i]) for i in range(6)) + (mass,), theta, 1.0, n_segments)
+        one = shoot_ops.backward_leg_plain(
+            tuple(Dual(tgt[:, i], v[i]) for i in range(6)) + (mass,), theta, 1.0, n_segments)
+        phi = torch.stack([shoot_ops._tangent(x, v) for x in phi_leg])                  # [7, 6, L]
+        w = torch.stack([shoot_ops._tangent(x, v[0]) for x in one])                      # [7, L]
+        assert (phi[6] == 0).all() and (w[6] == 0).all()
+        got = (phi * v[None]).sum(1)
+        scale = w.abs().amax(0)
+        assert ((got - w).abs().amax(0) / scale).max() < 1e-10
 
 
 @pytest.mark.parametrize("n_segments", range(1, 21))
@@ -319,11 +403,17 @@ def test_split_on_a_fresh_build_directory(cuda_device, tmp_path, monkeypatch):
 
 @pytest.mark.gpu
 def test_chain_layout_matches_the_built_library(cuda_device):
-    """The mirror's lanes a row in both types are the built library's."""
+    """The mirror's lanes a row in both types, and shoot_jvp's leg jobs a
+    lane at 1-20 segments and floats of scratch a lane, are the built
+    library's."""
     from rdm_tpu_torch.ops import _build
     lib = _build.load_library("cr3bp_shoot")
     assert lib.rdm_shoot_chain_lanes() == shoot_ops.LANES[torch.float32]
     assert lib.rdm_shoot_chain_lanes_f64() == shoot_ops.LANES[torch.float64]
+    # shoot_jvp's leg jobs a lane and its scratch
+    assert lib.rdm_shoot_jvp_scratch() == shoot_ops.JVP_SCRATCH
+    assert [lib.rdm_shoot_jvp_leg_jobs(n) for n in range(1, 21)] == [
+        len(shoot_ops.jvp_jobs(n)) for n in range(1, 21)]
 
 
 @pytest.fixture(scope="module")
